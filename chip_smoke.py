@@ -1,0 +1,382 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout on a machine with one NVIDIA H100, the CUDA
+toolkit (``nvcc``) and a CUDA build of PyTorch.  Phases, each of which
+exits non-zero on failure:
+
+  1. Build the hand-written kernels from ``src/repro_torch/kernels/csrc``
+     with nvcc (printing the build seconds and ptxas's register report) and
+     print the card's name and power limit.
+  2. Hold each kernel against its plain PyTorch version on the card at the
+     main path's shapes: ``fed_reduce`` bitwise (FedAvg, FedBuff flush, and
+     a packed T=8 cohort with the int8 round trip), ``fed_aggregate``
+     bitwise at M=1 and within rtol=1e-6 at M=16.  One JSON line per case
+     with the kernel's, the plain version's and one PyTorch library call's
+     median time (CUDA events, L2 flushed before each launch) and the
+     bound: the larger of the bytes at 3.35 TB/s and the f32 operations
+     at 67 TFLOP/s.
+  3. Drive the main path on the card: ``FLServer`` with ``MLP_EMNIST`` at
+     full width (784-200-62, 169,462 params) over the full ``emnist_like``
+     federation, FedTune on, in sync (M=20, E=2, 5 rounds), async (M=10,
+     10 aggregations) and buffered (K=8, stragglers fleet, 2 flushes)
+     modes.  Each kernel's launch count is set to 0 just before each mode
+     and read just after; every kernel must have launched.
+  4. Run the first 3 sync rounds again on the CPU (plain kernels) from the
+     same initial params: (M, E) per round and the cost totals must be
+     identical and accuracy must agree within 0.01.
+
+The line before the last is the kernels' JSON summary; the last line is
+``{"ok": true, "device": {...}}``.  Without a GPU, or without the port's
+sources beside this file, it exits 1 and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+HBM_BYTES_PER_S = 3.35e12           # H100 SXM HBM3 (NVIDIA data sheet)
+F32_FLOPS_PER_S = 67e12             # H100 SXM f32 outside the tensor cores
+N_PARAMS = 169_462                  # MLP_EMNIST: 784 -> 200 -> 62
+
+
+def fail(msg: str):
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def check(cond: bool, msg: str):
+    if not cond:
+        fail(msg)
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def bound(nbytes: float, flops: float):
+    """The least time (ms) the card could take, and what sets it: the
+    bytes over HBM bandwidth or the f32 operations over the f32 peak."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / F32_FLOPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+# ---------------------------------------------------------------------------
+# timing
+# ---------------------------------------------------------------------------
+
+def median_ms(torch, fn, flush, iters: int = 30, warmup: int = 3) -> float:
+    """Median time of one ``fn()`` on the card.  Before each timed call a
+    256 MB memset evicts the 50 MB L2 and keeps the stream busy while the
+    host enqueues ``fn``, so the event pair brackets the device work (and
+    whatever host gaps ``fn`` itself leaves between its own launches)."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        times.append((start, end))
+    torch.cuda.synchronize()
+    ms = sorted(s.elapsed_time(e) for s, e in times)
+    return ms[len(ms) // 2]
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def kernel_cases(torch, np, card, flush):
+    from repro_torch.kernels import fed_aggregate as fa_mod
+    from repro_torch.kernels import fed_reduce as fr_mod
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    n = N_PARAMS
+    leaf_sizes = (200, 784 * 200, 62, 200 * 62)      # b0, w0, b1, w1
+    results = []
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a)).to(dev)
+
+    def reduce_case(name, m, t_seg, seg, w, rows, base, normalize,
+                    quant=None):
+        kw = dict(normalize=normalize)
+        if quant is not None:
+            kw.update(leaf_sizes=leaf_sizes, quant_ref=quant[0],
+                      quant_enabled=quant[1])
+        got = fr_mod.fed_reduce(w, rows, seg, t_seg, base, **kw)
+        want = ref.fed_reduce_ref(w, rows, seg, t_seg, base, **kw)
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(got, want))
+        err = float((got - want).abs().max())
+        check(equal, f"fed_reduce {name}: kernel != plain version "
+                     f"(max abs err {err})")
+        # the library yardstick: the fold as one index_add of w~ * x
+        w_n = ref._norm_weights(w, seg.tolist(), t_seg, normalize)
+        x = rows if quant is None else ref._quant_rows(
+            rows, seg, quant[0], quant[1], leaf_sizes)
+        wx = w_n[:, None] * x
+        acc0 = base if base is not None else torch.zeros(
+            (t_seg, n), dtype=torch.float32, device=dev)
+        seg_l = seg.long()
+        nbytes = 4 * (m * n + 2 * m + t_seg * n * (2 if base is not None
+                                                   else 1))
+        flops = 2 * m * n + (t_seg * n if base is not None else 0)
+        if quant is not None:
+            nbytes += 4 * t_seg * n + m         # quant_ref, quant mask
+        bound_ms, bound_by = bound(nbytes, flops)
+        rec = dict(
+            phase="kernel_check", kernel="fed_reduce", case=name,
+            shape=dict(M=m, N=n, T=t_seg), normalize=normalize,
+            base=base is not None, quant=quant is not None,
+            check="bitwise", equal=equal, max_abs_err=err,
+            ms=median_ms(torch, lambda: fr_mod.fed_reduce(
+                w, rows, seg, t_seg, base, **kw), flush),
+            plain_ms=median_ms(torch, lambda: ref.fed_reduce_ref(
+                w, rows, seg, t_seg, base, **kw), flush, iters=10),
+            library_ms=median_ms(torch, lambda: torch.index_add(
+                acc0, 0, seg_l, wx), flush),
+            library_call="torch.index_add(base, 0, seg, w~*x) "
+                         "(fold only, w~*x precomputed)",
+            bytes=nbytes, flops=flops, bound_ms=bound_ms, bound_by=bound_by,
+            card=card)
+        emit(rec)
+        results.append(rec)
+
+    # FedAvg: T=1, M=20 raw counts, normalize, no base
+    m = 20
+    reduce_case("fedavg", m, 1, t(np.zeros(m, np.int32)),
+                t(rng.integers(1, 300, m).astype(np.float32)),
+                t(rng.standard_normal((m, n)).astype(np.float32) * 0.05),
+                None, True)
+    # FedBuff flush: T=1, M=8 staleness weights, base, no normalize
+    m = 8
+    reduce_case("fedbuff_flush", m, 1, t(np.zeros(m, np.int32)),
+                t(rng.uniform(0.05, 0.125, m).astype(np.float32)),
+                t(rng.standard_normal((m, n)).astype(np.float32) * 1e-3),
+                t(rng.standard_normal((1, n)).astype(np.float32) * 0.05),
+                False)
+    # packed cohort: T=8, M=64 interleaved, segment 5 empty, one zero
+    # weight, int8 round trip with a per-row quant mask
+    m, t_seg = 64, 8
+    seg = rng.choice([0, 1, 2, 3, 4, 6, 7], m).astype(np.int32)
+    w = rng.uniform(1.0, 300.0, m).astype(np.float32)
+    w[17] = 0.0
+    g = rng.standard_normal((t_seg, n)).astype(np.float32) * 0.05
+    rows = g[seg] + rng.standard_normal((m, n)).astype(np.float32) * 1e-2
+    reduce_case("packed_quant", m, t_seg, t(seg), t(w), t(rows), t(g),
+                True, quant=(t(g), t(np.arange(m) % 3 != 0)))
+
+    def aggregate_case(name, m, bitwise):
+        w = t(rng.uniform(0.0, 1.0, m).astype(np.float32))
+        d = t(rng.standard_normal((m, n)).astype(np.float32) * 0.05)
+        base = t(rng.standard_normal(n).astype(np.float32) * 0.05)
+        got = fa_mod.fed_aggregate(w, d, base)
+        want = ref.fed_aggregate_ref(w, d, base)
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(got, want))
+        err = float((got - want).abs().max())
+        if bitwise:
+            check(equal, f"fed_aggregate {name}: kernel != plain version "
+                         f"(max abs err {err})")
+        else:
+            check(bool(torch.allclose(got, want, rtol=1e-6, atol=0.0)),
+                  f"fed_aggregate {name}: kernel vs plain version beyond "
+                  f"rtol=1e-6 (max abs err {err})")
+        nbytes = 4 * (m * n + m + 2 * n)
+        flops = 2 * m * n + n
+        bound_ms, bound_by = bound(nbytes, flops)
+        dt = d.t()
+        rec = dict(
+            phase="kernel_check", kernel="fed_aggregate", case=name,
+            shape=dict(M=m, N=n), check="bitwise" if bitwise else
+            "rtol=1e-6", equal=equal, max_abs_err=err,
+            ms=median_ms(torch, lambda: fa_mod.fed_aggregate(w, d, base),
+                         flush),
+            plain_ms=median_ms(torch, lambda: ref.fed_aggregate_ref(
+                w, d, base), flush),
+            library_ms=median_ms(torch, lambda: torch.addmv(base, dt, w),
+                                 flush),
+            library_call="torch.addmv(base, deltas.T, w)",
+            bytes=nbytes, flops=flops, bound_ms=bound_ms, bound_by=bound_by,
+            card=card)
+        emit(rec)
+        results.append(rec)
+
+    aggregate_case("fedasync_mix", 1, True)
+    aggregate_case("m16", 16, False)
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phase 3/4: the main path
+# ---------------------------------------------------------------------------
+
+def main_path(torch, card, init_params):
+    from repro_torch.kernels import fed_aggregate as fa_mod
+    from repro_torch.kernels import fed_reduce as fr_mod
+    from repro_torch.launch.profile_trial import smoke_server
+    from repro_torch.tree import leaves, tree_map
+
+    runs = {}
+    launches = {"fed_reduce": 0, "fed_aggregate": 0}
+    plans = [("sync", dict(m=20, max_rounds=5)),
+             ("async", dict(m=10, max_rounds=10, fleet_name="stragglers")),
+             ("buffered", dict(m=10, max_rounds=2, buffer_k=8,
+                               fleet_name="stragglers"))]
+    for mode, kw in plans:
+        srv = smoke_server(mode, device="cuda", **kw)
+        params = tree_map(lambda p: p.to("cuda"), init_params)
+        torch.cuda.synchronize()
+        fr_mod.launches = 0
+        fa_mod.launches = 0
+        t0 = time.perf_counter()
+        res = srv.run(params)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {"fed_reduce": fr_mod.launches,
+                  "fed_aggregate": fa_mod.launches}
+        for k, v in counts.items():
+            launches[k] += v
+        check(res.rounds == kw["max_rounds"],
+              f"{mode}: ran {res.rounds} aggregations, wanted "
+              f"{kw['max_rounds']}")
+        check(all(p.device.type == "cuda" for p in leaves(res.params)),
+              f"{mode}: final params are not all on cuda")
+        accs = [h.accuracy for h in res.history]
+        check(all(math.isfinite(a) and 0.0 <= a <= 1.0 for a in accs),
+              f"{mode}: accuracy not finite in [0, 1]: {accs}")
+        check(all(c > 0 for c in res.total_cost.as_tuple()),
+              f"{mode}: cost totals not all positive: "
+              f"{res.total_cost.as_tuple()}")
+        check(srv.local_steps > 0, f"{mode}: no local steps ran")
+        rec = dict(phase="main_path", mode=mode, rounds=res.rounds,
+                   m_e=[(h.m, h.e) for h in res.history], accuracy=accs,
+                   costs=list(res.total_cost.as_tuple()),
+                   sim_time=res.sim_time, wall_s=wall,
+                   rounds_per_s=res.rounds / wall,
+                   local_steps=srv.local_steps,
+                   local_steps_per_s=srv.local_steps / wall,
+                   launches=counts, card=card)
+        emit(rec)
+        runs[mode] = res
+    check(launches["fed_reduce"] > 0, "fed_reduce never launched on the "
+                                      "main path")
+    check(launches["fed_aggregate"] > 0, "fed_aggregate never launched on "
+                                         "the main path")
+    return runs, launches
+
+
+def card_vs_cpu(sync_res, init_params):
+    from repro_torch.launch.profile_trial import smoke_server
+
+    n_rounds = 3
+    srv = smoke_server("sync", m=20, max_rounds=n_rounds, device="cpu")
+    t0 = time.perf_counter()
+    cpu = srv.run(init_params)
+    wall = time.perf_counter() - t0
+    card_hist = sync_res.history[:n_rounds]
+    me_card = [(h.m, h.e) for h in card_hist]
+    me_cpu = [(h.m, h.e) for h in cpu.history]
+    check(me_card == me_cpu, f"(M, E) per round differ: card {me_card}, "
+                             f"cpu {me_cpu}")
+    tot = [0.0, 0.0, 0.0, 0.0]
+    for h in card_hist:                  # the cost model's own summation
+        tot = [a + b for a, b in zip(tot, h.cost.as_tuple())]
+    check(tuple(tot) == cpu.total_cost.as_tuple(),
+          f"cost totals differ: card {tot}, cpu {cpu.total_cost.as_tuple()}")
+    acc_card = [h.accuracy for h in card_hist]
+    acc_cpu = [h.accuracy for h in cpu.history]
+    diff = max(abs(a - b) for a, b in zip(acc_card, acc_cpu))
+    check(diff <= 0.01, f"accuracy differs by {diff} > 0.01: card "
+                        f"{acc_card}, cpu {acc_cpu}")
+    emit(dict(phase="card_vs_cpu", rounds=n_rounds, m_e=me_cpu,
+              costs_equal=True, acc_card=acc_card, acc_cpu=acc_cpu,
+              max_acc_diff=diff, cpu_wall_s=wall))
+
+
+def main():
+    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
+        fail(f"the port's sources are not beside this script ({SRC})")
+    sys.path.insert(0, str(SRC))
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs a GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False    # full f32 matmuls
+    torch.backends.cudnn.allow_tf32 = False
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    card = smi.stdout.strip().splitlines()[0]
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]}; card: {card}", flush=True)
+
+    # phase 1: build
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    lib_path = build.build()
+    build.library()
+    build_s = time.perf_counter() - t0
+    log = lib_path.with_suffix(".log")
+    ptxas = [ln.strip() for ln in log.read_text().splitlines()
+             if "registers" in ln or "spill" in ln] if log.exists() else []
+    emit(dict(phase="build", seconds=build_s, library=str(lib_path.name),
+              ptxas=ptxas))
+
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32,
+                        device="cuda")
+    cases = kernel_cases(torch, np, card, flush)
+    del flush
+
+    from repro_torch.models import build_model
+    from repro_torch.configs.paper_models import MLP_EMNIST
+    init_params = build_model(MLP_EMNIST).init(0, "cpu")
+    runs, launches = main_path(torch, card, init_params)
+    card_vs_cpu(runs["sync"], init_params)
+
+    summary = []
+    for name, replaces, main_case in (
+            ("fed_reduce", "src/repro/kernels/fed_reduce.py:45", "fedavg"),
+            ("fed_aggregate", "src/repro/kernels/fed_aggregate.py:23",
+             "fedasync_mix")):
+        mine = [c for c in cases if c["kernel"] == name]
+        head = next(c for c in mine if c["case"] == main_case)
+        summary.append(dict(
+            name=name, route="cuda",
+            source=f"src/repro_torch/kernels/csrc/{name}.cu",
+            replaces=replaces, launches=launches[name],
+            max_abs_err=max(c["max_abs_err"] for c in mine),
+            ms=head["ms"], plain_ms=head["plain_ms"],
+            bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+            library_ms=head["library_ms"], shape=head["shape"],
+            parity={c["case"]: c["check"] for c in mine}))
+    emit({"kernels": summary})
+    print(card, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                 "count": torch.cuda.device_count()}})
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,118 @@
+"""Build the port's CUDA kernels and load them with ctypes.
+
+The ``.cu`` sources under ``csrc/`` are compiled with ``nvcc`` for Hopper
+(``sm_90a``), one ``nvcc`` process per source, all started together, and
+linked into one shared library with a plain C interface.  The library goes
+into ``build/kernels/`` at the repository root (listed in ``.gitignore``),
+named by a hash of the sources and flags, so a changed source rebuilds and
+an unchanged one is reused.  The build runs on first use, never at import:
+a machine without ``nvcc`` imports this module fine and fails only when a
+kernel is asked for.
+
+Usage on a machine with a card and the CUDA toolkit::
+
+    python -m repro_torch.kernels.build     # builds, prints the .so path
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = ("fed_reduce.cu", "fed_aggregate.cu")
+HEADERS = ("common.cuh",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found on PATH or under CUDA_HOME "
+                       "(/usr/local/cuda): the CUDA kernels cannot be built")
+
+
+def source_hash() -> str:
+    h = hashlib.sha256()
+    for name in SOURCES + HEADERS:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"libfedkernels-{source_hash()}.so"
+
+
+def build() -> Path:
+    """Compile and link the kernels unless this source hash is built.
+    Returns the shared library's path; the compiler's output (``-Xptxas
+    -v``: registers, shared memory, spills per kernel) is kept beside it
+    in a ``.log`` file.  Raises on any compiler error."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for src in SOURCES:
+            obj = Path(tmp) / (Path(src).stem + ".o")
+            objs.append(str(obj))
+            procs.append((src, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(CSRC / src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs, failed = [], []
+        for src, proc in procs:
+            text, _ = proc.communicate()
+            logs.append(f"== nvcc {src} (exit {proc.returncode})\n{text}")
+            if proc.returncode != 0:
+                failed.append(src)
+        if failed:
+            raise RuntimeError(f"nvcc failed for {', '.join(failed)}:\n"
+                               + "\n".join(logs))
+        so = Path(tmp) / out.name
+        link = subprocess.run([nvcc, "-shared", "-o", str(so), *objs],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        logs.append(f"== link (exit {link.returncode})\n{link.stdout}")
+        if link.returncode != 0:
+            raise RuntimeError("nvcc link failed:\n" + "\n".join(logs))
+        out.with_suffix(".log").write_text("\n".join(logs))
+        os.replace(so, out)      # atomic: a reader never sees half a file
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The built kernels, loaded once per process, with every entry
+    point's argument and result types declared (pointers and the stream
+    as ``c_void_p``, sizes as ``c_int``)."""
+    lib = ctypes.CDLL(str(build()))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.fed_reduce_f32.argtypes = [ptr, ptr, ptr, ptr, ptr,
+                                   i32, i32, i32, i32, i32, ptr]
+    lib.fed_reduce_f32.restype = i32
+    lib.fed_aggregate_f32.argtypes = [ptr, ptr, ptr, ptr,
+                                      i32, i32, i32, ptr]
+    lib.fed_aggregate_f32.restype = i32
+    return lib
+
+
+if __name__ == "__main__":
+    print(build())

@@ -1,0 +1,143 @@
+"""Plain-PyTorch versions of the kernels (the ground truth in tests).
+
+Counterparts of ``repro.kernels.ref`` with its op order kept exactly, so on
+the same f32 inputs they give the same bits:
+
+  * ``wx = w * x`` is materialised BEFORE the fold, so the fold body is a
+    plain f32 add and nothing can be contracted into an FMA;
+  * each segment's fold is a strict left-to-right ``+=`` over its rows in
+    pack order, so lane t of a T-segment call equals a T=1 call over the
+    same rows (packing invariance);
+  * normalisation is an IEEE division by the segment's sequentially folded
+    weight total, and empty segments divide by 1;
+  * the int8 round trip follows the reference's jitted graph as XLA
+    compiles it: ``max|d| / 127`` becomes a multiply by the f32 reciprocal
+    of 127 (``RECIP_127``), values round half to even (``torch.round``, as
+    ``jnp.round``), and ``g + q * scale`` is one fused multiply-add.
+
+On a CPU tensor the kernel wrappers (``fed_reduce.py``, ``fed_aggregate.py``)
+run these functions; on the card the kernels are held against them.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+# XLA rewrites a division by the constant 127 into a multiply by its f32
+# reciprocal; the port multiplies by the same f32 value.
+RECIP_127 = float(np.float32(1.0) / np.float32(127.0))
+
+
+def fed_aggregate_ref(weights: torch.Tensor, deltas: torch.Tensor,
+                      base: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """weights: (M,), deltas: (M, N) -> (N,).  Optionally adds ``base``.
+    Folds ``w_m * delta_m`` from 0 in row order, then adds ``base``."""
+    w = weights.to(torch.float32)
+    x = deltas.to(torch.float32)
+    out = torch.zeros(x.shape[1], dtype=torch.float32, device=x.device)
+    for m in range(x.shape[0]):
+        out = out + w[m] * x[m]
+    if base is not None:
+        out = out + base.to(torch.float32)
+    return out.to(deltas.dtype)
+
+
+def _fma_f32(a: torch.Tensor, b: torch.Tensor,
+             c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` on f32 tensors, rounded ONCE to f32 (a fused
+    multiply-add).  The reference's jitted dequantisation ``g + q * scale``
+    is contracted into an FMA by XLA, and PyTorch has no FMA op, so this
+    emulates one exactly: the product of two f32 values is exact in f64,
+    the f64 sum is rounded to odd (its exact error from TwoSum decides),
+    and rounding an odd-rounded f64 to f32 is correctly rounded."""
+    p = a.to(torch.float64) * b.to(torch.float64)
+    q = c.to(torch.float64)
+    s = p + q
+    bb = s - p
+    err = (p - (s - bb)) + (q - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.full_like(s, float("inf")),
+                         torch.full_like(s, float("-inf")))
+    nudge = (err != 0) & even & torch.isfinite(s)
+    return torch.where(nudge, torch.nextafter(s, toward), s).to(torch.float32)
+
+
+def _quant_rows(rows: torch.Tensor, segments: torch.Tensor,
+                quant_ref: torch.Tensor,
+                quant_enabled: Optional[torch.Tensor],
+                leaf_sizes: Sequence[int]) -> torch.Tensor:
+    """The int8 upload round trip on flat (M, N) rows, per (row, leaf)
+    scale ``max(max|d|/127, 1e-12)``; row m is quantised against
+    ``quant_ref[seg[m]]``.  Rows with ``quant_enabled`` False pass
+    through untouched."""
+    x = rows.to(torch.float32)
+    g = quant_ref.to(torch.float32)[segments.long()]        # (M, N) gather
+    d = x - g
+    m = rows.shape[0]
+    scales = []
+    off = 0
+    for size in leaf_sizes:
+        leaf_max = d[:, off:off + size].abs().amax(dim=1)
+        scales.append(torch.clamp_min(leaf_max * RECIP_127, 1e-12))
+        off += size
+    col_scale = torch.cat([s[:, None].expand(m, size)
+                           for s, size in zip(scales, leaf_sizes)], dim=1)
+    q = torch.clamp(torch.round(d / col_scale), -127, 127).to(torch.int8)
+    rec = _fma_f32(q.to(torch.float32), col_scale, g)
+    if quant_enabled is None:
+        return rec
+    return torch.where(quant_enabled.to(torch.bool)[:, None], rec, x)
+
+
+def _seg_fold(values: torch.Tensor, segments: Sequence[int],
+              num_segments: int) -> torch.Tensor:
+    """Left-to-right fold of rows into per-segment f32 accumulators.
+    values: (M,) or (M, N); segments: M host ints.  Each accumulator only
+    sees its own segment's rows, in pack order."""
+    acc = torch.zeros((num_segments,) + tuple(values.shape[1:]),
+                      dtype=torch.float32, device=values.device)
+    v = values.to(torch.float32)
+    for m, s in enumerate(segments):
+        acc[s] = acc[s] + v[m]
+    return acc
+
+
+def _norm_weights(weights: torch.Tensor, segments: Sequence[int],
+                  num_segments: int, normalize: bool) -> torch.Tensor:
+    """f32 weights, divided by their per-segment totals when asked.  The
+    totals are the same sequential fold; empty segments divide by 1."""
+    w = weights.to(torch.float32)
+    if not normalize:
+        return w
+    tot = _seg_fold(w, segments, num_segments)
+    tot = torch.where(tot > 0, tot, torch.ones_like(tot))
+    return w / tot[list(segments)]
+
+
+def fed_reduce_ref(weights: torch.Tensor, rows: torch.Tensor,
+                   segments: torch.Tensor, num_segments: int,
+                   base: Optional[torch.Tensor] = None, *,
+                   normalize: bool = False,
+                   leaf_sizes: Optional[Sequence[int]] = None,
+                   quant_ref: Optional[torch.Tensor] = None,
+                   quant_enabled: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
+    """Fused segment aggregation over a packed multi-trial flat cohort.
+
+    weights: (M,), rows: (M, N), segments: (M,) int trial slots ->
+    (num_segments, N): ``out[t] = base[t] + sum_{seg[m]=t} w~_m * x_m``
+    with the optional int8 round trip against ``quant_ref`` and weight
+    normalisation, in ``repro.kernels.ref.fed_reduce_ref``'s op order."""
+    seg_host = [int(s) for s in segments.tolist()]
+    x = rows.to(torch.float32)
+    if quant_ref is not None:
+        x = _quant_rows(x, segments, quant_ref, quant_enabled, leaf_sizes)
+    w = _norm_weights(weights, seg_host, num_segments, normalize)
+    wx = w[:, None] * x
+    out = _seg_fold(wx, seg_host, num_segments)
+    if base is not None:
+        out = out + base.to(torch.float32)
+    return out.to(rows.dtype)

@@ -1,0 +1,139 @@
+"""Where a trial's time goes on the card: one sync FedTune trial under
+``torch.profiler``.
+
+    PYTHONPATH=src python -m repro_torch.launch.profile_trial [--rounds 3]
+
+Configuration (``smoke_server``, which ``chip_smoke.py`` also drives):
+``MLP_EMNIST`` at full width over the full ``emnist_like`` federation,
+FedAvg, SGD lr 0.03 momentum 0.9, batch 10, M=20, E=2, FedTune preference
+(0.25, 0.25, 0.25, 0.25).  One round runs first, unprofiled, to warm up.
+Prints one JSON line: the same run's wall time unprofiled and profiled, the
+device's busy time (the union of its kernels, copies and memsets) and idle
+share in the profiled window, device activities per local step, and the top
+kernels by device time and operators by host time.  Needs a GPU; raises
+without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import time
+
+from repro_torch.federated.server import FLServer
+
+N_PARAMS = 169_462
+
+
+class CountingServer(FLServer):
+    """FLServer that also counts the local optimizer steps it ran."""
+    local_steps = 0
+
+    def _client_update(self, params, cid, e):
+        upd, n = super()._client_update(params, cid, e)
+        self.local_steps += upd.n_steps
+        return upd, n
+
+
+def smoke_server(mode: str = "sync", *, m: int = 20, max_rounds: int,
+                 device, buffer_k: int = 8, fleet_name=None
+                 ) -> CountingServer:
+    """The smoke configuration (also ``chip_smoke.py``'s): ``MLP_EMNIST``
+    over the full ``emnist_like`` federation, FedAvg, SGD lr 0.03 momentum
+    0.9, batch 10, E=2, FedTune on, in ``mode`` over ``fleet_name`` (None
+    is the homogeneous fleet)."""
+    from repro_torch.configs.paper_models import MLP_EMNIST
+    from repro_torch.core import CostModel, FedTune, FedTuneConfig, Preference
+    from repro_torch.core.tuner import HyperParams
+    from repro_torch.data import emnist_like
+    from repro_torch.federated import FLConfig, get_aggregator
+    from repro_torch.models import build_model
+    from repro_torch.optim.optimizers import get_optimizer
+    from repro_torch.runtime import RuntimeConfig, sample_fleet
+
+    dataset = emnist_like(seed=0)
+    e = 2.0
+    fleet = (None if fleet_name is None
+             else sample_fleet(fleet_name, dataset.n_clients, seed=0))
+    return CountingServer(
+        build_model(MLP_EMNIST), dataset, get_aggregator("fedavg"),
+        get_optimizer("sgd", 0.03, momentum=0.9),
+        CostModel(flops_per_example=2 * N_PARAMS, param_count=N_PARAMS),
+        FLConfig(m=m, e=e, batch_size=10, target_accuracy=0.99,
+                 max_rounds=max_rounds, eval_points=1024),
+        tuner=FedTune(FedTuneConfig(
+            preference=Preference(0.25, 0.25, 0.25, 0.25)),
+            HyperParams(m, e)),
+        fleet=fleet, runtime_config=RuntimeConfig(mode=mode,
+                                                  buffer_k=buffer_k),
+        device=device)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--rounds", type=int, default=3)
+    args = ap.parse_args(argv)
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.device import resolve_device
+
+    device = resolve_device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smoke_server(max_rounds=1, device=device).run()  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()                         # the same run, unprofiled
+    smoke_server(max_rounds=args.rounds, device=device).run()
+    torch.cuda.synchronize()
+    plain_wall_s = time.perf_counter() - t0
+
+    srv = smoke_server(max_rounds=args.rounds, device=device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = srv.run()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    cuda = torch.autograd.DeviceType.CUDA
+    # device activity: kernels, copies and memsets.  The profiler also puts
+    # each operator's name on the device timeline as an annotation that
+    # spans its kernels; those are left out so no time counts twice, and
+    # busy time is the union of the intervals.
+    dev_events = [e for e in prof.events() if e.device_type == cuda
+                  and not getattr(e, "is_user_annotation", False)
+                  and "annotation" not in str(getattr(e, "activity_type", ""))]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in dev_events)
+    busy_us, end = 0.0, float("-inf")
+    for s, e in spans:
+        if e > end:
+            busy_us += e - max(s, end)
+            end = e
+    by_name = {}
+    for e in dev_events:
+        n, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    by_dev = sorted(by_name.items(), key=lambda kv: kv[1][1],
+                    reverse=True)[:10]
+    by_cpu = sorted((e for e in prof.key_averages() if e.device_type != cuda),
+                    key=lambda e: e.self_cpu_time_total, reverse=True)[:10]
+    print(json.dumps(dict(
+        rounds=res.rounds, local_steps=srv.local_steps,
+        unprofiled_wall_s=plain_wall_s, wall_s=wall_s,
+        device_busy_s=busy_us / 1e6,
+        device_idle_share=1.0 - busy_us / 1e6 / wall_s,
+        kernel_launches=len(dev_events),
+        launches_per_step=len(dev_events) / max(srv.local_steps, 1),
+        top_device=[(name[:80], n, us / 1e3)
+                    for name, (n, us) in by_dev],
+        top_host=[(e.key, e.count, e.self_cpu_time_total / 1e3)
+                  for e in by_cpu],
+        card=subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip())), flush=True)
+
+
+if __name__ == "__main__":
+    main()

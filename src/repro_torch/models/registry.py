@@ -1,0 +1,72 @@
+"""Uniform model handles (counterpart of ``repro.models.registry``).
+
+``build_model(cfg)`` returns a ``Model`` whose functional API the FL
+substrate and launcher use.  This slice ports the paper's MLP; the ResNet
+and LM configs raise ``NotImplementedError`` until their slices land.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.paper_models import MLPConfig, ResNetConfig
+from repro_torch.models import mlp as mlp_mod
+
+
+@dataclass(frozen=True)
+class Model:
+    config: Any
+    init: Callable[..., Any]        # (seed, device, dtype) -> params
+    loss_fn: Callable[..., Any]     # (params, batch) -> (loss, metrics)
+    forward: Optional[Callable[..., Any]] = None
+    flops_per_example: Optional[float] = None   # analytic fwd FLOPs
+
+
+def _classifier_loss(forward):
+    def loss_fn(params, cfg, batch):
+        logits = forward(params, cfg, batch["x"])
+        labels = batch["y"].long()
+        logp = F.log_softmax(logits.to(torch.float32), dim=-1)
+        nll = -torch.gather(logp, 1, labels[:, None])[:, 0]
+        # optional per-example mask (for padded client batches)
+        mask = batch.get("mask")
+        if mask is None:
+            loss = nll.mean()
+            acc = (logits.argmax(-1) == labels).to(torch.float32).mean()
+        else:
+            mask = mask.to(torch.bool)
+            denom = torch.clamp_min(mask.sum(), 1).to(torch.float32)
+            loss = torch.where(mask, nll, torch.zeros_like(nll)).sum() / denom
+            hit = (logits.argmax(-1) == labels) & mask
+            acc = hit.sum().to(torch.float32) / denom
+        return loss, {"ce": loss, "acc": acc}
+    return loss_fn
+
+
+def build_model(cfg) -> Model:
+    if isinstance(cfg, MLPConfig):
+        fwd = mlp_mod.forward
+        loss = _classifier_loss(fwd)
+
+        def init(seed: int, device, dtype=torch.float32):
+            gen = torch.Generator().manual_seed(int(seed))
+            return mlp_mod.init_params(cfg, gen, torch.device(device), dtype)
+
+        return Model(
+            config=cfg,
+            init=init,
+            loss_fn=lambda params, batch: loss(params, cfg, batch),
+            forward=lambda params, x: fwd(params, cfg, x),
+            flops_per_example=mlp_mod.flops_per_example(cfg),
+        )
+    if isinstance(cfg, ResNetConfig):
+        raise NotImplementedError(
+            "ResNet is not ported yet: it comes with the ResNet slice "
+            "(see ROADMAP.md)")
+    raise NotImplementedError(
+        f"config type {type(cfg).__name__} is not ported yet: the LM zoo "
+        "comes with its own slice (see ROADMAP.md)")

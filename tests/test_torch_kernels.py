@@ -1,0 +1,204 @@
+"""The port's kernel layer against the JAX reference, on the CPU.
+
+``repro_torch.kernels.ref`` must equal ``repro.kernels.ref`` BIT FOR BIT on
+the same f32 inputs: the fold order, the materialised ``w * x``, the IEEE
+division and round-half-to-even are all fixed by the reference.  On a CPU
+tensor the port's ``ops`` entry points run exactly these plain versions.
+(The Hopper kernels themselves are held against the plain versions on the
+card by ``chip_smoke.py``.)  Cases follow tests/test_kernels.py.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro_torch.kernels import fed_aggregate as fa_mod  # noqa: E402
+from repro_torch.kernels import fed_reduce as fr_mod  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _reduce_case(m, n, t, seed, *, interleave=False, zero_w=0):
+    rng = np.random.default_rng(seed)
+    rows = rng.standard_normal((m, n)).astype(np.float32)
+    w = rng.uniform(1.0, 100.0, m).astype(np.float32)
+    if zero_w:
+        w[rng.choice(m, zero_w, replace=False)] = 0.0
+    seg = rng.integers(0, t, m)
+    if not interleave:
+        seg = np.sort(seg)
+    base = rng.standard_normal((t, n)).astype(np.float32)
+    return w, rows, seg.astype(np.int32), base
+
+
+def _both(w, rows, seg, t, base=None, **kw):
+    """(port result, JAX reference result) as numpy arrays."""
+    jkw = dict(kw)
+    tkw = dict(kw)
+    if kw.get("quant_ref") is not None:
+        jkw["quant_ref"] = jnp.asarray(kw["quant_ref"])
+        tkw["quant_ref"] = _t(kw["quant_ref"])
+    if kw.get("quant_enabled") is not None:
+        jkw["quant_enabled"] = jnp.asarray(kw["quant_enabled"])
+        tkw["quant_enabled"] = _t(kw["quant_enabled"])
+    want = jops.fed_reduce(jnp.asarray(w), jnp.asarray(rows),
+                           jnp.asarray(seg), t,
+                           None if base is None else jnp.asarray(base),
+                           **jkw)
+    got = ops.fed_reduce(_t(w), _t(rows), _t(seg), t,
+                         None if base is None else _t(base), **tkw)
+    return got.numpy(), np.asarray(want)
+
+
+@pytest.mark.parametrize("m,n,t", [(1, 256, 1), (7, 300, 3), (16, 1024, 4),
+                                   (33, 4097, 8)])
+@pytest.mark.parametrize("mode", ["plain", "normalize", "base", "quant"])
+def test_fed_reduce_ref_matches_reference_bitwise(m, n, t, mode):
+    """Every fusion mode, non-pow2 row counts and column tails."""
+    w, rows, seg, base = _reduce_case(m, n, t, seed=m * 1000 + n)
+    kw = {}
+    if mode in ("normalize", "base"):
+        kw["normalize"] = True
+    if mode == "quant":
+        kw = {"normalize": True, "leaf_sizes": (n // 3, n - n // 3),
+              "quant_ref": base, "quant_enabled": np.ones(m, bool)}
+    b = base if mode in ("base", "quant") else None
+    got, want = _both(w, rows, seg, t, b, **kw)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("interleave", [False, True])
+@pytest.mark.parametrize("quant", [False, True])
+def test_fed_reduce_interleaved_segments_bitwise(interleave, quant):
+    """Interleaved segments and the quant round trip match the reference,
+    and lane t equals a standalone T=1 call inside the port."""
+    m, n, t = 24, 513, 5
+    w, rows, seg, base = _reduce_case(m, n, t, seed=42,
+                                      interleave=interleave)
+    kw = dict(normalize=True)
+    if quant:
+        kw.update(leaf_sizes=(200, n - 200), quant_ref=base,
+                  quant_enabled=np.ones(m, bool))
+    got, want = _both(w, rows, seg, t, base, **kw)
+    np.testing.assert_array_equal(got, want)
+    for s in range(t):
+        idx = np.nonzero(seg == s)[0]
+        if len(idx) == 0:
+            np.testing.assert_array_equal(got[s], base[s])
+            continue
+        kw1 = dict(normalize=True)
+        if quant:
+            kw1.update(leaf_sizes=(200, n - 200),
+                       quant_ref=_t(base[s][None]),
+                       quant_enabled=torch.ones(len(idx), dtype=torch.bool))
+        alone = ops.fed_reduce(_t(w[idx]), _t(rows[idx]),
+                               torch.zeros(len(idx), dtype=torch.int32), 1,
+                               _t(base[s][None]), **kw1)
+        np.testing.assert_array_equal(got[s], alone[0].numpy())
+
+
+def test_fed_reduce_singleton_and_empty_segments_bitwise():
+    n = 128
+    rng = np.random.default_rng(3)
+    rows = rng.standard_normal((3, n)).astype(np.float32)
+    base = rng.standard_normal((4, n)).astype(np.float32)
+    w = np.asarray([5.0, 2.0, 3.0], np.float32)
+    seg = np.asarray([0, 0, 2], np.int32)         # lanes 1 and 3 empty
+    got, want = _both(w, rows, seg, 4, base, normalize=True)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got[1], base[1])
+    np.testing.assert_array_equal(got[3], base[3])
+
+
+def test_fed_reduce_zero_weight_rows_bitwise():
+    """Zero-weight rows match the reference and leave every lane as it
+    was without them."""
+    m, n, t = 12, 257, 3
+    w, rows, seg, base = _reduce_case(m, n, t, seed=7, zero_w=3)
+    got, want = _both(w, rows, seg, t, base, normalize=True)
+    np.testing.assert_array_equal(got, want)
+    keep = w != 0
+    fewer = ops.fed_reduce(_t(w[keep]), _t(rows[keep]), _t(seg[keep]), t,
+                           _t(base), normalize=True)
+    np.testing.assert_array_equal(got, fewer.numpy())
+
+
+def test_fed_reduce_per_row_quant_mask_bitwise():
+    m, n, t = 10, 300, 2
+    w, rows, seg, base = _reduce_case(m, n, t, seed=11)
+    ls = (100, n - 100)
+    en = np.arange(m) % 2 == 0
+    got, want = _both(w, rows, seg, t, base, normalize=True, leaf_sizes=ls,
+                      quant_ref=base, quant_enabled=en)
+    np.testing.assert_array_equal(got, want)
+    pre_t = ref._quant_rows(_t(rows), _t(seg), _t(base), _t(en), ls)
+    pre_j = jax.jit(jref._quant_rows, static_argnames=("leaf_sizes",))(
+        jnp.asarray(rows), jnp.asarray(seg), jnp.asarray(base),
+        jnp.asarray(en), ls)
+    np.testing.assert_array_equal(pre_t.numpy(), np.asarray(pre_j))
+    # disabled rows pass through untouched
+    np.testing.assert_array_equal(pre_t.numpy()[~en], rows[~en])
+
+
+def test_fed_reduce_matches_pallas_interpret_bitwise():
+    """The Pallas kernel in interpret mode is the same function."""
+    w, rows, seg, base = _reduce_case(9, 700, 3, seed=5, interleave=True)
+    want = jops.fed_reduce(jnp.asarray(w), jnp.asarray(rows),
+                           jnp.asarray(seg), 3, jnp.asarray(base),
+                           normalize=True, force_pallas=True, interpret=True)
+    got = ops.fed_reduce(_t(w), _t(rows), _t(seg), 3, _t(base),
+                         normalize=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("m,n", [(1, 256), (1, 4099), (4, 1000), (16, 8192)])
+def test_fed_aggregate_ref_matches_reference(m, n):
+    """Bitwise at M=1 (the FedAsync mix).  At M>1 the reference's einsum
+    leaves the summation order open, so the two agree within rtol=1e-6 of
+    the sum's magnitude ``sum_m |w_m d_m| + |base|`` (a plain rtol on the
+    result fails where the terms cancel)."""
+    rng = np.random.default_rng(m * 7 + n)
+    w = rng.uniform(0.0, 1.0, m).astype(np.float32)
+    d = rng.standard_normal((m, n)).astype(np.float32)
+    base = rng.standard_normal(n).astype(np.float32)
+    want = np.asarray(jref.fed_aggregate_ref(jnp.asarray(w), jnp.asarray(d),
+                                             jnp.asarray(base)))
+    got = ops.fed_aggregate(_t(w), _t(d), _t(base)).numpy()
+    if m == 1:
+        np.testing.assert_array_equal(got, want)
+    else:
+        mag = np.abs(w[:, None] * d).sum(0) + np.abs(base)
+        assert np.all(np.abs(got - want) <= 1e-6 * mag)
+
+
+def test_cpu_tensors_take_the_plain_version():
+    """On the CPU the wrappers run the plain version: no build, no
+    launch counted."""
+    before = (fr_mod.launches, fa_mod.launches)
+    w, rows, seg, base = _reduce_case(4, 64, 2, seed=1)
+    out = fr_mod.fed_reduce(_t(w), _t(rows), _t(seg), 2, _t(base))
+    want = ref.fed_reduce_ref(_t(w), _t(rows), _t(seg), 2, _t(base))
+    assert torch.equal(out, want)
+    agg = fa_mod.fed_aggregate(_t(w), _t(rows), _t(base[0]))
+    assert torch.equal(agg, ref.fed_aggregate_ref(_t(w), _t(rows),
+                                                  _t(base[0])))
+    assert (fr_mod.launches, fa_mod.launches) == before
+
+
+def test_kernel_path_rejects_non_cuda_tensors():
+    """The launch path never falls back: a tensor that is not on CUDA is
+    refused."""
+    w, rows, seg, _ = _reduce_case(2, 8, 1, seed=2)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fr_mod._launch(_t(w), _t(rows), _t(seg), 1, None, False)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fa_mod._launch(_t(w), _t(rows), None)
