@@ -7,30 +7,54 @@ Run from the root of a checkout on a machine with one NVIDIA H100, the CUDA
 toolkit (``nvcc``) and a CUDA build of PyTorch.  Phases, each of which
 exits non-zero on failure:
 
-  1. Build the hand-written kernels from ``src/repro_torch/kernels/csrc``
-     with nvcc (printing the build seconds and ptxas's register report) and
-     print the card's name and power limit.
-  2. Hold each kernel against its plain PyTorch version on the card at the
-     main path's shapes: ``fed_reduce`` bitwise (FedAvg, FedBuff flush, and
-     a packed T=8 cohort with the int8 round trip), ``fed_aggregate``
-     bitwise at M=1 and within rtol=1e-6 at M=16.  One JSON line per case
-     with the kernel's, the plain version's and one PyTorch library call's
-     median time (CUDA events, L2 flushed before each launch) and the
-     bound: the larger of the bytes at 3.35 TB/s and the f32 operations
-     at 67 TFLOP/s.
-  3. Drive the main path on the card: ``FLServer`` with ``MLP_EMNIST`` at
-     full width (784-200-62, 169,462 params) over the full ``emnist_like``
-     federation, FedTune on, in sync (M=20, E=2, 5 rounds), async (M=10,
-     10 aggregations) and buffered (K=8, stragglers fleet, 2 flushes)
-     modes.  Each kernel's launch count is set to 0 just before each mode
-     and read just after; every kernel must have launched.
+  1. Build the four hand-written kernels from ``src/repro_torch/kernels/
+     csrc`` with nvcc (printing the build seconds and ptxas's register
+     report) and print the card's name and power limit.
+  2. Hold each FedTune kernel against its plain PyTorch version on the card
+     at the main path's shapes: ``fed_reduce`` bitwise (FedAvg, FedBuff
+     flush, and a packed T=8 cohort with the int8 round trip),
+     ``fed_aggregate`` bitwise at M=1 and within rtol=1e-6 at M=16.  One
+     JSON line per case with the kernel's, the plain version's and one
+     PyTorch library call's median time (CUDA events, L2 flushed before
+     each launch) and the bound: the larger of the bytes at 3.35 TB/s and
+     the f32 operations at 67 TFLOP/s.
+  2b. The same for the LM kernels at the serving path's shapes:
+     ``rglru_scan`` bitwise (B=2, T=4096, W=4096; W=4099; T=1) and
+     ``flash_attention`` within rtol = atol = 2e-5 (recurrentgemma-9b's
+     local layer B=2, H=16, Kh=1, S=4096, D=256, window 2048; gemma2-2b's
+     global layer H=8, Kh=4, cap 50; a ragged S=4000; a small non-causal
+     case).  The attention bound counts the live (query, key) pairs of this
+     run's masks; its library yardstick is ``scaled_dot_product_attention``
+     with the window as an explicit mask (none where there is a cap); the
+     scan has no one-call library equivalent.
+  3. Drive the FedTune path on the card: ``FLServer`` with ``MLP_EMNIST``
+     at full width (784-200-62, 169,462 params) over the full
+     ``emnist_like`` federation, FedTune on, in sync (M=20, E=2, 5 rounds),
+     async (M=10, 10 aggregations) and buffered (K=8, stragglers fleet, 2
+     flushes) modes.  Each kernel's launch count is set to 0 just before
+     each mode and read just after; every kernel must have launched.
   4. Run the first 3 sync rounds again on the CPU (plain kernels) from the
      same initial params: (M, E) per round and the cost totals must be
      identical and accuracy must agree within 0.01.
+  5. Serve ``recurrentgemma-9b`` at full width and depth (38 layers, 8.52 B
+     params, f32, drawn on the card from a seed) through
+     ``repro_torch.launch.serve.generate``: batch 2, a 4096-token prompt
+     (twice the window: the ring cache and the tile skipping both run), 32
+     greedy tokens.  The counts are set to 0 just before and read just
+     after: one prefill launches ``flash_attention`` 12 times and
+     ``rglru_scan`` 26 times.  All logits must be finite, and decode must
+     agree with prefill within 5e-3 (``prefill(prompt[:, :S-1])`` then one
+     ``decode_step`` against the last logits of ``prefill(prompt)``).
+     Prints prefill seconds and tokens/s, decode tokens/s and the peak
+     device memory.
+  6. ``reduced(recurrentgemma-9b, n_layers=3)`` from the same init params
+     on the card and on the CPU, prompt 160, 8 decode steps fed the CPU
+     run's tokens: the logits must agree within 1e-4 at every step.
 
-The line before the last is the kernels' JSON summary; the last line is
-``{"ok": true, "device": {...}}``.  Without a GPU, or without the port's
-sources beside this file, it exits 1 and prints no result.
+The last three lines are the card's name and power limit (as nvidia-smi
+gives them), the kernels' JSON summary and ``{"ok": true, "device":
+{...}}``.  Without a GPU, or without the port's sources beside this file,
+it exits 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -226,6 +250,129 @@ def kernel_cases(torch, np, card, flush):
 
 
 # ---------------------------------------------------------------------------
+# phase 2b: the LM kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def live_pairs(s: int, t: int, causal: bool, window) -> int:
+    """(query, key) pairs the mask keeps, query i at key i + (t - s)."""
+    total = 0
+    for i in range(s):
+        qk = i + t - s
+        hi = min(t - 1, qk) if causal else t - 1
+        lo = max(0, qk - window + 1) if window is not None else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def lm_kernel_cases(torch, np, card, flush):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fl_mod
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rglru_scan as sc_mod
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(1)
+    results = []
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a)).to(dev)
+
+    def scan_case(name, b, t_len, w):
+        a = t(rng.uniform(0.9, 0.999, (b, t_len, w)).astype(np.float32))
+        x = t((rng.standard_normal((b, t_len, w)) * 0.1).astype(np.float32))
+        got = sc_mod.rglru_scan(a, x)
+        want = ref.rglru_scan_ref(a, x)
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(got, want))
+        err = float((got - want).abs().max())
+        check(equal, f"rglru_scan {name}: kernel != plain version "
+                     f"(max abs err {err})")
+        n = b * t_len * w
+        nbytes, flops = 12 * n, 2 * n
+        bound_ms, bound_by = bound(nbytes, flops)
+        rec = dict(
+            phase="kernel_check", kernel="rglru_scan", case=name,
+            shape=dict(B=b, T=t_len, W=w), check="bitwise", equal=equal,
+            max_abs_err=err,
+            ms=median_ms(torch, lambda: sc_mod.rglru_scan(a, x), flush),
+            plain_ms=median_ms(torch, lambda: ref.rglru_scan_ref(a, x),
+                               flush, iters=5, warmup=1),
+            library_ms=None,
+            library_call="none: PyTorch has no one-call linear recurrence",
+            bytes=nbytes, flops=flops, bound_ms=bound_ms, bound_by=bound_by,
+            card=card)
+        emit(rec)
+        results.append(rec)
+
+    scan_case("recurrentgemma_prefill", 2, 4096, 4096)
+    scan_case("ragged_w4099", 2, 4096, 4099)
+    scan_case("t1", 2, 1, 4096)
+
+    def sdpa(q, k, v, causal, window, s_len, t_len):
+        """The library yardstick: one SDPA call with the mask explicit."""
+        qk = torch.arange(s_len, device=dev)[:, None] + (t_len - s_len)
+        kp = torch.arange(t_len, device=dev)[None, :]
+        mask = torch.ones((s_len, t_len), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= kp <= qk
+        if window is not None:
+            mask &= kp > qk - window
+        g = q.shape[1] // k.shape[1]
+        kk, vv = k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)
+        return lambda: F.scaled_dot_product_attention(q, kk, vv,
+                                                      attn_mask=mask)
+
+    def attn_case(name, b, h, kh, s_len, t_len, d, causal, window, cap):
+        q = t(rng.standard_normal((b, h, s_len, d)).astype(np.float32))
+        k = t(rng.standard_normal((b, kh, t_len, d)).astype(np.float32))
+        v = t(rng.standard_normal((b, kh, t_len, d)).astype(np.float32))
+        kw = dict(causal=causal, window=window, cap=cap)
+        got = fl_mod.flash_attention(q, k, v, **kw)
+        want = ref.flash_attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        ok = bool(torch.allclose(got, want, rtol=2e-5, atol=2e-5))
+        check(ok, f"flash_attention {name}: kernel vs plain version beyond "
+                  f"rtol=atol=2e-5 (max abs err {err})")
+        pairs = live_pairs(s_len, t_len, causal, window) * b * h
+        flops = 4 * d * pairs
+        nbytes = 4 * d * (2 * b * h * s_len + 2 * b * kh * t_len)
+        bound_ms, bound_by = bound(nbytes, flops)
+        lib = None if cap is not None else sdpa(q, k, v, causal, window,
+                                                s_len, t_len)
+        rec = dict(
+            phase="kernel_check", kernel="flash_attention", case=name,
+            shape=dict(B=b, H=h, Kh=kh, S=s_len, T=t_len, D=d),
+            causal=causal, window=window, cap=cap,
+            check="rtol=atol=2e-5", equal=bool(torch.equal(got, want)),
+            max_abs_err=err,
+            ms=median_ms(torch, lambda: fl_mod.flash_attention(q, k, v, **kw),
+                         flush, iters=10),
+            plain_ms=median_ms(torch, lambda: ref.flash_attention_ref(
+                q, k, v, **kw), flush, iters=5, warmup=1),
+            library_ms=None if lib is None else median_ms(torch, lib, flush,
+                                                          iters=10),
+            library_call=("none: scaled_dot_product_attention has no "
+                          "soft-cap") if lib is None else
+            "F.scaled_dot_product_attention(q, k, v, attn_mask=window mask)"
+            " (k, v repeated to H heads outside the timing)",
+            live_pairs=pairs, bytes=nbytes, flops=flops, bound_ms=bound_ms,
+            bound_by=bound_by, card=card)
+        emit(rec)
+        results.append(rec)
+        del q, k, v, got, want
+        torch.cuda.empty_cache()
+
+    attn_case("recurrentgemma_local", 2, 16, 1, 4096, 4096, 256, True, 2048,
+              None)
+    attn_case("gemma2_global", 2, 8, 4, 4096, 4096, 256, True, None, 50.0)
+    attn_case("ragged_s4000", 2, 16, 1, 4000, 4000, 256, True, 2048, None)
+    attn_case("small_noncausal", 1, 4, 2, 256, 256, 64, False, None, None)
+    return results
+
+
+# ---------------------------------------------------------------------------
 # phase 3/4: the main path
 # ---------------------------------------------------------------------------
 
@@ -312,6 +459,115 @@ def card_vs_cpu(sync_res, init_params):
               max_acc_diff=diff, cpu_wall_s=wall))
 
 
+# ---------------------------------------------------------------------------
+# phase 5/6: the LM serving path
+# ---------------------------------------------------------------------------
+
+SERVE_ARCH = "recurrentgemma-9b"
+
+
+def serve_full_width(torch, np, card):
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fl_mod
+    from repro_torch.kernels import rglru_scan as sc_mod
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import build_model
+    from repro_torch.tree import leaves
+
+    cfg = get_config(SERVE_ARCH)
+    n_attn = sum(s.mixer == "attn" for s in cfg.layers)
+    n_rglru = sum(s.mixer == "rglru" for s in cfg.layers)
+    b, s_len, steps = 2, 4096, 32
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(0, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in leaves(params))
+    # the analytic count leaves out three (W,) vectors of each RG-LRU
+    # layer (conv_b and the gate biases), as the reference's does
+    want = cfg.param_count() + 3 * (cfg.lru_width or cfg.d_model) * n_rglru
+    check(n_params == want, f"{SERVE_ARCH}: {n_params} params, want {want}")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (b, s_len), generator=gen,
+                           device="cuda")
+    torch.cuda.synchronize()
+    fl_mod.launches = 0
+    sc_mod.launches = 0
+    out = generate(model, params, prompt, steps)
+    counts = {"flash_attention": fl_mod.launches,
+              "rglru_scan": sc_mod.launches}
+    check(counts == {"flash_attention": n_attn, "rglru_scan": n_rglru},
+          f"{SERVE_ARCH}: launches {counts}, wanted {n_attn} flash_attention "
+          f"and {n_rglru} rglru_scan (one prefill)")
+    logits = torch.cat([out["prefill_logits"][None], out["step_logits"]])
+    check(logits.shape == (steps + 1, b, cfg.vocab_size),
+          f"logits shape {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits).all()), "logits not all finite")
+    check(out["ids"].shape == (b, steps + 1), "ids shape")
+
+    # decode against prefill: prefill S-1 tokens, decode the last one
+    cache = model.init_cache(b, max_len=s_len + 1, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, cache = model.prefill(params, prompt[:, :s_len - 1], cache)
+    torch.cuda.synchronize()
+    prefill2_s = time.perf_counter() - t0
+    dec, _ = model.decode_step(params, prompt[:, s_len - 1], s_len - 1, cache)
+    err = float((dec - out["prefill_logits"]).abs().max())
+    check(err < 5e-3, f"decode vs prefill differ by {err} >= 5e-3")
+    del cache
+    peak = torch.cuda.max_memory_allocated()
+    emit(dict(phase="serve_full_width", arch=SERVE_ARCH,
+              layers=cfg.n_layers, params=n_params, dtype="float32",
+              batch=b, prompt_len=s_len, decode_tokens=steps,
+              init_s=init_s, prefill_s=out["prefill_s"],
+              prefill_tok_per_s=out["prefill_tok_per_s"],
+              prefill_s_again=prefill2_s,
+              prefill_tok_per_s_again=b * (s_len - 1) / prefill2_s,
+              decode_s=out["decode_s"],
+              decode_tok_per_s=out["decode_tok_per_s"],
+              decode_ms_per_step=out["decode_s"] / steps * 1e3,
+              launches_per_prefill=counts,
+              decode_vs_prefill_max_abs_err=err,
+              logit_abs_max=float(logits.abs().max()),
+              ids0=out["ids"][0].tolist(),
+              peak_mem_bytes=peak, peak_mem_gib=peak / 2**30, card=card))
+    del params, out, logits
+    torch.cuda.empty_cache()
+    return counts
+
+
+def serve_card_vs_cpu(torch, np):
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_map
+
+    cfg = reduced(get_config(SERVE_ARCH), n_layers=3)
+    model = build_model(cfg)
+    params = model.init(0, "cpu")
+    b, s_len, steps = 2, 160, 8
+    prompt = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (b, s_len)))
+    cpu = generate(model, params, prompt, steps)
+    params_c = tree_map(lambda p: p.to("cuda"), params)
+    cache = model.init_cache(b, max_len=s_len + steps + 1, device="cuda")
+    logits, cache = model.prefill(params_c, prompt.to("cuda"), cache)
+    errs = [float((logits.cpu() - cpu["prefill_logits"]).abs().max())]
+    for i in range(steps):
+        tok = cpu["ids"][:, i].to("cuda")
+        logits, cache = model.decode_step(params_c, tok, s_len + i, cache)
+        errs.append(float((logits.cpu() - cpu["step_logits"][i])
+                          .abs().max()))
+    check(max(errs) <= 1e-4, f"card vs CPU logits differ by {max(errs)} "
+                             f"> 1e-4 (per step {errs})")
+    emit(dict(phase="serve_card_vs_cpu", arch=cfg.name, layers=cfg.n_layers,
+              prompt_len=s_len, decode_tokens=steps, max_abs_err=errs,
+              tolerance=1e-4))
+
+
 def main():
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"the port's sources are not beside this script ({SRC})")
@@ -348,6 +604,7 @@ def main():
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32,
                         device="cuda")
     cases = kernel_cases(torch, np, card, flush)
+    cases += lm_kernel_cases(torch, np, card, flush)
     del flush
 
     from repro_torch.models import build_model
@@ -356,11 +613,20 @@ def main():
     runs, launches = main_path(torch, card, init_params)
     card_vs_cpu(runs["sync"], init_params)
 
+    torch.cuda.empty_cache()
+    lm_launches = serve_full_width(torch, np, card)
+    launches.update(lm_launches)
+    serve_card_vs_cpu(torch, np)
+
     summary = []
     for name, replaces, main_case in (
             ("fed_reduce", "src/repro/kernels/fed_reduce.py:45", "fedavg"),
             ("fed_aggregate", "src/repro/kernels/fed_aggregate.py:23",
-             "fedasync_mix")):
+             "fedasync_mix"),
+            ("flash_attention", "src/repro/kernels/flash_attention.py:32",
+             "recurrentgemma_local"),
+            ("rglru_scan", "src/repro/kernels/rglru_scan.py:26",
+             "recurrentgemma_prefill")):
         mine = [c for c in cases if c["kernel"] == name]
         head = next(c for c in mine if c["case"] == main_case)
         summary.append(dict(
@@ -372,8 +638,8 @@ def main():
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=head["library_ms"], shape=head["shape"],
             parity={c["case"]: c["check"] for c in mine}))
-    emit({"kernels": summary})
     print(card, flush=True)
+    emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
 

@@ -26,7 +26,8 @@ import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("fed_reduce.cu", "fed_aggregate.cu")
+SOURCES = ("fed_reduce.cu", "fed_aggregate.cu", "rglru_scan.cu",
+           "flash_attention.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -102,15 +103,21 @@ def build() -> Path:
 def library() -> ctypes.CDLL:
     """The built kernels, loaded once per process, with every entry
     point's argument and result types declared (pointers and the stream
-    as ``c_void_p``, sizes as ``c_int``)."""
+    as ``c_void_p``, sizes as ``c_int``, strides as ``c_longlong``)."""
     lib = ctypes.CDLL(str(build()))
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.fed_reduce_f32.argtypes = [ptr, ptr, ptr, ptr, ptr,
                                    i32, i32, i32, i32, i32, ptr]
     lib.fed_reduce_f32.restype = i32
     lib.fed_aggregate_f32.argtypes = [ptr, ptr, ptr, ptr,
                                       i32, i32, i32, ptr]
     lib.fed_aggregate_f32.restype = i32
+    lib.rglru_scan_f32.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+    lib.rglru_scan_f32.restype = i32
+    lib.flash_attention_f32.argtypes = (
+        [ptr] * 4 + [i64] * 12 + [i32] * 8 + [ctypes.c_float] * 2
+        + [i32, ptr])
+    lib.flash_attention_f32.restype = i32
     return lib
 
 

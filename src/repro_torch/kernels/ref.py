@@ -15,8 +15,10 @@ the same f32 inputs they give the same bits:
     of 127 (``RECIP_127``), values round half to even (``torch.round``, as
     ``jnp.round``), and ``g + q * scale`` is one fused multiply-add.
 
-On a CPU tensor the kernel wrappers (``fed_reduce.py``, ``fed_aggregate.py``)
-run these functions; on the card the kernels are held against them.
+The LM zoo's ``flash_attention_ref`` and ``rglru_scan_ref`` follow at the
+end.  On a CPU tensor the kernel wrappers (``fed_reduce.py``,
+``fed_aggregate.py``, ``flash_attention.py``, ``rglru_scan.py``) run these
+functions; on the card the kernels are held against them.
 """
 
 from __future__ import annotations
@@ -141,3 +143,54 @@ def fed_reduce_ref(weights: torch.Tensor, rows: torch.Tensor,
     if base is not None:
         out = out + base.to(torch.float32)
     return out.to(rows.dtype)
+
+
+# LM zoo kernels: the plain versions of ``flash_attention`` and
+# ``rglru_scan`` (``repro.kernels.ref.flash_attention_ref`` and
+# ``rglru_scan_ref``).  Masked scores take -1e30 (not -inf), and query i
+# attends keys ``k <= i + (T - S)``, as in the reference.
+
+NEG_INF = -1e30
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: Optional[int] = None,
+                        cap: Optional[float] = None) -> torch.Tensor:
+    """q: (B, H, S, D); k, v: (B, Kh, T, D) with H % Kh == 0 -> (B, H, S, D).
+    Materialises the (S, T) scores in f32; the output has q's dtype."""
+    b, h, s, d = q.shape
+    kh, t = k.shape[1], k.shape[2]
+    g = h // kh
+    qr = q.reshape(b, kh, g, s, d).to(torch.float32)
+    scores = torch.einsum("bkgsd,bktd->bkgst", qr, k.to(torch.float32))
+    scores = scores * (d ** -0.5)
+    if cap is not None:
+        scores = cap * torch.tanh(scores / cap)
+    q_pos = torch.arange(s, device=q.device)[:, None] + (t - s)
+    k_pos = torch.arange(t, device=q.device)[None, :]
+    mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window is not None:
+        mask &= k_pos > q_pos - window
+    scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgst,bktd->bkgsd", p, v.to(torch.float32))
+    return out.reshape(b, h, s, d).to(q.dtype)
+
+
+def rglru_scan_ref(a: torch.Tensor, b: torch.Tensor,
+                   h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """h_t = a_t * h_{t-1} + b_t over axis 1; a, b: (B, T, W) -> (B, T, W).
+    A sequential loop in f32 that rounds ``a_t * h`` before the add (no
+    fused multiply-add), so the kernel matches it bit for bit."""
+    bsz, t, w = a.shape
+    af = a.to(torch.float32)
+    bf = b.to(torch.float32)
+    h = (torch.zeros((bsz, w), dtype=torch.float32, device=a.device)
+         if h0 is None else h0.to(torch.float32))
+    out = torch.empty((bsz, t, w), dtype=torch.float32, device=a.device)
+    for i in range(t):
+        h = af[:, i] * h + bf[:, i]
+        out[:, i] = h
+    return out.to(a.dtype)

@@ -1,0 +1,62 @@
+"""rglru_scan: the RG-LRU diagonal recurrence ``h_t = a_t * h_{t-1} + b_t``.
+
+Replaces the Pallas TPU kernel ``src/repro/kernels/rglru_scan.py::_kernel``
+(wrapper ``rglru_scan``, ``pl.pallas_call`` at line 55).  The Hopper kernel
+is ``csrc/rglru_scan.cu``; its plain version is ``ref.rglru_scan_ref``.  On
+the serving path it is the prefill of every RG-LRU layer (recurrentgemma-9b:
+B=2, T=4096, W=4096, f32).
+
+What bounds it on the H100: bytes (a and b read once, h written once, 2
+FLOP per 12 bytes).  The kernel gives one thread to each (batch, channel)
+and walks T in order with h in a register, ``__fmul_rn`` then
+``__fadd_rn``, so it equals the sequential plain version bit for bit; with
+only B*W threads it is latency-bound, far from that bound.
+
+Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
+kernel or raises.  ``launches`` counts the kernel's launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ref
+
+# Launches of the CUDA kernel in this process (set it to 0 to start a count).
+launches = 0
+
+
+def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a, b: (B, T, W) -> h: (B, T, W), h_0 = 0."""
+    if a.device.type == "cpu":
+        return ref.rglru_scan_ref(a, b)
+    return _launch(a, b)
+
+
+def _launch(a, b):
+    global launches
+    from repro_torch.kernels import build
+
+    dev = a.device
+    if dev.type != "cuda":
+        raise ValueError(f"rglru_scan kernel needs a CUDA tensor, got {dev}")
+    for name, x in (("a", a), ("b", b)):
+        if x.dim() != 3 or x.dtype != torch.float32 or x.device != dev \
+                or not x.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous (B, T, W) float32 "
+                             f"tensor on {dev}, got {tuple(x.shape)} "
+                             f"{x.dtype} on {x.device}")
+    if a.shape != b.shape:
+        raise ValueError(f"a and b differ in shape: {tuple(a.shape)} vs "
+                         f"{tuple(b.shape)}")
+    bsz, t, w = a.shape
+    out = torch.empty_like(a)
+    if a.numel() == 0:
+        return out
+    err = build.library().rglru_scan_f32(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), bsz, t, w,
+        dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"rglru_scan kernel launch failed: CUDA error {err}")
+    launches += 1
+    return out

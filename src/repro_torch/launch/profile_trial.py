@@ -96,11 +96,34 @@ def main(argv=None):
         res = srv.run()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
+    act = device_activity(torch, prof)
+    print(json.dumps(dict(
+        rounds=res.rounds, local_steps=srv.local_steps,
+        unprofiled_wall_s=plain_wall_s, wall_s=wall_s,
+        device_busy_s=act["busy_s"],
+        device_idle_share=1.0 - act["busy_s"] / wall_s,
+        kernel_launches=act["activities"],
+        launches_per_step=act["activities"] / max(srv.local_steps, 1),
+        top_device=act["top_device"], top_host=act["top_host"],
+        card=card_name())), flush=True)
+
+
+def card_name() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+
+
+def device_activity(torch, prof, top: int = 10) -> dict:
+    """Summarise a ``torch.profiler`` window: the device's busy time (the
+    union of its kernels, copies and memsets), their count, each one's
+    (name, count, ms) summed by name, and the top operators by host time.
+    The profiler also puts each operator's name on the device timeline as
+    an annotation spanning its kernels; those are left out so no time
+    counts twice."""
     cuda = torch.autograd.DeviceType.CUDA
-    # device activity: kernels, copies and memsets.  The profiler also puts
-    # each operator's name on the device timeline as an annotation that
-    # spans its kernels; those are left out so no time counts twice, and
-    # busy time is the union of the intervals.
     dev_events = [e for e in prof.events() if e.device_type == cuda
                   and not getattr(e, "is_user_annotation", False)
                   and "annotation" not in str(getattr(e, "activity_type", ""))]
@@ -114,25 +137,16 @@ def main(argv=None):
     for e in dev_events:
         n, us = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
-    by_dev = sorted(by_name.items(), key=lambda kv: kv[1][1],
-                    reverse=True)[:10]
+    by_dev = sorted(by_name.items(), key=lambda kv: kv[1][1], reverse=True)
     by_cpu = sorted((e for e in prof.key_averages() if e.device_type != cuda),
-                    key=lambda e: e.self_cpu_time_total, reverse=True)[:10]
-    print(json.dumps(dict(
-        rounds=res.rounds, local_steps=srv.local_steps,
-        unprofiled_wall_s=plain_wall_s, wall_s=wall_s,
-        device_busy_s=busy_us / 1e6,
-        device_idle_share=1.0 - busy_us / 1e6 / wall_s,
-        kernel_launches=len(dev_events),
-        launches_per_step=len(dev_events) / max(srv.local_steps, 1),
+                    key=lambda e: e.self_cpu_time_total, reverse=True)[:top]
+    return dict(
+        busy_s=busy_us / 1e6, activities=len(dev_events),
+        by_name=[(name, n, us / 1e3) for name, (n, us) in by_dev],
         top_device=[(name[:80], n, us / 1e3)
-                    for name, (n, us) in by_dev],
+                    for name, (n, us) in by_dev[:top]],
         top_host=[(e.key, e.count, e.self_cpu_time_total / 1e3)
-                  for e in by_cpu],
-        card=subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=60).stdout.strip())), flush=True)
+                  for e in by_cpu])
 
 
 if __name__ == "__main__":

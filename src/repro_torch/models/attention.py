@@ -1,0 +1,217 @@
+"""Attention: GQA + RoPE + (optional) sliding window + logit soft-cap.
+
+Port of ``repro.models.attention`` for serving.  Three execution paths:
+  * ``naive_attention`` materialises the (S, T) scores: the plain path,
+    which a CPU tensor takes;
+  * on a CUDA tensor the full-sequence core is ``ops.flash_attention``, the
+    Hopper kernel, whatever the sequence length (the reference's naive and
+    blocked paths compute the same function);
+  * ``decode_attention``: one query token against a (possibly ring-buffer)
+    KV cache, plain PyTorch as in the reference.
+
+Full-sequence positions are ``arange(S)``, as every caller of the
+reference passes them.  The blocked path's custom VJP (training) waits for
+its slice (see ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.configs.base import LayerSpec, ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import NEG_INF
+from repro_torch.models.common import apply_rope, dense_init, softcap
+
+
+# ---------------------------------------------------------------------------
+# params
+# ---------------------------------------------------------------------------
+
+def init_attention_params(gen: torch.Generator, cfg: ModelConfig, *,
+                          dtype=torch.float32):
+    d, h, k, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    p = {
+        "wq": dense_init(gen, (d, h, hd), dtype, fan_in=d),
+        "wk": dense_init(gen, (d, k, hd), dtype, fan_in=d),
+        "wv": dense_init(gen, (d, k, hd), dtype, fan_in=d),
+        "wo": dense_init(gen, (h, hd, d), dtype, fan_in=h * hd),
+    }
+    if cfg.qkv_bias:
+        dev = gen.device
+        p["bq"] = torch.zeros((h, hd), dtype=dtype, device=dev)
+        p["bk"] = torch.zeros((k, hd), dtype=dtype, device=dev)
+        p["bv"] = torch.zeros((k, hd), dtype=dtype, device=dev)
+    return p
+
+
+def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig,
+                 positions: torch.Tensor):
+    """Returns q:(B,S,K,G,D), k,v:(B,S,K,D)."""
+    q = torch.einsum("bse,ehd->bshd", x, params["wq"])
+    k = torch.einsum("bte,ekd->btkd", x, params["wk"])
+    v = torch.einsum("bte,ekd->btkd", x, params["wv"])
+    if "bq" in params:
+        q = q + params["bq"]
+        k = k + params["bk"]
+        v = v + params["bv"]
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    n_kv = k.shape[2]
+    g = q.shape[2] // n_kv
+    q = q.reshape(q.shape[0], q.shape[1], n_kv, g, q.shape[3])
+    return q, k, v
+
+
+def _out_proj(out: torch.Tensor, params) -> torch.Tensor:
+    """(B,S,H,D) x wo (H,D,E) -> (B,S,E)."""
+    return torch.einsum("bshd,hde->bse", out, params["wo"])
+
+
+# ---------------------------------------------------------------------------
+# full-sequence paths
+# ---------------------------------------------------------------------------
+
+def _mask(q_pos, k_pos, *, causal: bool, window: Optional[int]):
+    m = torch.ones((q_pos.shape[-1], k_pos.shape[-1]), dtype=torch.bool,
+                   device=q_pos.device)
+    if causal:
+        m &= k_pos[None, :] <= q_pos[:, None]
+    if window is not None:
+        m &= k_pos[None, :] > q_pos[:, None] - window
+    return m
+
+
+def naive_attention(q, k, v, *, q_pos, k_pos, causal=True,
+                    window: Optional[int] = None,
+                    cap: Optional[float] = None) -> torch.Tensor:
+    """q: (B,S,K,G,D); k,v: (B,T,K,D) -> (B,S,K*G,D)."""
+    scale = q.shape[-1] ** -0.5
+    scores = torch.einsum("bskgd,btkd->bkgst", q.to(torch.float32),
+                          k.to(torch.float32)) * scale
+    scores = softcap(scores, cap)
+    mask = _mask(q_pos, k_pos, causal=causal, window=window)
+    scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", p.to(v.dtype), v)
+    b, s, kh, g, d = out.shape
+    return out.reshape(b, s, kh * g, d)
+
+
+def flash_core(q, k, v, *, window: Optional[int],
+               cap: Optional[float]) -> torch.Tensor:
+    """Causal self-attention over positions ``arange(S)`` through
+    ``ops.flash_attention``: q (B,S,K,G,D), k/v (B,S,K,D) -> (B,S,K*G,D).
+    The kernel reads the model's layout through strides, (B,S,H,D) viewed
+    as (B,H,S,D), and writes its output in q's layout: no copies."""
+    b, s, kh, g, d = q.shape
+    out = ops.flash_attention(q.reshape(b, s, kh * g, d).transpose(1, 2),
+                              k.transpose(1, 2), v.transpose(1, 2),
+                              causal=True, window=window, cap=cap)
+    return out.transpose(1, 2)
+
+
+def _attend(q, k, v, positions, *, window: Optional[int],
+            cap: Optional[float]) -> torch.Tensor:
+    """The full-sequence core: the plain path on the CPU, the kernel on
+    CUDA."""
+    if q.device.type == "cpu":
+        return naive_attention(q, k, v, q_pos=positions, k_pos=positions,
+                               window=window, cap=cap)
+    return flash_core(q, k, v, window=window, cap=cap)
+
+
+def attention(params, cfg: ModelConfig, spec: LayerSpec,
+              x: torch.Tensor) -> torch.Tensor:
+    """Causal self-attention over a full sequence. x: (B,S,E)."""
+    positions = torch.arange(x.shape[1], device=x.device)
+    q, k, v = _project_qkv(params, x, cfg, positions)
+    out = _attend(q, k, v, positions, window=spec.window,
+                  cap=cfg.attn_softcap)
+    return _out_proj(out, params)
+
+
+# ---------------------------------------------------------------------------
+# KV cache + decode
+# ---------------------------------------------------------------------------
+
+class KVCache(NamedTuple):
+    k: torch.Tensor          # (B, C, Kh, D)
+    v: torch.Tensor          # (B, C, Kh, D)
+    slot_pos: torch.Tensor   # (C,) global position stored in each slot, -1 empty
+
+
+def init_kv_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
+                  max_len: int, *, decode_window: Optional[int] = None,
+                  dtype=torch.float32, device=None) -> KVCache:
+    window = spec.window if spec.window is not None else decode_window
+    c = max_len if window is None else min(window, max_len)
+    shape = (batch, c, cfg.n_kv_heads, cfg.head_dim)
+    return KVCache(
+        k=torch.zeros(shape, dtype=dtype, device=device),
+        v=torch.zeros(shape, dtype=dtype, device=device),
+        slot_pos=torch.full((c,), -1, dtype=torch.int32, device=device),
+    )
+
+
+def prefill_into_cache(params, cfg: ModelConfig, spec: LayerSpec,
+                       x: torch.Tensor, cache: KVCache):
+    """Run full-sequence attention AND fill the cache with the (windowed)
+    tail.  Returns (y (B,S,E), new cache)."""
+    positions = torch.arange(x.shape[1], device=x.device)
+    q, k, v = _project_qkv(params, x, cfg, positions)
+    s = q.shape[1]
+    out = _attend(q, k, v, positions, window=spec.window,
+                  cap=cfg.attn_softcap)
+    c = cache.k.shape[1]
+    if c > s:  # cache has spare room: fill the first s slots
+        pad = c - s
+        padk = torch.zeros((k.shape[0], pad) + tuple(k.shape[2:]),
+                           dtype=cache.k.dtype, device=k.device)
+        new_cache = KVCache(
+            k=torch.cat([k.to(cache.k.dtype), padk], dim=1),
+            v=torch.cat([v.to(cache.v.dtype), padk], dim=1),
+            slot_pos=torch.cat([
+                positions.to(torch.int32),
+                torch.full((pad,), -1, dtype=torch.int32, device=k.device)]),
+        )
+    else:
+        # keep the last ``c`` tokens, laid out ring-style (slot = pos % c)
+        tail_k, tail_v, tail_pos = k[:, -c:], v[:, -c:], positions[-c:]
+        order = torch.argsort(tail_pos % c)
+        new_cache = KVCache(
+            k=tail_k[:, order].to(cache.k.dtype),
+            v=tail_v[:, order].to(cache.v.dtype),
+            slot_pos=tail_pos[order].to(torch.int32),
+        )
+    return _out_proj(out, params), new_cache
+
+
+def decode_attention(params, cfg: ModelConfig, spec: LayerSpec,
+                     x: torch.Tensor, pos: int, cache: KVCache):
+    """One-token decode. x: (B,1,E); pos: the token's global position.
+    Writes the new key and value into ``cache``'s tensors in place (the
+    reference returns updated copies) and returns them as the new cache."""
+    positions = torch.tensor([pos], dtype=torch.int32, device=x.device)
+    q, k_new, v_new = _project_qkv(params, x, cfg, positions)
+    c = cache.k.shape[1]
+    slot = pos % c
+    k, v, slot_pos = cache
+    k[:, slot] = k_new[:, 0].to(k.dtype)
+    v[:, slot] = v_new[:, 0].to(v.dtype)
+    slot_pos[slot] = pos
+    scale = q.shape[-1] ** -0.5
+    sc = torch.einsum("bskgd,btkd->bkgst", q.to(torch.float32),
+                      k.to(torch.float32)) * scale     # (B,K,G,1,C)
+    sc = softcap(sc, cfg.attn_softcap)
+    valid = (slot_pos >= 0) & (slot_pos <= pos)
+    if spec.window is not None:
+        valid &= slot_pos > pos - spec.window
+    sc = torch.where(valid, sc, torch.full_like(sc, NEG_INF))
+    p = torch.softmax(sc, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", p.to(v.dtype), v)
+    b, s, kh, g, d = out.shape
+    y = _out_proj(out.reshape(b, s, kh * g, d), params)
+    return y, KVCache(k=k, v=v, slot_pos=slot_pos)

@@ -1,8 +1,9 @@
 """Uniform model handles (counterpart of ``repro.models.registry``).
 
 ``build_model(cfg)`` returns a ``Model`` whose functional API the FL
-substrate and launcher use.  This slice ports the paper's MLP; the ResNet
-and LM configs raise ``NotImplementedError`` until their slices land.
+substrate and the launchers use: the paper's MLP, and the LM configs whose
+layers the port can run (``lm.check_supported``).  ResNet and the other LM
+configs raise ``NotImplementedError`` until their slices land.
 """
 
 from __future__ import annotations
@@ -13,7 +14,9 @@ from typing import Any, Callable, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.paper_models import MLPConfig, ResNetConfig
+from repro_torch.models import lm as lm_mod
 from repro_torch.models import mlp as mlp_mod
 
 
@@ -21,8 +24,11 @@ from repro_torch.models import mlp as mlp_mod
 class Model:
     config: Any
     init: Callable[..., Any]        # (seed, device, dtype) -> params
-    loss_fn: Callable[..., Any]     # (params, batch) -> (loss, metrics)
+    loss_fn: Optional[Callable[..., Any]] = None  # (params, batch) -> (loss, metrics)
     forward: Optional[Callable[..., Any]] = None
+    init_cache: Optional[Callable[..., Any]] = None
+    prefill: Optional[Callable[..., Any]] = None
+    decode_step: Optional[Callable[..., Any]] = None
     flops_per_example: Optional[float] = None   # analytic fwd FLOPs
 
 
@@ -47,7 +53,35 @@ def _classifier_loss(forward):
     return loss_fn
 
 
+def _lm_model(cfg: ModelConfig) -> Model:
+    """Serving handle of an LM config (the training loss waits for its
+    slice, so ``loss_fn`` is None)."""
+    lm_mod.check_supported(cfg)
+
+    def init(seed: int, device, dtype=torch.float32):
+        gen = torch.Generator(device=torch.device(device))
+        gen.manual_seed(int(seed))
+        return lm_mod.init_params(cfg, gen, dtype)
+
+    def init_cache(batch: int, max_len: int, *, device, **kw):
+        return lm_mod.init_cache(cfg, batch, max_len,
+                                 device=torch.device(device), **kw)
+
+    return Model(
+        config=cfg,
+        init=init,
+        forward=lambda params, tokens: lm_mod.forward(params, cfg, tokens),
+        init_cache=init_cache,
+        prefill=lambda params, tokens, cache: lm_mod.prefill(
+            params, cfg, tokens, cache),
+        decode_step=lambda params, token, pos, cache: lm_mod.decode_step(
+            params, cfg, token, pos, cache),
+    )
+
+
 def build_model(cfg) -> Model:
+    if isinstance(cfg, ModelConfig):
+        return _lm_model(cfg)
     if isinstance(cfg, MLPConfig):
         fwd = mlp_mod.forward
         loss = _classifier_loss(fwd)
@@ -67,6 +101,4 @@ def build_model(cfg) -> Model:
         raise NotImplementedError(
             "ResNet is not ported yet: it comes with the ResNet slice "
             "(see ROADMAP.md)")
-    raise NotImplementedError(
-        f"config type {type(cfg).__name__} is not ported yet: the LM zoo "
-        "comes with its own slice (see ROADMAP.md)")
+    raise TypeError(f"unknown config type {type(cfg).__name__}")

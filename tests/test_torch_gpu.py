@@ -9,7 +9,12 @@ The shapes cover every vector width the kernels pick (N divisible by 4, by
 2 only, and odd), a misaligned row pointer, interleaved and empty segments
 and the int8 round trip.  ``fed_reduce`` and the M=1 ``fed_aggregate`` must
 be bitwise equal to the plain version; ``fed_aggregate`` at M>1 within
-rtol=1e-6.  This file imports no JAX, so it runs where only torch is.
+rtol=1e-6.  ``rglru_scan`` must be bitwise equal (W not a multiple of the
+block, T = 1, T not a multiple of the unroll); ``flash_attention`` within
+rtol = atol = 2e-5 (the reference's tolerance for its kernel) over MQA,
+GQA with the soft-cap, ragged and unaligned lengths, non-causal windows
+and the model's strided layout.  This file imports no JAX, so it runs
+where only torch is.
 """
 
 import numpy as np
@@ -89,3 +94,84 @@ def test_fed_aggregate_kernel(cuda, m, n):
         assert torch.equal(got, want)
     else:
         torch.testing.assert_close(got, want, rtol=1e-6, atol=0.0)
+
+
+# ---------------------------------------------------------------------------
+# the LM zoo's kernels: rglru_scan bitwise, flash_attention within 2e-5
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels import flash_attention as fl_mod  # noqa: E402
+from repro_torch.kernels import rglru_scan as sc_mod  # noqa: E402
+
+
+@pytest.mark.parametrize("b,t,w", [(2, 64, 4096), (1, 37, 4099), (3, 1, 130),
+                                   (2, 300, 64)])
+def test_rglru_scan_kernel_is_bitwise(cuda, b, t, w):
+    rng = np.random.default_rng(b * t + w)
+    a = torch.from_numpy(rng.uniform(0.5, 0.999, (b, t, w)).astype(
+        np.float32)).to(cuda)
+    x = torch.from_numpy(rng.standard_normal((b, t, w)).astype(
+        np.float32)).to(cuda)
+    before = sc_mod.launches
+    got = sc_mod.rglru_scan(a, x)
+    torch.cuda.synchronize()
+    assert sc_mod.launches == before + 1
+    assert torch.equal(got, ref.rglru_scan_ref(a, x))
+
+
+def _qkv_cuda(b, h, kh, s, t, d, seed, dev):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(dev) for shape in ((b, h, s, d), (b, kh, t, d),
+                                           (b, kh, t, d))]
+
+
+@pytest.mark.parametrize("b,h,kh,s,t,d,causal,window,cap", [
+    (2, 16, 1, 300, 300, 256, True, 128, None),    # recurrentgemma, MQA
+    (1, 8, 4, 200, 200, 256, True, None, 50.0),    # gemma2 global
+    (1, 8, 4, 130, 130, 256, True, 64, 50.0),      # gemma2 local
+    (2, 4, 2, 77, 200, 64, True, None, None),      # S < T: aligned to T
+    (1, 4, 1, 1, 97, 128, True, 16, None),         # one query
+    (1, 6, 2, 100, 70, 32, False, None, 30.0),     # non-causal, S > T
+    (1, 2, 2, 65, 65, 128, False, 9, None),        # non-causal window
+])
+def test_flash_attention_kernel_matches_plain(cuda, b, h, kh, s, t, d,
+                                              causal, window, cap):
+    q, k, v = _qkv_cuda(b, h, kh, s, t, d, seed=s * d + t, dev=cuda)
+    before = fl_mod.launches
+    got = fl_mod.flash_attention(q, k, v, causal=causal, window=window,
+                                 cap=cap)
+    torch.cuda.synchronize()
+    assert fl_mod.launches == before + 1
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   cap=cap)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+def test_flash_attention_kernel_reads_strided_layout(cuda):
+    """(B,S,H,D) tensors viewed as (B,H,S,D): no copy in, output in q's
+    layout, same values."""
+    from repro_torch.models.attention import flash_core, naive_attention
+
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(cuda) for shape in ((2, 150, 1, 16, 256),
+                                            (2, 150, 1, 256),
+                                            (2, 150, 1, 256)))
+    got = flash_core(q, k, v, window=64, cap=None)
+    assert got.is_contiguous()
+    pos = torch.arange(150, device=cuda)
+    want = naive_attention(q, k, v, q_pos=pos, k_pos=pos, window=64)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda):
+    q, k, v = _qkv_cuda(1, 2, 1, 32, 32, 64, seed=0, dev=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        fl_mod.flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16())
+    with pytest.raises(ValueError, match="no key"):
+        fl_mod.flash_attention(q, k[:, :, :16], v[:, :, :16])
+    with pytest.raises(ValueError, match="head dim"):
+        fl_mod.flash_attention(q[..., :48].contiguous(),
+                               k[..., :48].contiguous(),
+                               v[..., :48].contiguous())

@@ -202,3 +202,138 @@ def test_kernel_path_rejects_non_cuda_tensors():
         fr_mod._launch(_t(w), _t(rows), _t(seg), 1, None, False)
     with pytest.raises(ValueError, match="CUDA tensor"):
         fa_mod._launch(_t(w), _t(rows), None)
+
+
+# ---------------------------------------------------------------------------
+# flash_attention and rglru_scan (the LM zoo's kernels): the plain versions
+# against the reference's oracles and its Pallas kernels in interpret mode.
+# Cases follow tests/test_kernels.py.  Tolerances are the reference's own:
+# 2e-5 for attention (f32, summed in another order), 1e-5 for the scan
+# (the model's associative scan rounds in another order).
+# ---------------------------------------------------------------------------
+
+from repro.kernels.flash_attention import flash_attention as jflash  # noqa: E402
+from repro.kernels.rglru_scan import rglru_scan as jscan  # noqa: E402
+from repro.models import recurrent as jrec  # noqa: E402
+from repro_torch.kernels import flash_attention as fl_mod  # noqa: E402
+from repro_torch.kernels import rglru_scan as sc_mod  # noqa: E402
+from repro_torch.models import attention as tattn  # noqa: E402
+
+# the model's associative scan, jitted (eager, it takes seconds a call)
+_jassoc_scan = jax.jit(jrec.rglru_scan)
+
+
+def _qkv(b, h, kh, s, t, d, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, h, s, d)).astype(np.float32),
+            rng.standard_normal((b, kh, t, d)).astype(np.float32),
+            rng.standard_normal((b, kh, t, d)).astype(np.float32))
+
+
+@pytest.mark.parametrize("b,h,kh,s,d", [
+    (1, 2, 1, 128, 32), (2, 4, 2, 256, 64), (1, 4, 4, 256, 128),
+])
+@pytest.mark.parametrize("window,cap", [
+    (None, None), (64, None), (None, 50.0), (96, 30.0),
+])
+def test_flash_attention_ref_matches_reference(b, h, kh, s, d, window, cap):
+    q, k, v = _qkv(b, h, kh, s, s, d, seed=s + d)
+    want = jref.flash_attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v), window=window, cap=cap)
+    got = ops.flash_attention(_t(q), _t(k), _t(v), window=window, cap=cap)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("s,t,causal,window", [
+    (100, 128, True, None), (1, 77, True, 16), (60, 60, False, 8),
+    (50, 90, False, None),
+])
+def test_flash_attention_ref_alignment_matches_reference(s, t, causal,
+                                                         window):
+    """Ragged and unaligned lengths: query i sits at key i + (T - S)."""
+    q, k, v = _qkv(2, 4, 1, s, t, 32, seed=s * t)
+    want = jref.flash_attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v), causal=causal,
+                                    window=window)
+    got = ops.flash_attention(_t(q), _t(k), _t(v), causal=causal,
+                              window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("window,cap", [(96, 30.0), (64, None)])
+def test_flash_attention_ref_matches_pallas_interpret(window, cap):
+    q, k, v = _qkv(1, 4, 2, 128, 128, 32, seed=3)
+    want = jflash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                  window=window, cap=cap, block_q=64, block_k=64,
+                  interpret=True)
+    got = ops.flash_attention(_t(q), _t(k), _t(v), window=window, cap=cap)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("window,cap", [(None, None), (5, 20.0)])
+def test_flash_core_layout_equals_naive_attention(window, cap):
+    """The model hands the kernel its (B,S,K,G,D) and (B,S,K,D) tensors as
+    strided (B,H,S,D) views and gets (B,S,H,D) back; on CPU tensors the
+    same plumbing runs the plain version and must equal the naive path."""
+    rng = np.random.default_rng(9)
+    q = _t(rng.standard_normal((2, 19, 2, 3, 32)).astype(np.float32))
+    k = _t(rng.standard_normal((2, 19, 2, 32)).astype(np.float32))
+    v = _t(rng.standard_normal((2, 19, 2, 32)).astype(np.float32))
+    pos = torch.arange(19)
+    got = tattn.flash_core(q, k, v, window=window, cap=cap)
+    want = tattn.naive_attention(q, k, v, q_pos=pos, k_pos=pos,
+                                 window=window, cap=cap)
+    assert got.shape == (2, 19, 6, 32)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("b,t,w", [(1, 128, 128), (2, 256, 128),
+                                   (4, 128, 512), (3, 192, 384)])
+def test_rglru_scan_ref_matches_reference(b, t, w):
+    rng = np.random.default_rng(b * t + w)
+    a = rng.uniform(0.5, 0.999, (b, t, w)).astype(np.float32)
+    x = (rng.standard_normal((b, t, w)) * 0.1).astype(np.float32)
+    got = ops.rglru_scan(_t(a), _t(x)).numpy()
+    for want in (jref.rglru_scan_ref(jnp.asarray(a), jnp.asarray(x)),
+                 jscan(jnp.asarray(a), jnp.asarray(x), block_b=1,
+                       block_w=128, chunk_t=64, interpret=True),
+                 _jassoc_scan(jnp.asarray(a), jnp.asarray(x))):
+        np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_rglru_scan_ref_rounds_the_product_first():
+    """The plain version is the loop ``h = a*h + b`` with ``a*h`` rounded
+    to f32 before the add, which the kernel's __fmul_rn/__fadd_rn repeat
+    bit for bit; numpy's f32 loop is the same arithmetic."""
+    rng = np.random.default_rng(4)
+    a = rng.uniform(0.0, 1.0, (2, 50, 33)).astype(np.float32)
+    x = rng.standard_normal((2, 50, 33)).astype(np.float32)
+    h = np.zeros((2, 33), np.float32)
+    want = np.empty_like(a)
+    for i in range(50):
+        h = (a[:, i] * h).astype(np.float32) + x[:, i]
+        want[:, i] = h
+    np.testing.assert_array_equal(ops.rglru_scan(_t(a), _t(x)).numpy(), want)
+
+
+def test_lm_kernel_wrappers_take_the_plain_version_on_cpu():
+    before = (fl_mod.launches, sc_mod.launches)
+    q, k, v = _qkv(1, 2, 1, 16, 16, 32, seed=1)
+    assert torch.equal(fl_mod.flash_attention(_t(q), _t(k), _t(v), window=4),
+                       ref.flash_attention_ref(_t(q), _t(k), _t(v), window=4))
+    a = _t(np.full((1, 8, 4), 0.5, np.float32))
+    assert torch.equal(sc_mod.rglru_scan(a, a), ref.rglru_scan_ref(a, a))
+    assert (fl_mod.launches, sc_mod.launches) == before
+
+
+def test_lm_kernel_paths_reject_non_cuda_tensors():
+    q, k, v = _qkv(1, 2, 1, 16, 16, 32, seed=1)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fl_mod._launch(_t(q), _t(k), _t(v), True, None, None)
+    a = _t(np.ones((1, 4, 4), np.float32))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        sc_mod._launch(a, a)
