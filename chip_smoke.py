@@ -24,9 +24,13 @@ exits non-zero on failure:
      local layer B=2, H=16, Kh=1, S=4096, D=256, window 2048; gemma2-2b's
      global layer H=8, Kh=4, cap 50; a ragged S=4000; a small non-causal
      case).  The attention bound counts the live (query, key) pairs of this
-     run's masks; its library yardstick is ``scaled_dot_product_attention``
-     with the window as an explicit mask (none where there is a cap); the
-     scan has no one-call library equivalent.
+     run's masks on the kernel's own route: its products run on the tensor
+     cores as three TF32 passes (3xTF32), so ``bound_ms`` is 3 x flops at
+     495 TFLOP/s (``bound_route``), with the f32 SIMT figure (flops at 67
+     TFLOP/s) kept beside it as ``bound_f32_simt_ms``.  Its library
+     yardstick is ``scaled_dot_product_attention`` with the window as an
+     explicit mask (none where there is a cap); the scan has no one-call
+     library equivalent.
   3. Drive the FedTune path on the card: ``FLServer`` with ``MLP_EMNIST``
      at full width (784-200-62, 169,462 params) over the full
      ``emnist_like`` federation, FedTune on, in sync (M=20, E=2, 5 rounds),
@@ -70,6 +74,7 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12             # H100 SXM f32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12           # H100 SXM TF32 tensor cores, dense
 N_PARAMS = 169_462                  # MLP_EMNIST: 784 -> 200 -> 62
 
 
@@ -87,11 +92,12 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, flops_per_s: float = F32_FLOPS_PER_S):
     """The least time (ms) the card could take, and what sets it: the
-    bytes over HBM bandwidth or the f32 operations over the f32 peak."""
+    bytes over HBM bandwidth or the operations over their peak rate (f32
+    outside the tensor cores unless another rate is given)."""
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = flops / F32_FLOPS_PER_S * 1e3
+    by_ops = flops / flops_per_s * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                            "operations")
 
@@ -338,7 +344,9 @@ def lm_kernel_cases(torch, np, card, flush):
         pairs = live_pairs(s_len, t_len, causal, window) * b * h
         flops = 4 * d * pairs
         nbytes = 4 * d * (2 * b * h * s_len + 2 * b * kh * t_len)
-        bound_ms, bound_by = bound(nbytes, flops)
+        # the kernel's route: every product is three TF32 tensor-core passes
+        bound_ms, bound_by = bound(nbytes, 3 * flops, TF32_FLOPS_PER_S)
+        simt_ms, _ = bound(nbytes, flops)
         lib = None if cap is not None else sdpa(q, k, v, causal, window,
                                                 s_len, t_len)
         rec = dict(
@@ -358,7 +366,8 @@ def lm_kernel_cases(torch, np, card, flush):
             "F.scaled_dot_product_attention(q, k, v, attn_mask=window mask)"
             " (k, v repeated to H heads outside the timing)",
             live_pairs=pairs, bytes=nbytes, flops=flops, bound_ms=bound_ms,
-            bound_by=bound_by, card=card)
+            bound_by=bound_by, bound_route="tf32x3: 3 x flops at 495 TFLOP/s",
+            bound_f32_simt_ms=simt_ms, card=card)
         emit(rec)
         results.append(rec)
         del q, k, v, got, want
@@ -637,7 +646,9 @@ def main():
             ms=head["ms"], plain_ms=head["plain_ms"],
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=head["library_ms"], shape=head["shape"],
-            parity={c["case"]: c["check"] for c in mine}))
+            parity={c["case"]: c["check"] for c in mine},
+            **{k: head[k] for k in ("bound_route", "bound_f32_simt_ms")
+               if k in head}))
     print(card, flush=True)
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

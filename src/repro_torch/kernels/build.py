@@ -115,7 +115,7 @@ def library() -> ctypes.CDLL:
     lib.rglru_scan_f32.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
     lib.rglru_scan_f32.restype = i32
     lib.flash_attention_f32.argtypes = (
-        [ptr] * 4 + [i64] * 12 + [i32] * 8 + [ctypes.c_float] * 2
+        [ptr] * 5 + [i64] * 12 + [i32] * 8 + [ctypes.c_float] * 2
         + [i32, ptr])
     lib.flash_attention_f32.restype = i32
     return lib

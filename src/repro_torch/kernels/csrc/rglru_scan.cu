@@ -9,57 +9,124 @@
 //
 // What bounds it: bytes.  a and x are read once and h written once (12
 // bytes and 2 FLOP per element), so the least time is the bytes over the
-// HBM rate.  There is no parallelism along t without changing the
-// arithmetic (a chunked or associative scan rounds in another order), so
-// the design gives one thread to each (b, w) channel: consecutive threads
-// take consecutive channels, so every load and store of a warp is one
-// coalesced 128-byte line per time step.  The time loop is unrolled by
-// kUnroll with all of a chunk's loads issued before its dependent chain,
-// to keep more bytes in flight than the B*W threads alone would.  Blocks
-// are small (kThreads = 64) so that B*W = 8192 channels spread over 128
-// SMs instead of 32.  That still leaves the card mostly idle: the kernel is
-// latency-bound, far above its byte bound (see PERF.md).
+// HBM rate: 403 MB, 0.120 ms at that shape.  The arithmetic is not the
+// limit: one channel's chain is 4,096 steps of a dependent multiply and add
+// (~8 cycles a step, ~20 us).  What limits a scan with one thread per
+// channel is bytes in flight: B*W = 8,192 channels are only ~2 warps an SM,
+// and HBM needs ~2.5-3 MB in flight across the card to run near its rate.
+// A chunked or associative scan would add parallelism along t but rounds
+// in another order, so it cannot stay bitwise equal to the sequential
+// reference.  The design keeps the sequential arithmetic and raises the
+// bytes in flight instead:
 //
-// Each step is __fmul_rn then __fadd_rn from h = 0, so nothing is contracted
-// into an FMA and the result equals the sequential plain version
-// (kernels/ref.py::rglru_scan_ref) bit for bit.
+//  * A block is one warp and owns kScanCh = 32 consecutive channels of one
+//    batch row (lane = channel), so every row segment it reads is one
+//    128-byte line.
+//  * Time is staged through a shared-memory ring of kScanStages = 5 stages
+//    of kChunk = 32 steps: a and x of a stage are 2 x 32 x 32 f32 = 8 KB.
+//    The copies are cp.async, 16 bytes a lane (cp.async.cg) when W % 4 == 0
+//    and both inputs are 16-byte aligned, else 4 bytes a lane
+//    (cp.async.ca; W = 4099, whose rows are not 16-byte aligned, takes
+//    this path inside the same kernel).  While the lanes walk one stage,
+//    the next four are in flight: 32 KB a block, 256 blocks at B=2,
+//    W=4096 (~2 an SM), ~8 MB across the card.
+//  * Shared memory: 40 KB a block (static, under the 48 KB limit).
+//  * Stores of h are direct: each step one coalesced 128-byte line a warp.
+//  * Ragged T: the last stage copies and walks only its T % kChunk steps;
+//    ragged W: lanes past W copy and store nothing.
+//
+// Each step is __fmul_rn then __fadd_rn from h = 0, in time order, so
+// nothing is contracted into an FMA and the result equals the sequential
+// plain version (kernels/ref.py::rglru_scan_ref) bit for bit.
 
+#include <cstdint>
 #include <cuda_runtime.h>
 
 namespace fedk {
 
-constexpr int kScanThreads = 64;
-constexpr int kUnroll = 16;
+constexpr int kScanCh = 32;       // channels of a block: one warp, a lane each
+constexpr int kChunk = 32;        // time steps of a stage
+constexpr int kScanStages = 5;
 
-__global__ void __launch_bounds__(kScanThreads)
+__device__ __forceinline__ void scan_cp16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void scan_cp4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(d), "l"(src) : "memory");
+}
+
+template <bool kVec16>
+__global__ void __launch_bounds__(kScanCh)
 rglru_scan_kernel(const float* __restrict__ a, const float* __restrict__ x,
-                  float* __restrict__ h_out, int B, int T, int W) {
-  const long long chan = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (chan >= static_cast<long long>(B) * W) return;
-  const long long b = chan / W;
-  const long long w = chan - b * W;
-  const long long base = b * T * W + w;
+                  float* __restrict__ h_out, int T, int W) {
+  __shared__ __align__(16) float sa[kScanStages][kChunk][kScanCh];
+  __shared__ __align__(16) float sx[kScanStages][kChunk][kScanCh];
+  const int lane = threadIdx.x;
+  const int w0 = blockIdx.x * kScanCh;
+  const int wn = min(kScanCh, W - w0);        // live channels of the block
+  const long long row0 = static_cast<long long>(blockIdx.y) * T;
+  const int n_chunks = (T + kChunk - 1) / kChunk;
+
+  auto load = [&](int c) {
+    const int st = c % kScanStages;
+    const int t0 = c * kChunk;
+    const int tn = min(kChunk, T - t0);
+    if constexpr (kVec16) {
+      // 8 pieces of 4 channels a row; W % 4 == 0, so wn % 4 == 0
+      for (int i = lane; i < tn * 8; i += kScanCh) {
+        const int r = i >> 3, q = (i & 7) * 4;
+        if (q < wn) {
+          const long long off = (row0 + t0 + r) * W + w0 + q;
+          scan_cp16(&sa[st][r][q], a + off);
+          scan_cp16(&sx[st][r][q], x + off);
+        }
+      }
+    } else {
+      if (lane < wn) {
+        for (int r = 0; r < tn; ++r) {
+          const long long off = (row0 + t0 + r) * W + w0 + lane;
+          scan_cp4(&sa[st][r][lane], a + off);
+          scan_cp4(&sx[st][r][lane], x + off);
+        }
+      }
+    }
+  };
+
+#pragma unroll
+  for (int c = 0; c < kScanStages - 1; ++c) {
+    if (c < n_chunks) load(c);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+
   float h = 0.0f;
-  int t = 0;
-  for (; t + kUnroll <= T; t += kUnroll) {
-    float av[kUnroll], xv[kUnroll];
+  for (int c = 0; c < n_chunks; ++c) {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(kScanStages - 2) : "memory");
+    __syncthreads();                  // stage c landed; stage c-1 consumed
+    if (c + kScanStages - 1 < n_chunks) load(c + kScanStages - 1);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    if (lane >= wn) continue;
+    const int st = c % kScanStages;
+    const int t0 = c * kChunk;
+    float* dst = h_out + (row0 + t0) * W + w0 + lane;
+    if (T - t0 >= kChunk) {
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const long long off = base + static_cast<long long>(t + u) * W;
-      av[u] = __ldg(a + off);
-      xv[u] = __ldg(x + off);
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      h = __fadd_rn(__fmul_rn(av[u], h), xv[u]);
-      h_out[base + static_cast<long long>(t + u) * W] = h;
+      for (int r = 0; r < kChunk; ++r) {
+        h = __fadd_rn(__fmul_rn(sa[st][r][lane], h), sx[st][r][lane]);
+        dst[static_cast<long long>(r) * W] = h;
+      }
+    } else {
+      for (int r = 0; r < T - t0; ++r) {
+        h = __fadd_rn(__fmul_rn(sa[st][r][lane], h), sx[st][r][lane]);
+        dst[static_cast<long long>(r) * W] = h;
+      }
     }
   }
-  for (; t < T; ++t) {
-    const long long off = base + static_cast<long long>(t) * W;
-    h = __fadd_rn(__fmul_rn(__ldg(a + off), h), __ldg(x + off));
-    h_out[off] = h;
-  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 }  // namespace fedk
@@ -71,11 +138,20 @@ extern "C" int rglru_scan_f32(const void* a, const void* x, void* h, int B,
   using namespace fedk;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (B <= 0 || T <= 0 || W <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const long long chans = static_cast<long long>(B) * W;
-  const dim3 grid(static_cast<unsigned>((chans + kScanThreads - 1) / kScanThreads));
-  rglru_scan_kernel<<<grid, kScanThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(a), static_cast<const float*>(x),
-      static_cast<float*>(h), B, T, W);
+  if (B <= 0 || T <= 0 || W <= 0 || B > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>((W + kScanCh - 1) / kScanCh),
+                  static_cast<unsigned>(B));
+  const bool vec16 = W % 4 == 0 && reinterpret_cast<std::uintptr_t>(a) % 16 == 0 &&
+                     reinterpret_cast<std::uintptr_t>(x) % 16 == 0;
+  auto s = static_cast<cudaStream_t>(stream);
+  if (vec16)
+    rglru_scan_kernel<true><<<grid, kScanCh, 0, s>>>(
+        static_cast<const float*>(a), static_cast<const float*>(x),
+        static_cast<float*>(h), T, W);
+  else
+    rglru_scan_kernel<false><<<grid, kScanCh, 0, s>>>(
+        static_cast<const float*>(a), static_cast<const float*>(x),
+        static_cast<float*>(h), T, W);
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,11 +7,18 @@ The Hopper kernel is ``csrc/flash_attention.cu``; its plain version is
 local-attention layer (recurrentgemma-9b: B=2, H=16, Kh=1, S=T=4096, D=256,
 window 2048, f32).
 
-What bounds it on the H100: f32 operations (206 GFLOP against 0.29 GB at
-that shape).  A block owns 64 (position, group head) rows of one kv head,
-so one K/V tile serves every head of the group and no repeated K/V is ever
-made; kv tiles outside the causal frontier or the window are skipped; the
-online softmax keeps m, l and the output rows in registers.
+What bounds it on the H100: operations (206 GFLOP against 0.29 GB at
+that shape).  Both products run on the tensor cores (``wgmma`` with TF32
+operands) as three passes over split operands, x = tf32(x) +
+tf32(x - tf32(x)), which keeps f32 accuracy (one TF32 pass would not hold
+2e-5).  A split pass first writes K and V once as 16-key tiles of TF32
+operand planes into a scratch buffer this wrapper allocates (twice K's and
+V's bytes); the attention kernel then streams those tiles through a
+two-stage ring of bulk copies.  A block owns 64
+(position, group head) rows of one kv head, so one K/V tile serves every
+head of the group and no repeated K/V is ever made; kv tiles outside the
+causal frontier or the window are skipped; the online softmax keeps m, l,
+the probabilities and the output rows in registers.
 
 Layout: q (B, H, S, D), k and v (B, Kh, T, D), ``H % Kh == 0``, as the TPU
 wrapper.  The kernel reads every tensor through its strides (the head dim
@@ -22,7 +29,8 @@ causal S > T (rows with no key), which raises.  f32 only: other dtypes
 raise ``ValueError``.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
-kernel or raises.  ``launches`` counts the kernel's launches.
+kernel (the split pass and the attention kernel, one entry point) or
+raises.  ``launches`` counts the kernel's launches, one a call.
 """
 
 from __future__ import annotations
@@ -89,8 +97,13 @@ def _launch(q, k, v, causal, window, cap):
     out = torch.empty_like(q)           # q's layout where q is dense
     if q.numel() == 0:
         return out
+    # scratch for the kernel's split pass: K and V in 16-key tiles of four
+    # TF32 operand planes (hi and lo of K and of V transposed)
+    planes = torch.empty(b * kh * -(-t // 16) * 64 * d, dtype=torch.float32,
+                         device=dev)
     err = build.library().flash_attention_f32(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        planes.data_ptr(),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *out.stride()[:3], b, h, kh, s, t, d, int(causal),
         0 if window is None else int(window), float(d ** -0.5),

@@ -7,10 +7,11 @@ the serving path it is the prefill of every RG-LRU layer (recurrentgemma-9b:
 B=2, T=4096, W=4096, f32).
 
 What bounds it on the H100: bytes (a and b read once, h written once, 2
-FLOP per 12 bytes).  The kernel gives one thread to each (batch, channel)
+FLOP per 12 bytes).  The kernel gives one lane to each (batch, channel)
 and walks T in order with h in a register, ``__fmul_rn`` then
-``__fadd_rn``, so it equals the sequential plain version bit for bit; with
-only B*W threads it is latency-bound, far from that bound.
+``__fadd_rn``, so it equals the sequential plain version bit for bit; a
+and b stream through a ring of shared-memory time chunks filled by
+``cp.async``, so several chunks are in flight while the lanes walk one.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel or raises.  ``launches`` counts the kernel's launches.
@@ -50,6 +51,8 @@ def _launch(a, b):
         raise ValueError(f"a and b differ in shape: {tuple(a.shape)} vs "
                          f"{tuple(b.shape)}")
     bsz, t, w = a.shape
+    if bsz > 65535:
+        raise ValueError(f"B={bsz} must be <= 65535")
     out = torch.empty_like(a)
     if a.numel() == 0:
         return out

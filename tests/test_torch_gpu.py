@@ -10,11 +10,12 @@ The shapes cover every vector width the kernels pick (N divisible by 4, by
 and the int8 round trip.  ``fed_reduce`` and the M=1 ``fed_aggregate`` must
 be bitwise equal to the plain version; ``fed_aggregate`` at M>1 within
 rtol=1e-6.  ``rglru_scan`` must be bitwise equal (W not a multiple of the
-block, T = 1, T not a multiple of the unroll); ``flash_attention`` within
-rtol = atol = 2e-5 (the reference's tolerance for its kernel) over MQA,
-GQA with the soft-cap, ragged and unaligned lengths, non-causal windows
-and the model's strided layout.  This file imports no JAX, so it runs
-where only torch is.
+block, T = 1, T not a multiple of the time chunk, both copy widths);
+``flash_attention`` within rtol = atol = 2e-5 (the reference's tolerance
+for its kernel) over MQA, GQA with the soft-cap, ragged and unaligned
+lengths (S not a multiple of the 16-key tile at every head dim), many kv
+tiles through the K/V ring, non-causal windows and the model's strided
+layout.  This file imports no JAX, so it runs where only torch is.
 """
 
 import numpy as np
@@ -105,7 +106,9 @@ from repro_torch.kernels import rglru_scan as sc_mod  # noqa: E402
 
 
 @pytest.mark.parametrize("b,t,w", [(2, 64, 4096), (1, 37, 4099), (3, 1, 130),
-                                   (2, 300, 64)])
+                                   (2, 300, 64),
+                                   (3, 75, 1000),   # T % 32 != 0, 16-byte copies
+                                   (3, 75, 4099)])  # the same, 4-byte copies
 def test_rglru_scan_kernel_is_bitwise(cuda, b, t, w):
     rng = np.random.default_rng(b * t + w)
     a = torch.from_numpy(rng.uniform(0.5, 0.999, (b, t, w)).astype(
@@ -134,6 +137,10 @@ def _qkv_cuda(b, h, kh, s, t, d, seed, dev):
     (1, 4, 1, 1, 97, 128, True, 16, None),         # one query
     (1, 6, 2, 100, 70, 32, False, None, 30.0),     # non-causal, S > T
     (1, 2, 2, 65, 65, 128, False, 9, None),        # non-causal window
+    (1, 16, 1, 1024, 1024, 256, True, 512, None),  # many kv tiles, MQA
+    (2, 4, 1, 100, 100, 32, True, None, None),     # S % 16 != 0 at D=32
+    (1, 8, 2, 201, 201, 64, True, 50, 30.0),       # ... at D=64
+    (2, 4, 4, 333, 333, 128, True, 100, None),     # ... at D=128
 ])
 def test_flash_attention_kernel_matches_plain(cuda, b, h, kh, s, t, d,
                                               causal, window, cap):

@@ -337,3 +337,75 @@ def test_lm_kernel_paths_reject_non_cuda_tensors():
     a = _t(np.ones((1, 4, 4), np.float32))
     with pytest.raises(ValueError, match="CUDA tensor"):
         sc_mod._launch(a, a)
+
+
+# ---------------------------------------------------------------------------
+# The CUDA flash_attention's 3xTF32 arithmetic, emulated on the CPU: every
+# operand x of both products is split into hi = tf32_rna(x) and
+# lo = tf32_rna(x - hi), and a.b ~= a_hi.b_hi + (a_hi.b_lo + a_lo.b_hi).
+# A TF32 product is exact in f32 (11 x 11 significand bits), so f32 matmuls
+# of TF32 values repeat the tensor cores' products; their sums in f32 stand
+# for the cores' f32 accumulate.  Three passes hold the reference's 2e-5;
+# one pass of TF32 does not, which is why the kernel spends three.
+# ---------------------------------------------------------------------------
+
+def _tf32_rna(x):
+    """``cvt.rna.tf32.f32`` on the f32 bit pattern: keep 10 mantissa bits,
+    rounding half away from zero."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split(x):
+    hi = _tf32_rna(x)
+    return hi, _tf32_rna(x - hi)
+
+
+def _tf32_matmul(a, b, passes):
+    a_hi, a_lo = _split(a)
+    b_hi, b_lo = _split(b)
+    if passes == 1:
+        return a_hi @ b_hi
+    return (a_hi @ b_lo + a_lo @ b_hi) + a_hi @ b_hi
+
+
+def _tf32_attention(q, k, v, window, passes):
+    """Causal sliding-window attention, q (B,H,S,D), k/v (B,Kh,T,D), with
+    both products in emulated TF32 (one or three passes)."""
+    g = q.shape[1] // k.shape[1]
+    kk = k.repeat_interleave(g, 1)
+    vv = v.repeat_interleave(g, 1)
+    s_len, t_len = q.shape[2], k.shape[2]
+    scores = _tf32_matmul(q, kk.transpose(-1, -2), passes) * q.shape[-1] ** -0.5
+    q_pos = torch.arange(s_len)[:, None] + (t_len - s_len)
+    k_pos = torch.arange(t_len)[None, :]
+    mask = (k_pos <= q_pos) & (k_pos > q_pos - window)
+    scores = torch.where(mask, scores, torch.full_like(scores, ref.NEG_INF))
+    return _tf32_matmul(torch.softmax(scores, -1), vv, passes)
+
+
+@pytest.mark.parametrize("passes,holds", [(3, True), (1, False)])
+def test_flash_attention_tf32_split_products_against_reference(passes, holds):
+    """D=256, S=T=512, window 128, MQA with 16 heads (recurrentgemma's
+    local layer, cut in length): 3xTF32 is within rtol = atol = 2e-5 of
+    the JAX oracle; one TF32 pass is not."""
+    q, k, v = _qkv(1, 16, 1, 512, 512, 256, seed=13)
+    want = np.asarray(jref.flash_attention_ref(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), window=128))
+    got = _tf32_attention(_t(q), _t(k), _t(v), 128, passes).numpy()
+    close = np.allclose(got, want, rtol=2e-5, atol=2e-5)
+    assert close == holds, float(np.abs(got - want).max())
+    if not holds:
+        assert np.abs(got - want).max() > 1e-4
+
+
+def test_tf32_rna_rounds_half_away_from_zero():
+    """The emulated cvt.rna: 1 + 2^-11 (a tie) rounds up to 1 + 2^-10, and
+    its negation down; 1 + 2^-12 rounds to 1; a TF32 value is unchanged."""
+    x = torch.tensor([1 + 2.0 ** -11, -(1 + 2.0 ** -11), 1 + 2.0 ** -12,
+                      1 + 2.0 ** -10, 3.0], dtype=torch.float32)
+    want = torch.tensor([1 + 2.0 ** -10, -(1 + 2.0 ** -10), 1.0,
+                         1 + 2.0 ** -10, 3.0], dtype=torch.float32)
+    assert torch.equal(_tf32_rna(x), want)
+    hi, lo = _split(x)
+    assert torch.equal(hi + lo, x)
