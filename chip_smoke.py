@@ -12,12 +12,15 @@ exits non-zero on failure:
      report) and print the card's name and power limit.
   2. Hold each FedTune kernel against its plain PyTorch version on the card
      at the main path's shapes: ``fed_reduce`` bitwise (FedAvg, FedBuff
-     flush, and a packed T=8 cohort with the int8 round trip),
-     ``fed_aggregate`` bitwise at M=1 and within rtol=1e-6 at M=16.  One
-     JSON line per case with the kernel's, the plain version's and one
-     PyTorch library call's median time (CUDA events, L2 flushed before
-     each launch) and the bound: the larger of the bytes at 3.35 TB/s and
-     the f32 operations at 67 TFLOP/s.
+     flush, a packed T=8 cohort with the int8 round trip, and two packed
+     sweeps of T=32 lanes at full width: ``packed_sweep`` with M=2,880 and
+     ``rows_over_3000`` with M=3,200, 1.97 and 2.19 GB), ``fed_aggregate``
+     bitwise at M=1 and M=16.  One JSON line per case with the kernel's,
+     the plain version's and one PyTorch library call's median time (CUDA
+     events, L2 flushed before each launch) and the bound: the larger of
+     the bytes at 3.35 TB/s and the f32 operations at 67 TFLOP/s.  First,
+     one line with the launch floor: the median time of a one-element
+     PyTorch launch under the same harness.
   2b. The same for the LM kernels at the serving path's shapes:
      ``rglru_scan`` bitwise (B=2, T=4096, W=4096; W=4099; T=1) and
      ``flash_attention`` within rtol = atol = 2e-5 (recurrentgemma-9b's
@@ -59,10 +62,19 @@ The last three lines are the card's name and power limit (as nvidia-smi
 gives them), the kernels' JSON summary and ``{"ok": true, "device":
 {...}}``.  Without a GPU, or without the port's sources beside this file,
 it exits 1 and prints no result.
+
+    python3 chip_smoke.py --baseline OLD/src/repro_torch/kernels/csrc
+
+also builds another checkout's ``fed_reduce`` and ``fed_aggregate`` (same C
+entry points) and times them beside this checkout's on every phase-2 case,
+in turns (old, new, new, old), both through their C entry points; each
+case's line then carries ``old_ms`` and ``new_ms`` (two each) and whether
+the old kernel ran and agreed.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import subprocess
@@ -127,11 +139,45 @@ def median_ms(torch, fn, flush, iters: int = 30, warmup: int = 3) -> float:
     return ms[len(ms) // 2]
 
 
+def launch_floor_ms(torch, flush) -> float:
+    """One one-element PyTorch kernel launch under ``median_ms``: the least
+    that any launch costs in this harness."""
+    one = torch.zeros(1, dtype=torch.float32, device="cuda")
+    return median_ms(torch, lambda: one.add_(1.0), flush, iters=50)
+
+
+def raw_call(torch, fn, *args):
+    """A closure that launches a kernel through its C entry point on the
+    current stream and raises on a CUDA error."""
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        err = fn(*args, 0, stream)
+        if err != 0:
+            raise RuntimeError(f"launch failed: CUDA error {err}")
+    return run
+
+
+def old_vs_new(torch, flush, old, new, check_old):
+    """Times two launches of the same case in turns (old, new, new, old).
+    An old kernel that refuses the case is reported, not timed."""
+    try:
+        old()
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        return dict(old_ran=False, old_error=str(e),
+                    new_ms=[median_ms(torch, new, flush) for _ in range(2)])
+    turns = [median_ms(torch, f, flush) for f in (old, new, new, old)]
+    return dict(old_ran=True, old_equal=check_old(),
+                old_ms=[turns[0], turns[3]], new_ms=[turns[1], turns[2]])
+
+
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def kernel_cases(torch, np, card, flush):
+def kernel_cases(torch, np, card, flush, old_lib=None):
+    from repro_torch.kernels import build
     from repro_torch.kernels import fed_aggregate as fa_mod
     from repro_torch.kernels import fed_reduce as fr_mod
     from repro_torch.kernels import ref
@@ -140,6 +186,10 @@ def kernel_cases(torch, np, card, flush):
     rng = np.random.default_rng(0)
     n = N_PARAMS
     leaf_sizes = (200, 784 * 200, 62, 200 * 62)      # b0, w0, b1, w1
+    floor = launch_floor_ms(torch, flush)
+    emit(dict(phase="kernel_check", case="launch_floor",
+              launch_floor_ms=floor,
+              call="torch.zeros(1).add_(1.0) on the card", card=card))
     results = []
 
     def t(a):
@@ -186,7 +236,22 @@ def kernel_cases(torch, np, card, flush):
             library_call="torch.index_add(base, 0, seg, w~*x) "
                          "(fold only, w~*x precomputed)",
             bytes=nbytes, flops=flops, bound_ms=bound_ms, bound_by=bound_by,
-            card=card)
+            launch_floor_ms=floor, card=card)
+        if old_lib is not None:
+            seg_i = seg.to(torch.int32).contiguous()
+            outs = {}
+
+            def c_call(lib, key):
+                out = torch.empty((t_seg, n), dtype=torch.float32, device=dev)
+                outs[key] = out
+                return raw_call(torch, lib.fed_reduce_f32, w.data_ptr(),
+                                x.data_ptr(), seg_i.data_ptr(),
+                                None if base is None else base.data_ptr(),
+                                out.data_ptr(), m, n, t_seg, int(normalize))
+            rec.update(old_vs_new(
+                torch, flush, c_call(old_lib, "old"),
+                c_call(build.library(), "new"),
+                lambda: bool(torch.equal(outs["old"], want))))
         emit(rec)
         results.append(rec)
 
@@ -214,7 +279,23 @@ def kernel_cases(torch, np, card, flush):
     reduce_case("packed_quant", m, t_seg, t(seg), t(w), t(rows), t(g),
                 True, quant=(t(g), t(np.arange(m) % 3 != 0)))
 
-    def aggregate_case(name, m, bitwise):
+    # packed sweeps at full width: T=32 lanes packed lane by lane (the sweep
+    # engine's layout), raw counts normalised per lane, no base, no quant;
+    # drawn on the card from a seed.  M=3,200 is more than three times the
+    # rows a block of the kernel lists at a time.
+    for name, per in (("packed_sweep", 90), ("rows_over_3000", 100)):
+        t_seg = 32
+        m = t_seg * per
+        gen = torch.Generator(device=dev).manual_seed(m)
+        rows = torch.randn((m, n), generator=gen, device=dev) * 0.05
+        w = torch.rand(m, generator=gen, device=dev) * 299.0 + 1.0
+        seg = torch.arange(t_seg, dtype=torch.int32,
+                           device=dev).repeat_interleave(per)
+        reduce_case(name, m, t_seg, seg, w, rows, None, True)
+        del rows, w, seg
+        torch.cuda.empty_cache()
+
+    def aggregate_case(name, m):
         w = t(rng.uniform(0.0, 1.0, m).astype(np.float32))
         d = t(rng.standard_normal((m, n)).astype(np.float32) * 0.05)
         base = t(rng.standard_normal(n).astype(np.float32) * 0.05)
@@ -223,21 +304,16 @@ def kernel_cases(torch, np, card, flush):
         torch.cuda.synchronize()
         equal = bool(torch.equal(got, want))
         err = float((got - want).abs().max())
-        if bitwise:
-            check(equal, f"fed_aggregate {name}: kernel != plain version "
-                         f"(max abs err {err})")
-        else:
-            check(bool(torch.allclose(got, want, rtol=1e-6, atol=0.0)),
-                  f"fed_aggregate {name}: kernel vs plain version beyond "
-                  f"rtol=1e-6 (max abs err {err})")
+        check(equal, f"fed_aggregate {name}: kernel != plain version "
+                     f"(max abs err {err})")
         nbytes = 4 * (m * n + m + 2 * n)
         flops = 2 * m * n + n
         bound_ms, bound_by = bound(nbytes, flops)
         dt = d.t()
         rec = dict(
             phase="kernel_check", kernel="fed_aggregate", case=name,
-            shape=dict(M=m, N=n), check="bitwise" if bitwise else
-            "rtol=1e-6", equal=equal, max_abs_err=err,
+            shape=dict(M=m, N=n), check="bitwise", equal=equal,
+            max_abs_err=err,
             ms=median_ms(torch, lambda: fa_mod.fed_aggregate(w, d, base),
                          flush),
             plain_ms=median_ms(torch, lambda: ref.fed_aggregate_ref(
@@ -246,12 +322,25 @@ def kernel_cases(torch, np, card, flush):
                                  flush),
             library_call="torch.addmv(base, deltas.T, w)",
             bytes=nbytes, flops=flops, bound_ms=bound_ms, bound_by=bound_by,
-            card=card)
+            launch_floor_ms=floor, card=card)
+        if old_lib is not None:
+            outs = {}
+
+            def c_call(lib, key):
+                out = torch.empty((n,), dtype=torch.float32, device=dev)
+                outs[key] = out
+                return raw_call(torch, lib.fed_aggregate_f32, w.data_ptr(),
+                                d.data_ptr(), base.data_ptr(), out.data_ptr(),
+                                m, n)
+            rec.update(old_vs_new(
+                torch, flush, c_call(old_lib, "old"),
+                c_call(build.library(), "new"),
+                lambda: bool(torch.equal(outs["old"], want))))
         emit(rec)
         results.append(rec)
 
-    aggregate_case("fedasync_mix", 1, True)
-    aggregate_case("m16", 16, False)
+    aggregate_case("fedasync_mix", 1)
+    aggregate_case("m16", 16)
     return results
 
 
@@ -578,6 +667,11 @@ def serve_card_vs_cpu(torch, np):
 
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--baseline", type=Path, default=None,
+                    help="another checkout's kernels/csrc: time its "
+                         "fed_reduce and fed_aggregate beside this one's")
+    args = ap.parse_args()
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"the port's sources are not beside this script ({SRC})")
     sys.path.insert(0, str(SRC))
@@ -610,9 +704,14 @@ def main():
     emit(dict(phase="build", seconds=build_s, library=str(lib_path.name),
               ptxas=ptxas))
 
+    old_lib = None
+    if args.baseline is not None:
+        old_lib = build.library(args.baseline.resolve(),
+                                ROOT / "build" / "kernels_baseline",
+                                ("fed_reduce.cu", "fed_aggregate.cu"))
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32,
                         device="cuda")
-    cases = kernel_cases(torch, np, card, flush)
+    cases = kernel_cases(torch, np, card, flush, old_lib)
     cases += lm_kernel_cases(torch, np, card, flush)
     del flush
 
@@ -647,8 +746,8 @@ def main():
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=head["library_ms"], shape=head["shape"],
             parity={c["case"]: c["check"] for c in mine},
-            **{k: head[k] for k in ("bound_route", "bound_f32_simt_ms")
-               if k in head}))
+            **{k: head[k] for k in ("bound_route", "bound_f32_simt_ms",
+                                    "launch_floor_ms") if k in head}))
     print(card, flush=True)
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

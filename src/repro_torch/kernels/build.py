@@ -46,36 +46,40 @@ def _nvcc() -> str:
                        "(/usr/local/cuda): the CUDA kernels cannot be built")
 
 
-def source_hash() -> str:
+def source_hash(csrc: Path = CSRC, sources=SOURCES) -> str:
     h = hashlib.sha256()
-    for name in SOURCES + HEADERS:
+    for name in tuple(sources) + HEADERS:
         h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+        h.update((Path(csrc) / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 
 
-def library_path() -> Path:
-    return BUILD_DIR / f"libfedkernels-{source_hash()}.so"
+def library_path(csrc: Path = CSRC, build_dir: Path = BUILD_DIR,
+                 sources=SOURCES) -> Path:
+    return Path(build_dir) / f"libfedkernels-{source_hash(csrc, sources)}.so"
 
 
-def build() -> Path:
-    """Compile and link the kernels unless this source hash is built.
-    Returns the shared library's path; the compiler's output (``-Xptxas
-    -v``: registers, shared memory, spills per kernel) is kept beside it
-    in a ``.log`` file.  Raises on any compiler error."""
-    out = library_path()
+def build(csrc: Path = CSRC, build_dir: Path = BUILD_DIR,
+          sources=SOURCES) -> Path:
+    """Compile and link ``sources`` (of ``csrc``, the port's own by
+    default) unless this source hash is built.  Returns the shared
+    library's path; the compiler's output (``-Xptxas -v``: registers,
+    shared memory, spills per kernel) is kept beside it in a ``.log``
+    file.  Raises on any compiler error."""
+    csrc, build_dir = Path(csrc), Path(build_dir)
+    out = library_path(csrc, build_dir, sources)
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         objs, procs = [], []
-        for src in SOURCES:
+        for src in sources:
             obj = Path(tmp) / (Path(src).stem + ".o")
             objs.append(str(obj))
             procs.append((src, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", str(CSRC / src), "-o", str(obj)],
+                [nvcc, *NVCC_FLAGS, "-c", str(csrc / src), "-o", str(obj)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
         logs, failed = [], []
@@ -99,25 +103,38 @@ def build() -> Path:
     return out
 
 
-@functools.lru_cache(maxsize=None)
-def library() -> ctypes.CDLL:
-    """The built kernels, loaded once per process, with every entry
-    point's argument and result types declared (pointers and the stream
-    as ``c_void_p``, sizes as ``c_int``, strides as ``c_longlong``)."""
-    lib = ctypes.CDLL(str(build()))
+def _entry_points():
+    """Each source's C entry point and its argument types (pointers and
+    the stream as ``c_void_p``, sizes as ``c_int``, strides as
+    ``c_longlong``)."""
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.fed_reduce_f32.argtypes = [ptr, ptr, ptr, ptr, ptr,
-                                   i32, i32, i32, i32, i32, ptr]
-    lib.fed_reduce_f32.restype = i32
-    lib.fed_aggregate_f32.argtypes = [ptr, ptr, ptr, ptr,
-                                      i32, i32, i32, ptr]
-    lib.fed_aggregate_f32.restype = i32
-    lib.rglru_scan_f32.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
-    lib.rglru_scan_f32.restype = i32
-    lib.flash_attention_f32.argtypes = (
-        [ptr] * 5 + [i64] * 12 + [i32] * 8 + [ctypes.c_float] * 2
-        + [i32, ptr])
-    lib.flash_attention_f32.restype = i32
+    return {
+        "fed_reduce.cu": ("fed_reduce_f32",
+                          [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
+                           ptr]),
+        "fed_aggregate.cu": ("fed_aggregate_f32",
+                             [ptr, ptr, ptr, ptr, i32, i32, i32, ptr]),
+        "rglru_scan.cu": ("rglru_scan_f32",
+                          [ptr, ptr, ptr, i32, i32, i32, i32, ptr]),
+        "flash_attention.cu": ("flash_attention_f32",
+                               [ptr] * 5 + [i64] * 12 + [i32] * 8
+                               + [ctypes.c_float] * 2 + [i32, ptr]),
+    }
+
+
+@functools.lru_cache(maxsize=None)
+def library(csrc: Path = CSRC, build_dir: Path = BUILD_DIR,
+            sources=SOURCES) -> ctypes.CDLL:
+    """The built kernels, loaded once per process, with every entry
+    point's argument and result types declared.  The defaults are the
+    port's own four kernels; another ``csrc`` (an older checkout's, say)
+    builds into its own library beside them."""
+    lib = ctypes.CDLL(str(build(csrc, build_dir, sources)))
+    for src, (name, argtypes) in _entry_points().items():
+        if src in sources:
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     return lib
 
 

@@ -8,9 +8,11 @@ async mode, with M = 1.
 
 What bounds it on the H100: bytes.  Each delta element is read once for one
 multiply and one add (0.5 FLOP per byte), so the least time is the bytes
-moved (M*N deltas + N base read, N written) over 3.35 TB/s.  The kernel
-streams each row once with vector loads and folds in registers, in row
-order with no FMA, so it equals the plain version bit for bit.
+moved (M*N deltas + N base read, N written) over 3.35 TB/s; at M = 1 the
+launch costs more than the bytes.  A thread issues base, its rows and their
+weights together, with the widest loads each row's alignment allows, and
+folds in registers, in row order with no FMA, so it equals the plain
+version bit for bit.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel or raises.  ``launches`` counts the kernel's launches.

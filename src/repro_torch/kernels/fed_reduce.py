@@ -11,8 +11,12 @@ Hopper kernel is ``csrc/fed_reduce.cu``; its plain version is
 What bounds it on the H100: bytes.  Each row element is read once for one
 multiply and one add (0.5 FLOP per byte), so the least time is the bytes
 moved (M*N rows + T*N base read, T*N written) over 3.35 TB/s.  The kernel
-streams every row exactly once, skips other segments' rows before loading
-them, and folds normalisation into its prologue (see the source's note).
+keeps each thread's rows in flight (a batch of rows loaded before any is
+folded, the next batch issued before the current one is folded, row loads
+first at T = 1), lists a segment's rows with warp ballots instead of a
+serial walk, and takes any number of rows: the list is held in pieces (see
+the source's note).  Segment ids must lie in [0, num_segments), as for the
+plain version; at T = 1 the kernel does not read them.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel or raises.  ``launches`` counts the kernel's launches.
@@ -28,10 +32,6 @@ from repro_torch.kernels import ref
 
 # Launches of the CUDA kernel in this process (set it to 0 to start a count).
 launches = 0
-
-# The prologue stages 16 bytes per row in shared memory, within the 48 KB a
-# block gets without opting in to more (less a few bytes of static shared).
-MAX_ROWS = 3000
 
 
 def fed_reduce(weights: torch.Tensor, rows: torch.Tensor,
@@ -71,9 +71,6 @@ def _launch(weights, rows, segments, num_segments, base, normalize):
                          f"got {tuple(rows.shape)} {rows.dtype}")
     m, n = rows.shape
     t = int(num_segments)
-    if m > MAX_ROWS:
-        raise ValueError(f"fed_reduce kernel takes at most {MAX_ROWS} rows, "
-                         f"got {m}")
     w = weights.to(device=dev, dtype=torch.float32).contiguous()
     seg = segments.to(device=dev, dtype=torch.int32).contiguous()
     if w.shape != (m,) or seg.shape != (m,):

@@ -9,8 +9,9 @@ FedAvg, SGD lr 0.03 momentum 0.9, batch 10, M=20, E=2, FedTune preference
 (0.25, 0.25, 0.25, 0.25).  One round runs first, unprofiled, to warm up.
 Prints one JSON line: the same run's wall time unprofiled and profiled, the
 device's busy time (the union of its kernels, copies and memsets) and idle
-share in the profiled window, device activities per local step, and the top
-kernels by device time and operators by host time.  Needs a GPU; raises
+share in the profiled window, device activities per local step, the top
+kernels by device time and operators by host time, and the server step's
+device time per round: the ``fed_reduce`` kernel and the packing around it.  Needs a GPU; raises
 without one.
 """
 
@@ -105,7 +106,25 @@ def main(argv=None):
         kernel_launches=act["activities"],
         launches_per_step=act["activities"] / max(srv.local_steps, 1),
         top_device=act["top_device"], top_host=act["top_host"],
+        aggregation=aggregation_split(act["by_name"], res.rounds),
         card=card_name())), flush=True)
+
+
+def aggregation_split(by_name, rounds: int) -> dict:
+    """Device time per round of the server step: ``fed_reduce``'s kernel,
+    and the packing around it in ``aggregation._weighted_combine`` (each
+    client's flatten ``torch.cat`` and the ``torch.stack`` of the rows,
+    both PyTorch's cat kernels, which nothing else of a sync trial
+    launches).  ``by_name`` is ``device_activity``'s."""
+    def pick(key):
+        hits = [(n, ms) for name, n, ms in by_name if key in name]
+        return (sum(n for n, _ in hits) / rounds,
+                sum(ms for _, ms in hits) / rounds)
+    pack_n, pack_ms = pick("CatArrayBatchedCopy")
+    red_n, red_ms = pick("fed_reduce_kernel")
+    return dict(pack_launches_per_round=pack_n, pack_ms_per_round=pack_ms,
+                fed_reduce_launches_per_round=red_n,
+                fed_reduce_ms_per_round=red_ms)
 
 
 def card_name() -> str:

@@ -5,11 +5,13 @@ the ``cuda`` fixture, never at import).  On a machine with the card:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-The shapes cover every vector width the kernels pick (N divisible by 4, by
-2 only, and odd), a misaligned row pointer, interleaved and empty segments
-and the int8 round trip.  ``fed_reduce`` and the M=1 ``fed_aggregate`` must
-be bitwise equal to the plain version; ``fed_aggregate`` at M>1 within
-rtol=1e-6.  ``rglru_scan`` must be bitwise equal (W not a multiple of the
+The shapes cover every row alignment the kernels meet (N divisible by 4
+and N = 1, 2 and 3 mod 4, so that packed rows start on 16-, 8- and 4-byte
+boundaries, and a masked tail), a misaligned row pointer, interleaved and
+empty segments, more rows than one batch in flight, more rows than a block
+lists at a time (no row limit), and the int8 round trip.  ``fed_reduce``
+and ``fed_aggregate`` must be bitwise equal to the plain version.
+``rglru_scan`` must be bitwise equal (W not a multiple of the
 block, T = 1, T not a multiple of the time chunk, both copy widths);
 ``flash_attention`` within rtol = atol = 2e-5 (the reference's tolerance
 for its kernel) over MQA, GQA with the soft-cap, ragged and unaligned
@@ -79,8 +81,59 @@ def test_fed_reduce_kernel_misaligned_rows(cuda):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("m,n", [(1, 4096), (1, 4099), (16, 4098)])
+@pytest.mark.parametrize("n", [4097, 4098, 4099])
+@pytest.mark.parametrize("t", [1, 3])
+def test_fed_reduce_kernel_every_row_alignment(cuda, n, t):
+    """N = 1, 2, 3 mod 4: packed rows start on every alignment the loads
+    choose between, and the last quad is a masked tail; M = 37 is more
+    rows than a thread keeps in flight at once."""
+    m = 37
+    w, rows, seg, base = _case(m, n, t, seed=n + t, dev=cuda)
+    for b in (None, base):
+        got = fr_mod.fed_reduce(w, rows, seg, t, b, normalize=True)
+        want = ref.fed_reduce_ref(w, rows, seg, t, b, normalize=True)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("t,layout", [(5, "interleaved"), (1, "dense"),
+                                      (3, "skewed")])
+@pytest.mark.parametrize("normalize", [True, False])
+def test_fed_reduce_kernel_has_no_row_limit(cuda, t, layout, normalize):
+    """M = 4,100 rows, past the 2,048 a block lists at a time: interleaved
+    segments with one empty and one zero-weight row (T = 5), every row in
+    one segment (T = 1), and one segment of about 3,000 rows interleaved
+    with two small ones, so its rows are listed and folded in pieces."""
+    m, n = 4100, 4098
+    rng = np.random.default_rng(m + t)
+    if layout == "interleaved":
+        seg = rng.integers(0, t, m).astype(np.int32)
+        seg[seg == 3] = 4                              # segment 3 empty
+    elif layout == "dense":
+        seg = np.zeros(m, np.int32)
+    else:
+        seg = np.where(rng.uniform(size=m) < 0.75, 0,
+                       rng.integers(1, t, m)).astype(np.int32)
+    w = rng.uniform(1.0, 100.0, m).astype(np.float32)
+    w[5] = 0.0                                         # a zero-weight row
+    rows = rng.standard_normal((m, n)).astype(np.float32)
+    base = rng.standard_normal((t, n)).astype(np.float32)
+    w, rows, seg, base = (torch.from_numpy(a).to(cuda)
+                          for a in (w, rows, seg, base))
+    before = fr_mod.launches
+    got = fr_mod.fed_reduce(w, rows, seg, t, base, normalize=normalize)
+    torch.cuda.synchronize()
+    assert fr_mod.launches == before + 1
+    want = ref.fed_reduce_ref(w, rows, seg, t, base, normalize=normalize)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("m,n", [(1, 4096), (1, 4097), (1, 4098), (1, 4099),
+                                 (16, 4098), (40, 4097)])
 def test_fed_aggregate_kernel(cuda, m, n):
+    """Bitwise, also at M > 1: the plain version folds the rows in order
+    as the kernel does.  M = 40 is more rows than a thread keeps in flight
+    at once."""
     rng = np.random.default_rng(m + n)
     w, d, base = (torch.from_numpy(a).to(cuda) for a in (
         rng.uniform(0.0, 1.0, m).astype(np.float32),
@@ -91,10 +144,8 @@ def test_fed_aggregate_kernel(cuda, m, n):
     want = ref.fed_aggregate_ref(w, d, base)
     torch.cuda.synchronize()
     assert fa_mod.launches == before + 1
-    if m == 1:
-        assert torch.equal(got, want)
-    else:
-        torch.testing.assert_close(got, want, rtol=1e-6, atol=0.0)
+    assert torch.equal(got, want)
+    assert torch.equal(fa_mod.fed_aggregate(w, d), ref.fed_aggregate_ref(w, d))
 
 
 # ---------------------------------------------------------------------------

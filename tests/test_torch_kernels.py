@@ -160,6 +160,27 @@ def test_fed_reduce_matches_pallas_interpret_bitwise():
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("packing", ["lane_major", "interleaved"])
+def test_fed_reduce_past_three_thousand_rows_bitwise(packing):
+    """T = 32 lanes of 100 rows (M = 3,200, more than the 3,000 rows the
+    kernel once took), normalize on: the port equals the reference's
+    oracle ``repro.kernels.ref.fed_reduce_ref`` bit for bit, packed lane by
+    lane (the sweep engine's packing) and interleaved."""
+    t, per, n = 32, 100, 64
+    m = t * per
+    rng = np.random.default_rng(3200)
+    seg = np.repeat(np.arange(t), per)
+    if packing == "interleaved":
+        seg = rng.permutation(seg)
+    seg = seg.astype(np.int32)
+    w = rng.uniform(1.0, 300.0, m).astype(np.float32)
+    rows = rng.standard_normal((m, n)).astype(np.float32)
+    want = jref.fed_reduce_ref(jnp.asarray(w), jnp.asarray(rows),
+                               jnp.asarray(seg), t, normalize=True)
+    got = fr_mod.fed_reduce(_t(w), _t(rows), _t(seg), t, normalize=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 @pytest.mark.parametrize("m,n", [(1, 256), (1, 4099), (4, 1000), (16, 8192)])
 def test_fed_aggregate_ref_matches_reference(m, n):
     """Bitwise at M=1 (the FedAsync mix).  At M>1 the reference's einsum
