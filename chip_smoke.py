@@ -58,6 +58,32 @@ exits non-zero on failure:
      on the card and on the CPU, prompt 160, 8 decode steps fed the CPU
      run's tokens: the logits must agree within 1e-4 at every step.
 
+  7. The vectorized sweep engine at paper scale through ``run_sweep`` on
+     the card (``launch/profile_sweep.full_width_grid``): 48 sync trials
+     (fedavg, fednova, fedadam x preferences 0, 3, 14 x seeds 0, 1 x
+     compression none, int8; fixed baselines collapsed), (M0, E0) = (20,
+     1.0), batch 10, 512 eval points, 5 rounds, over the full
+     ``emnist_like`` federation with the sweep's 40,718-param MLP.  Every
+     trial must finish its rounds with its params on the card and positive
+     costs, and ``fed_reduce`` must launch exactly once per sweep round for
+     the FedAvg group, int8 lanes in the same launch.  Prints lanes packed
+     per round, the (T, M, N) of every ``fed_reduce`` launch, the wall
+     seconds, trial-rounds/s and local steps/s.  Then the async/buffered
+     grid (fedavg, preference 14, seeds 0, 1, stragglers fleet, 10
+     aggregations): ``fed_aggregate`` and ``fed_reduce`` must launch.
+  8. Four of phase 7's trials (two FedAvg, one of them int8; one FedAdam;
+     one async), each also run alone through ``run_trial`` on the card from
+     the same initial params: (M, E), costs and dispatch/staleness logs
+     equal, accuracy within 0.01.  Prints both walls.
+  9. The reduced smoke preset (``launch/sweep.py --preset smoke --limit
+     8``) on the card and on the CPU: the same (M, E) and costs, accuracy
+     within 0.01.
+
+After phase 9, ``fed_reduce`` is held against its plain version at the
+sweep's own launch (phase 7's first FedAvg-group launch: its weights, rows,
+segments and int8 lanes, T=16, N=40,718), with the int8 lanes (the plain
+pre-pass and the kernel alone timed as well) and without.
+
 The last three lines are the card's name and power limit (as nvidia-smi
 gives them), the kernels' JSON summary and ``{"ok": true, "device":
 {...}}``.  Without a GPU, or without the port's sources beside this file,
@@ -176,6 +202,87 @@ def old_vs_new(torch, flush, old, new, check_old):
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+def fed_reduce_case(torch, card, flush, floor, name, w, rows, seg, t_seg,
+                    base, normalize, quant=None, leaf_sizes=None,
+                    old_lib=None):
+    """``fed_reduce`` on (w, rows, seg) held bitwise against its plain
+    version, timed beside its plain version and one ``torch.index_add``,
+    with its bound.  ``quant`` is (quant_ref, quant_enabled): the int8 round
+    trip of compressed lanes, a plain pre-pass (``ref._quant_rows``) before
+    the kernel, whose time and the kernel's alone are recorded too."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import fed_reduce as fr_mod
+    from repro_torch.kernels import ref
+
+    dev = rows.device
+    m, n = rows.shape
+    kw = dict(normalize=normalize)
+    if quant is not None:
+        kw.update(leaf_sizes=leaf_sizes, quant_ref=quant[0],
+                  quant_enabled=quant[1])
+    got = fr_mod.fed_reduce(w, rows, seg, t_seg, base, **kw)
+    want = ref.fed_reduce_ref(w, rows, seg, t_seg, base, **kw)
+    torch.cuda.synchronize()
+    equal = bool(torch.equal(got, want))
+    err = float((got - want).abs().max())
+    check(equal, f"fed_reduce {name}: kernel != plain version "
+                 f"(max abs err {err})")
+    # the library yardstick: the fold as one index_add of w~ * x
+    w_n = ref._norm_weights(w, seg.tolist(), t_seg, normalize)
+    x = rows if quant is None else ref._quant_rows(
+        rows, seg, quant[0], quant[1], leaf_sizes)
+    wx = w_n[:, None] * x
+    acc0 = base if base is not None else torch.zeros(
+        (t_seg, n), dtype=torch.float32, device=dev)
+    seg_l = seg.long()
+    nbytes = 4 * (m * n + 2 * m + t_seg * n * (2 if base is not None
+                                               else 1))
+    flops = 2 * m * n + (t_seg * n if base is not None else 0)
+    if quant is not None:
+        nbytes += 4 * t_seg * n + m         # quant_ref, quant mask
+    bound_ms, bound_by = bound(nbytes, flops)
+    rec = dict(
+        phase="kernel_check", kernel="fed_reduce", case=name,
+        shape=dict(M=m, N=n, T=t_seg), normalize=normalize,
+        base=base is not None, quant=quant is not None,
+        check="bitwise", equal=equal, max_abs_err=err,
+        ms=median_ms(torch, lambda: fr_mod.fed_reduce(
+            w, rows, seg, t_seg, base, **kw), flush),
+        plain_ms=median_ms(torch, lambda: ref.fed_reduce_ref(
+            w, rows, seg, t_seg, base, **kw), flush, iters=10),
+        library_ms=median_ms(torch, lambda: torch.index_add(
+            acc0, 0, seg_l, wx), flush),
+        library_call="torch.index_add(base, 0, seg, w~*x) "
+                     "(fold only, w~*x precomputed)",
+        bytes=nbytes, flops=flops, bound_ms=bound_ms, bound_by=bound_by,
+        launch_floor_ms=floor, card=card)
+    if quant is not None:
+        plain_kw = dict(kw, leaf_sizes=None, quant_ref=None,
+                        quant_enabled=None)
+        rec.update(
+            prepass_ms=median_ms(torch, lambda: ref._quant_rows(
+                rows, seg, quant[0], quant[1], leaf_sizes), flush),
+            kernel_alone_ms=median_ms(torch, lambda: fr_mod.fed_reduce(
+                w, x, seg, t_seg, base, **plain_kw), flush))
+    if old_lib is not None:
+        seg_i = seg.to(torch.int32).contiguous()
+        outs = {}
+
+        def c_call(lib, key):
+            out = torch.empty((t_seg, n), dtype=torch.float32, device=dev)
+            outs[key] = out
+            return raw_call(torch, lib.fed_reduce_f32, w.data_ptr(),
+                            x.data_ptr(), seg_i.data_ptr(),
+                            None if base is None else base.data_ptr(),
+                            out.data_ptr(), m, n, t_seg, int(normalize))
+        rec.update(old_vs_new(
+            torch, flush, c_call(old_lib, "old"),
+            c_call(build.library(), "new"),
+            lambda: bool(torch.equal(outs["old"], want))))
+    emit(rec)
+    return rec
+
+
 def kernel_cases(torch, np, card, flush, old_lib=None):
     from repro_torch.kernels import build
     from repro_torch.kernels import fed_aggregate as fa_mod
@@ -197,63 +304,9 @@ def kernel_cases(torch, np, card, flush, old_lib=None):
 
     def reduce_case(name, m, t_seg, seg, w, rows, base, normalize,
                     quant=None):
-        kw = dict(normalize=normalize)
-        if quant is not None:
-            kw.update(leaf_sizes=leaf_sizes, quant_ref=quant[0],
-                      quant_enabled=quant[1])
-        got = fr_mod.fed_reduce(w, rows, seg, t_seg, base, **kw)
-        want = ref.fed_reduce_ref(w, rows, seg, t_seg, base, **kw)
-        torch.cuda.synchronize()
-        equal = bool(torch.equal(got, want))
-        err = float((got - want).abs().max())
-        check(equal, f"fed_reduce {name}: kernel != plain version "
-                     f"(max abs err {err})")
-        # the library yardstick: the fold as one index_add of w~ * x
-        w_n = ref._norm_weights(w, seg.tolist(), t_seg, normalize)
-        x = rows if quant is None else ref._quant_rows(
-            rows, seg, quant[0], quant[1], leaf_sizes)
-        wx = w_n[:, None] * x
-        acc0 = base if base is not None else torch.zeros(
-            (t_seg, n), dtype=torch.float32, device=dev)
-        seg_l = seg.long()
-        nbytes = 4 * (m * n + 2 * m + t_seg * n * (2 if base is not None
-                                                   else 1))
-        flops = 2 * m * n + (t_seg * n if base is not None else 0)
-        if quant is not None:
-            nbytes += 4 * t_seg * n + m         # quant_ref, quant mask
-        bound_ms, bound_by = bound(nbytes, flops)
-        rec = dict(
-            phase="kernel_check", kernel="fed_reduce", case=name,
-            shape=dict(M=m, N=n, T=t_seg), normalize=normalize,
-            base=base is not None, quant=quant is not None,
-            check="bitwise", equal=equal, max_abs_err=err,
-            ms=median_ms(torch, lambda: fr_mod.fed_reduce(
-                w, rows, seg, t_seg, base, **kw), flush),
-            plain_ms=median_ms(torch, lambda: ref.fed_reduce_ref(
-                w, rows, seg, t_seg, base, **kw), flush, iters=10),
-            library_ms=median_ms(torch, lambda: torch.index_add(
-                acc0, 0, seg_l, wx), flush),
-            library_call="torch.index_add(base, 0, seg, w~*x) "
-                         "(fold only, w~*x precomputed)",
-            bytes=nbytes, flops=flops, bound_ms=bound_ms, bound_by=bound_by,
-            launch_floor_ms=floor, card=card)
-        if old_lib is not None:
-            seg_i = seg.to(torch.int32).contiguous()
-            outs = {}
-
-            def c_call(lib, key):
-                out = torch.empty((t_seg, n), dtype=torch.float32, device=dev)
-                outs[key] = out
-                return raw_call(torch, lib.fed_reduce_f32, w.data_ptr(),
-                                x.data_ptr(), seg_i.data_ptr(),
-                                None if base is None else base.data_ptr(),
-                                out.data_ptr(), m, n, t_seg, int(normalize))
-            rec.update(old_vs_new(
-                torch, flush, c_call(old_lib, "old"),
-                c_call(build.library(), "new"),
-                lambda: bool(torch.equal(outs["old"], want))))
-        emit(rec)
-        results.append(rec)
+        results.append(fed_reduce_case(
+            torch, card, flush, floor, name, w, rows, seg, t_seg, base,
+            normalize, quant, leaf_sizes, old_lib))
 
     # FedAvg: T=1, M=20 raw counts, normalize, no base
     m = 20
@@ -341,7 +394,7 @@ def kernel_cases(torch, np, card, flush, old_lib=None):
 
     aggregate_case("fedasync_mix", 1)
     aggregate_case("m16", 16)
-    return results
+    return results, floor
 
 
 # ---------------------------------------------------------------------------
@@ -558,6 +611,223 @@ def card_vs_cpu(sync_res, init_params):
 
 
 # ---------------------------------------------------------------------------
+# phase 7/8/9: the vectorized sweep engine
+# ---------------------------------------------------------------------------
+
+def sweep_full_width(torch, card):
+    """Phase 7: the 48-trial sync grid and its async/buffered counterpart
+    at paper scale through ``run_sweep`` on the card.  Every
+    ``_fused_sync_reduce`` call is watched: it must launch ``fed_reduce``
+    exactly once per sweep round, and the first call's inputs are kept
+    for the kernel case at the sweep's own launch shape."""
+    from repro_torch.experiments import run_sweep, runner
+    from repro_torch.kernels import fed_aggregate as fa_mod
+    from repro_torch.kernels import fed_reduce as fr_mod
+    from repro_torch.kernels import ops
+    from repro_torch.launch.profile_sweep import (full_width_event_grid,
+                                                  full_width_grid)
+    from repro_torch.tree import leaves
+
+    specs = full_width_grid(rounds=5).expand()
+    check(len(specs) == 48, f"phase 7 grid has {len(specs)} trials, not 48")
+    fused, lanes, captured, all_shapes = [], [], {}, {}
+    inner_fused, inner_step = runner._fused_sync_reduce, runner._sync_round_step
+    inner_op = ops.fed_reduce
+
+    def op_spy(w, rows, seg, t, base=None, **kw):
+        shape = f"T={t},M={rows.shape[0]},N={rows.shape[1]}"
+        all_shapes[shape] = all_shapes.get(shape, 0) + 1
+        if "in_fused" in captured:
+            captured["in_fused"].append(dict(
+                T=t, M=rows.shape[0], N=rows.shape[1],
+                int8_rows=int(kw["quant_enabled"].sum())
+                if kw.get("quant_enabled") is not None else 0))
+            if "inputs" not in captured:
+                captured["inputs"] = (w.clone(), rows.clone(), seg.clone(),
+                                      t, {k: v.clone() if torch.is_tensor(v)
+                                          else v for k, v in kw.items()})
+        return inner_op(w, rows, seg, t, base, **kw)
+
+    def fused_spy(live):
+        captured["in_fused"] = []
+        before = fr_mod.launches
+        inner_fused(live)
+        fused.append(dict(launches=fr_mod.launches - before,
+                          calls=captured.pop("in_fused")))
+
+    def step_spy(live):
+        n = inner_step(live)
+        lanes.append(n)
+        return n
+
+    ops.fed_reduce, runner._fused_sync_reduce = op_spy, fused_spy
+    runner._sync_round_step = step_spy
+    try:
+        torch.cuda.synchronize()
+        fr_mod.launches = 0
+        fa_mod.launches = 0
+        t0 = time.perf_counter()
+        res = run_sweep(specs, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {"fed_reduce": fr_mod.launches,
+                  "fed_aggregate": fa_mod.launches}
+    finally:
+        ops.fed_reduce, runner._fused_sync_reduce = inner_op, inner_fused
+        runner._sync_round_step = inner_step
+    check(len(res) == 48, f"phase 7: {len(res)} results for 48 trials")
+    check(all(r.rounds == 5 for r in res),
+          f"phase 7: rounds {[r.rounds for r in res]}, wanted 5 each")
+    check(all(p.device.type == "cuda" for r in res for p in leaves(r.params)),
+          "phase 7: final params are not all on cuda")
+    check(all(c > 0 for r in res for c in r.cost),
+          "phase 7: cost totals not all positive")
+    check(all(math.isfinite(a) for r in res for a in r.history_acc),
+          "phase 7: accuracy not finite")
+    check(len(fused) == len(lanes) == 5,
+          f"phase 7: {len(lanes)} sweep rounds, {len(fused)} fused reduces")
+    check(all(f["launches"] == 1 and len(f["calls"]) == 1 for f in fused),
+          f"phase 7: fed_reduce launches per fused reduce "
+          f"{[f['launches'] for f in fused]}, wanted 1 each")
+    check(all(f["calls"][0]["int8_rows"] > 0 for f in fused),
+          "phase 7: the FedAvg group's launch carried no int8 lanes")
+    trial_rounds = sum(r.rounds for r in res)
+    steps = sum(r.local_steps for r in res)
+    rec = dict(phase="sweep_full_width", mode="sync", trials=len(res),
+               sweep_rounds=len(lanes), lanes_per_round=lanes,
+               fed_reduce_fedavg_group=[f["calls"][0] for f in fused],
+               fed_reduce_every_launch=all_shapes,
+               launches=counts, wall_s=wall, trial_rounds=trial_rounds,
+               trial_rounds_per_s=trial_rounds / wall, local_steps=steps,
+               local_steps_per_s=steps / wall, card=card)
+    emit(rec)
+
+    ev_specs = full_width_event_grid(rounds=10).expand()
+    torch.cuda.synchronize()
+    fr_mod.launches = 0
+    fa_mod.launches = 0
+    t0 = time.perf_counter()
+    ev_res = run_sweep(ev_specs, device="cuda")
+    torch.cuda.synchronize()
+    ev_wall = time.perf_counter() - t0
+    ev_counts = {"fed_reduce": fr_mod.launches,
+                 "fed_aggregate": fa_mod.launches}
+    check(all(r.rounds == 10 for r in ev_res),
+          f"phase 7 events: rounds {[r.rounds for r in ev_res]}, wanted 10")
+    check(all(p.device.type == "cuda" for r in ev_res
+              for p in leaves(r.params)),
+          "phase 7 events: final params are not all on cuda")
+    check(all(c > 0 for r in ev_res for c in r.cost),
+          "phase 7 events: cost totals not all positive")
+    check(ev_counts["fed_aggregate"] > 0, "phase 7 events: fed_aggregate "
+                                          "never launched")
+    check(ev_counts["fed_reduce"] > 0, "phase 7 events: fed_reduce (FedBuff "
+                                       "flushes) never launched")
+    ev_steps = sum(r.local_steps for r in ev_res)
+    aggs = sum(r.rounds for r in ev_res)
+    emit(dict(phase="sweep_full_width", mode="async,buffered",
+              trials=len(ev_res), launches=ev_counts, wall_s=ev_wall,
+              aggregations=aggs, aggregations_per_s=aggs / ev_wall,
+              local_steps=ev_steps, local_steps_per_s=ev_steps / ev_wall,
+              card=card))
+    launches = {k: counts[k] + ev_counts[k] for k in counts}
+    return res, ev_res, wall, launches, captured["inputs"]
+
+
+def sweep_vs_standalone(torch, card, res, ev_res, sweep_wall):
+    """Phase 8: four of phase 7's trials, each also run alone on the card
+    from the same initial params (the port's seeded init on both sides)."""
+    from repro_torch.experiments import run_trial
+
+    def pick(rs, **want):
+        return next(r for r in rs if all(getattr(r.spec, k) == v
+                                         for k, v in want.items()))
+    chosen = [pick(res, aggregator="fedavg", compression=None, seed=0,
+                   tuner="fedtune"),
+              pick(res, aggregator="fedavg", compression="int8", seed=1,
+                   tuner="fedtune"),
+              pick(res, aggregator="fedadam", seed=0, tuner="fedtune"),
+              pick(ev_res, mode="async", seed=0, tuner="fedtune")]
+    rows = []
+    for vec in chosen:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        alone = run_trial(vec.spec, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        name = vec.spec.key()
+        check((alone.history_m, alone.history_e)
+              == (vec.history_m, vec.history_e),
+              f"phase 8 {name}: (M, E) differ")
+        check(alone.cost == vec.cost, f"phase 8 {name}: costs differ")
+        check(alone.dispatch_log == vec.dispatch_log
+              and alone.staleness_log == vec.staleness_log,
+              f"phase 8 {name}: dispatch/staleness logs differ")
+        diff = max(abs(a - b) for a, b in zip(alone.history_acc,
+                                               vec.history_acc))
+        check(diff <= 0.01, f"phase 8 {name}: accuracy differs by {diff}")
+        rows.append(dict(trial=name, rounds=alone.rounds,
+                         standalone_wall_s=wall, max_acc_diff=diff,
+                         acc_equal=alone.history_acc == vec.history_acc))
+    n_sync = len(res)
+    emit(dict(phase="sweep_vs_standalone", trials=rows,
+              sweep_wall_s=sweep_wall, sweep_trials=n_sync,
+              sweep_wall_per_trial_s=sweep_wall / n_sync,
+              sync_standalone_wall_mean_s=sum(
+                  r["standalone_wall_s"] for r in rows[:3]) / 3,
+              card=card))
+
+
+def sweep_card_vs_cpu(torch):
+    """Phase 9: the reduced smoke preset's first 8 trials through the sweep
+    CLI on the card and on the CPU, from the same initial params."""
+    from repro_torch.launch import sweep as sweep_cli
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        store = ROOT / "runs" / f"chip_smoke_sweep_{dev}.jsonl"
+        t0 = time.perf_counter()
+        out[dev] = sweep_cli.main(["--preset", "smoke", "--limit", "8",
+                                   "--device", dev, "--no-resume",
+                                   "--out", str(store)])
+        out[dev + "_wall"] = time.perf_counter() - t0
+    diffs = []
+    for a, b in zip(out["cuda"], out["cpu"]):
+        check(a.spec.key() == b.spec.key(), "phase 9: trial order differs")
+        check((a.history_m, a.history_e) == (b.history_m, b.history_e),
+              f"phase 9 {a.spec.key()}: (M, E) differ")
+        check(a.cost == b.cost, f"phase 9 {a.spec.key()}: costs differ")
+        diffs.append(max(abs(x - y) for x, y in zip(a.history_acc,
+                                                    b.history_acc)))
+    check(len(out["cuda"]) == 8 and max(diffs) <= 0.01,
+          f"phase 9: {len(out['cuda'])} trials, accuracy diffs {diffs}")
+    emit(dict(phase="sweep_card_vs_cpu", trials=len(out["cuda"]),
+              max_acc_diff=max(diffs), costs_equal=True,
+              card_wall_s=out["cuda_wall"], cpu_wall_s=out["cpu_wall"]))
+
+
+def sweep_reduce_cases(torch, card, floor, inputs):
+    """``fed_reduce`` at the sweep's own launch shape: phase 7's first
+    FedAvg-group launch (its weights, rows, segments and int8 lanes), with
+    the int8 lanes and without."""
+    w, rows, seg, t_seg, kw = inputs
+    n = rows.shape[1]
+    leaf_sizes = tuple(kw["leaf_sizes"])
+    check(n == 40_718 and sum(leaf_sizes) == n,
+          f"sweep rows have N={n}, leaves {leaf_sizes}")
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32,
+                        device="cuda")
+    out = [fed_reduce_case(torch, card, flush, floor, "sweep_fedavg_int8", w,
+                           rows, seg, t_seg, None, True,
+                           (kw["quant_ref"], kw["quant_enabled"]),
+                           leaf_sizes),
+           fed_reduce_case(torch, card, flush, floor, "sweep_fedavg", w,
+                           rows, seg, t_seg, None, True)]
+    del flush
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 5/6: the LM serving path
 # ---------------------------------------------------------------------------
 
@@ -711,7 +981,7 @@ def main():
                                 ("fed_reduce.cu", "fed_aggregate.cu"))
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32,
                         device="cuda")
-    cases = kernel_cases(torch, np, card, flush, old_lib)
+    cases, floor = kernel_cases(torch, np, card, flush, old_lib)
     cases += lm_kernel_cases(torch, np, card, flush)
     del flush
 
@@ -725,6 +995,16 @@ def main():
     lm_launches = serve_full_width(torch, np, card)
     launches.update(lm_launches)
     serve_card_vs_cpu(torch, np)
+    torch.cuda.empty_cache()
+
+    res, ev_res, sweep_wall, sweep_launches, reduce_inputs = \
+        sweep_full_width(torch, card)
+    for k, v in sweep_launches.items():
+        launches[k] += v
+    sweep_vs_standalone(torch, card, res, ev_res, sweep_wall)
+    sweep_card_vs_cpu(torch)
+    del res, ev_res
+    cases += sweep_reduce_cases(torch, card, floor, reduce_inputs)
 
     summary = []
     for name, replaces, main_case in (

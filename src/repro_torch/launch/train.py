@@ -13,8 +13,9 @@ Usage:
 
 The flags are the reference's.  ``--mode mesh``, ``--trace``/``--trace-jax``
 and ``--checkpoint`` raise ``NotImplementedError`` until the multi-GPU,
-tracing and checkpoint slices land (see ROADMAP.md), and so do the
-``batched``/``sharded`` client-execution backends.
+tracing and checkpoint slices land (see ROADMAP.md), and so does the
+``sharded`` client-execution backend; ``--client-exec batched`` trains a
+sync round's clients as one packed cohort.
 """
 
 from __future__ import annotations
@@ -54,8 +55,8 @@ def main(argv=None):
                     help="deprecated alias for --client-exec batched")
     ap.add_argument("--client-exec", default=None,
                     choices=("sequential", "batched", "sharded"),
-                    help="sync-mode client execution backend (only "
-                         "sequential is ported)")
+                    help="sync-mode client execution backend (sharded "
+                         "is not ported)")
     ap.add_argument("--trace", nargs="?", const="runs/train.trace.json",
                     default=None, metavar="PATH",
                     help="dual-clock trace of the run (not ported yet)")

@@ -20,9 +20,16 @@ fleet's device profiles).  Three execution policies:
 All stochasticity flows from two seeded generators — the server rng
 (selection + batch order, shared with the legacy loop) and a system rng
 (availability/dropout) — consumed in the reference's order, so a run's
-decisions, clocks and logs equal the reference's.  Sync-mode ``batched``
-and ``sharded`` client execution come with later slices, and so do the
-reference's tracing hooks.
+decisions, clocks and logs equal the reference's.  Sync mode trains a
+round's clients one at a time (``sequential``) or as one packed cohort
+(``batched``, ``runtime/batched.py``); the ``sharded`` backend and the
+reference's tracing hooks come with later slices.
+
+The event loop is factored into plan/apply/account/finish methods over an
+``EventLoopState``, each taking an optional ``queue`` (default: the
+runtime's own ``EventQueue``), so the vectorized sweep runner can drive T
+trials' event loops off one merged queue (``TrialQueueView``), replacing
+only the training step with a packed cohort.
 """
 
 from __future__ import annotations
@@ -155,12 +162,7 @@ class EventDrivenRuntime:
         if self.fleet.n_clients != server.dataset.n_clients:
             raise ValueError(f"fleet has {self.fleet.n_clients} clients, the "
                              f"dataset {server.dataset.n_clients}")
-        if self.rt.batched or self.rt.client_exec != "sequential":
-            raise NotImplementedError(
-                f"client_exec {self.rt.client_exec!r} (or batched=True) is "
-                "not ported yet: batched and sharded cohort execution come "
-                "with the batched-cohort and multi-GPU slices (see "
-                "ROADMAP.md); use client_exec='sequential'")
+        self.client_exec = self._resolve_client_exec()
         self.sys_rng = np.random.default_rng(self.rt.system_seed)
         self.clock = VirtualClock()
         self.queue = EventQueue()
@@ -168,6 +170,26 @@ class EventDrivenRuntime:
         self._c1 = cm.train_flops_per_example
         self._uf = upload_factor(server.config.compression)
         self._down, self._up = cm.traffic_halves(self._uf)
+
+    def _resolve_client_exec(self) -> str:
+        """The sync-mode client-execution backend: ``batched=True`` is the
+        legacy spelling of ``batched``; async/buffered train one arrival at
+        a time, so they use the sequential loop; ``sharded`` is not
+        ported."""
+        mode = self.rt.client_exec
+        if mode == "sharded":
+            raise NotImplementedError(
+                "client_exec 'sharded' is not ported yet: it comes with the "
+                "multi-GPU slice (ROADMAP.md queue 1, item 15); use "
+                "'sequential' or 'batched'")
+        if self.rt.batched and mode == "sequential":
+            mode = "batched"    # legacy flag
+        if mode == "batched" and self.rt.mode != "sync":
+            print("runtime: batched execution applies to the sync mode "
+                  "(async/buffered train one arrival at a time); using "
+                  "the sequential client loop", flush=True)
+            return "sequential"
+        return mode
 
     # ------------------------------------------------------------------
     # timing primitives
@@ -345,8 +367,12 @@ class EventDrivenRuntime:
             included, active = plan.included, plan.active
 
             if included:
-                updates = [srv._client_update(params, cid, hp.e)[0]
-                           for cid in plan.train_cids]
+                if self.client_exec == "batched":
+                    updates = self._batched_cohort(params, plan.train_cids,
+                                                   hp.e)
+                else:
+                    updates = [srv._client_update(params, cid, hp.e)[0]
+                               for cid in plan.train_cids]
                 params = srv.aggregator(params, updates)
             round_cost = self.account_sync_round(plan, hp)
 
@@ -374,12 +400,27 @@ class EventDrivenRuntime:
             final_m=hp.m, final_e=hp.e, params=params,
             sim_time=self.clock.now)
 
+    def _batched_cohort(self, params, active: List[int], e: float):
+        """One round's clients as a packed cohort (``batched_local_train``,
+        the same rng contract as the sequential loop)."""
+        from repro_torch.runtime.batched import batched_local_train
+        srv = self.srv
+        data = [srv.dataset.client_data(c) for c in active]
+        updates = batched_local_train(
+            srv.model, params, data, passes=e,
+            batch_size=srv.config.batch_size, optimizer=srv.optimizer,
+            rng=srv.rng, prox_mu=srv.config.prox_mu, client_ids=active,
+            compression=srv.config.compression)
+        for upd, (_, y) in zip(updates, data):
+            srv.selector.update(upd.client_id, upd.last_loss, len(y))
+        return updates
+
     # ------------------------------------------------------------------
     # async / buffered: an event loop over the virtual clock
     # ------------------------------------------------------------------
-    def init_event_state(self, params) -> EventLoopState:
+    def init_event_state(self, params, queue=None) -> EventLoopState:
         """Fresh event-loop state with the initial concurrency dispatched
-        at t=0."""
+        at t=0 into ``queue``."""
         cfg, rt = self.srv.config, self.rt
         st = EventLoopState(
             hp=HyperParams(m=cfg.m, e=cfg.e), params=params,
@@ -387,11 +428,11 @@ class EventDrivenRuntime:
                 buffer_k=rt.buffer_k, server_lr=rt.server_lr,
                 staleness_alpha=rt.staleness_alpha,
                 staleness_kind=rt.staleness_kind))
-        self.fill_event_concurrency(st, 0.0)
+        self.fill_event_concurrency(st, 0.0, queue)
         return st
 
     def dispatch_event(self, st: EventLoopState, cid: int, now: float,
-                       attempt: int = 0):
+                       queue=None, attempt: int = 0):
         """Send the current global model to one client: snapshot it into an
         ``_InFlight`` record, draw the client's dropout (system rng; kept
         even when the failure model overrides the outcome, so the stream
@@ -406,9 +447,10 @@ class EventDrivenRuntime:
         kind = DROPOUT if self._drops(cid) else ARRIVAL
         if self.fleet.has_failures() and self.fleet.fails(cid, now, attempt):
             kind = FAILURE
-        self.queue.push(now + comp + trans, kind, client_id=cid)
+        queue = self.queue if queue is None else queue
+        queue.push(now + comp + trans, kind, client_id=cid)
 
-    def handle_failure(self, st: EventLoopState, ev):
+    def handle_failure(self, st: EventLoopState, ev, queue=None):
         """A FAILURE event: charge the wasted work into the pending window
         and, within the retry budget, re-dispatch the same client after a
         backoff proportional to the failed attempt."""
@@ -421,10 +463,12 @@ class EventDrivenRuntime:
         if fl.attempt < self.rt.max_retries:
             backoff = self.rt.retry_backoff * (fl.comp_time + fl.trans_time)
             self.dispatch_event(st, fl.client_id, ev.time + backoff,
-                                attempt=fl.attempt + 1)
+                                queue, attempt=fl.attempt + 1)
 
-    def fill_event_concurrency(self, st: EventLoopState, now: float):
+    def fill_event_concurrency(self, st: EventLoopState, now: float,
+                               queue=None):
         """Top up in-flight clients to M."""
+        queue = self.queue if queue is None else queue
         srv = self.srv
         target = min(st.hp.m, srv.dataset.n_clients)
         for _ in range(5):               # availability retry passes
@@ -440,12 +484,12 @@ class EventDrivenRuntime:
                 if not self._is_active(cid, now):
                     continue
                 if self._available(cid):
-                    self.dispatch_event(st, cid, now)
+                    self.dispatch_event(st, cid, now, queue)
         # deadlock guard: nothing in flight and nothing queued
-        if not st.inflight and not self.queue:
+        if not st.inflight and not queue:
             cohort = [int(c) for c in srv.selector.select(1)]
             if cohort:
-                self.dispatch_event(st, cohort[0], now)
+                self.dispatch_event(st, cohort[0], now, queue)
 
     def plan_event(self, st: EventLoopState, ev) -> Optional[_InFlight]:
         """Retire one popped event's in-flight record and charge its loads.
@@ -497,15 +541,20 @@ class EventDrivenRuntime:
         return round_cost
 
     def finish_event_round(self, st: EventLoopState, staleness: int,
-                           wall: float):
+                           wall: float, accuracy: Optional[float] = None):
         """Complete one aggregation: bump the model version, account the
         window, evaluate on schedule, record history, and step the FedTune
-        controller — or set ``st.reached`` if the target was hit."""
+        controller — or set ``st.reached`` if the target was hit.
+        ``accuracy`` is the sweep runner's hook: its lane of one stacked
+        evaluation of every aggregating trial, used in place of this
+        trial's own evaluation."""
         srv, cfg, rt = self.srv, self.srv.config, self.rt
         st.version += 1
         r = len(st.history)
         round_cost = self.account_event_round(st)
-        if eval_due(r, cfg.eval_every, cfg.max_rounds):
+        if accuracy is not None:
+            st.accuracy = accuracy
+        elif eval_due(r, cfg.eval_every, cfg.max_rounds):
             st.accuracy = srv._evaluate(st.params)
         st.history.append(RoundRecord(
             r, st.hp.m, st.hp.e, st.accuracy, round_cost, wall,

@@ -46,3 +46,11 @@ def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
     if any(len(c) != len(cols[0]) for c in cols):
         raise ValueError("trees have different numbers of leaves")
     return unflatten_like(tree, [fn(*xs) for xs in zip(*cols)])
+
+
+def tree_stack(trees: List[Any]) -> Any:
+    """Stack same-shaped trees leaf by leaf along a new leading axis (the
+    lane axis of a packed cohort or of a stacked evaluation)."""
+    import torch
+    cols = [leaves(t) for t in trees]
+    return unflatten_like(trees[0], [torch.stack(ls) for ls in zip(*cols)])

@@ -233,3 +233,87 @@ def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda):
         fl_mod.flash_attention(q[..., :48].contiguous(),
                                k[..., :48].contiguous(),
                                v[..., :48].contiguous())
+
+
+# ---------------------------------------------------------------------------
+# the sweep engine's packed paths on the card
+# ---------------------------------------------------------------------------
+
+def _sweep_spec(**kw):
+    from repro_torch.experiments import TrialSpec
+    base = dict(dataset="emnist", aggregator="fedavg", tuner="fedtune",
+                m0=3, e0=1.0, rounds=3, target_accuracy=0.99, batch_size=5,
+                eval_points=128)
+    base.update(kw)
+    return TrialSpec(**base)
+
+
+def test_cohort_scan_on_cuda_matches_cpu(cuda):
+    """A packed cohort of 8 lanes, each from its own global params, over
+    16 steps with ragged step masks: the card within 1e-5 of the CPU."""
+    from repro_torch.experiments import runner
+    from repro_torch.runtime.batched import _stack_streams, to_device
+    from repro_torch.tree import leaves, tree_map
+
+    srv = runner.build_server(_sweep_spec(), "cpu")
+    rng = np.random.default_rng(3)
+    params = [srv.model.init(s, "cpu") for s in range(8)]
+    streams = []
+    for k in range(8):
+        x, y = srv.dataset.client_data(k)
+        streams.append(list(runner.materialize_streams(
+            [(x, y)], 5, 1.0, rng)[0][0])[:16])
+    arrays = _stack_streams(streams, 5, 16)
+    out = {}
+    for dev in ("cpu", cuda):
+        run = runner._multi_cohort_fn(srv.model, srv.optimizer, 0.01)
+        global_b = runner.tree_stack(
+            [tree_map(lambda p: p.to(dev), p) for p in params])
+        out[str(dev)] = run(global_b, *to_device(dev, *arrays))
+    (p_cpu, l_cpu), (p_gpu, l_gpu) = out["cpu"], out[str(cuda)]
+    for a, b in zip(leaves(p_cpu), leaves(p_gpu)):
+        torch.testing.assert_close(b.cpu(), a, rtol=0, atol=1e-5)
+    torch.testing.assert_close(l_gpu.cpu(), l_cpu, rtol=0, atol=1e-5)
+
+
+def test_fused_sync_reduce_is_bitwise_against_plain(cuda, monkeypatch):
+    """``_fused_sync_reduce`` over 5 FedAvg trials (T=8), two of them with
+    int8 lanes, one with a zero-step client: one kernel launch, each
+    trial's new params bitwise equal to the plain version on the same
+    packed rows."""
+    from repro_torch.experiments import runner
+    from repro_torch.federated.aggregation import _flatten
+
+    calls = []
+    real = runner.kernel_ops.fed_reduce
+
+    def spy(*args, **kw):
+        calls.append((args, kw))
+        return real(*args, **kw)
+    monkeypatch.setattr(runner.kernel_ops, "fed_reduce", spy)
+    rng = np.random.default_rng(11)
+    live = []
+    for s in range(5):
+        tr = runner._make_live(_sweep_spec(
+            seed=s, compression="int8" if s in (1, 3) else None), cuda, None)
+        m = 3 + s
+        gflat = _flatten(tr.params)[0]
+        rows = [gflat + torch.from_numpy(rng.standard_normal(
+            gflat.shape[0]).astype(np.float32) * 0.01).to(cuda)
+            for _ in range(m)]
+        if s == 2:
+            rows[1] = None                         # a zero-step client
+        tr.cohort = runner._Cohort(
+            cids=list(range(m)), streams=[], n_steps=[1] * m,
+            sizes=[int(v) for v in rng.integers(1, 300, m)],
+            flat_rows=rows)
+        live.append(tr)
+    before = fr_mod.launches
+    runner._fused_sync_reduce(live)
+    torch.cuda.synchronize()
+    assert fr_mod.launches - before == 1 and len(calls) == 1
+    (w, rows, seg, t), kw = calls[0]
+    assert t == 8 and rows.shape[0] == 32 and kw["quant_ref"] is not None
+    want = ref.fed_reduce_ref(w, rows, seg, t, **kw)
+    for s, tr in enumerate(live):
+        assert torch.equal(_flatten(tr.cohort.agg_params)[0], want[s])

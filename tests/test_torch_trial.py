@@ -151,9 +151,9 @@ def test_params_on_another_device_are_refused():
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="batched"):
+    with pytest.raises(NotImplementedError, match="sharded"):
         srv = t_server("sync", None, 1)
-        srv.runtime_config = RuntimeConfig(client_exec="batched")
+        srv.runtime_config = RuntimeConfig(client_exec="sharded")
         srv.run()
     for flags in (["--mode", "mesh"], ["--trace"], ["--checkpoint", "x"]):
         with pytest.raises(NotImplementedError, match="not ported"):
