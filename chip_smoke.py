@@ -74,7 +74,15 @@ exits non-zero on failure:
   8. Four of phase 7's trials (two FedAvg, one of them int8; one FedAdam;
      one async), each also run alone through ``run_trial`` on the card from
      the same initial params: (M, E), costs and dispatch/staleness logs
-     equal, accuracy within 0.01.  Prints both walls.
+     equal, accuracy within 0.01 (ROADMAP.md section 3, departure 7: a
+     packed lane's params are not a standalone run's bits).  Prints both
+     walls.
+  8a. Phase 7's int8 FedAvg lane (seed 1), its final params evaluated two
+     ways on the card: ``Evaluator`` (one forward per batch) and
+     ``StackedEvaluator`` (the sweep's own last stacked evaluation); the
+     eval points on which their argmaxes differ must be 0.  Prints them,
+     the logits' difference, and the params' and predictions' difference
+     from the same trial run alone.
   9. The reduced smoke preset (``launch/sweep.py --preset smoke --limit
      8``) on the card and on the CPU: the same (M, E) and costs, accuracy
      within 0.01.
@@ -83,6 +91,20 @@ After phase 9, ``fed_reduce`` is held against its plain version at the
 sweep's own launch (phase 7's first FedAvg-group launch: its weights, rows,
 segments and int8 lanes, T=16, N=40,718), with the int8 lanes (the plain
 pre-pass and the kernel alone timed as well) and without.
+
+  10. Trial serving at full width (``serve_phase``): a staggered queue of 16
+     trials (10 sync, 6 async/buffered; the sweep's 40,718-param MLP over
+     the full federation) through the continuous-batching scheduler with 6
+     lanes on the card.  An uninterrupted drain with a snapshot before
+     every step (wall, trials/s, trial-rounds/s, occupancy, snapshot bytes
+     and ms, every ``fed_reduce`` (T, M, N) and ``fed_aggregate`` launch,
+     both > 0); the same drain killed half-way and restored on the card
+     (the store must equal the uninterrupted one row for row, at most one
+     step replayed, restore under 1 s); every trial run alone (the same
+     records, accuracy exact or within 0.01, eval points that differ
+     counted); a traced drain with NVTX ranges (the same store, a trace
+     valid against ``trace_schema.json``, the wall split by span); a
+     bf16 checkpoint round trip on the card.
 
 The last three lines are the card's name and power limit (as nvidia-smi
 gives them), the kernels' JSON summary and ``{"ok": true, "device":
@@ -655,8 +677,8 @@ def sweep_full_width(torch, card):
         fused.append(dict(launches=fr_mod.launches - before,
                           calls=captured.pop("in_fused")))
 
-    def step_spy(live):
-        n = inner_step(live)
+    def step_spy(live, **kw):
+        n = inner_step(live, **kw)
         lanes.append(n)
         return n
 
@@ -736,7 +758,8 @@ def sweep_full_width(torch, card):
 
 def sweep_vs_standalone(torch, card, res, ev_res, sweep_wall):
     """Phase 8: four of phase 7's trials, each also run alone on the card
-    from the same initial params (the port's seeded init on both sides)."""
+    from the same initial params (the port's seeded init on both sides).
+    Returns the standalone results by trial key."""
     from repro_torch.experiments import run_trial
 
     def pick(rs, **want):
@@ -748,7 +771,7 @@ def sweep_vs_standalone(torch, card, res, ev_res, sweep_wall):
                    tuner="fedtune"),
               pick(res, aggregator="fedadam", seed=0, tuner="fedtune"),
               pick(ev_res, mode="async", seed=0, tuner="fedtune")]
-    rows = []
+    rows, alone_by_key = [], {}
     for vec in chosen:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -756,6 +779,7 @@ def sweep_vs_standalone(torch, card, res, ev_res, sweep_wall):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         name = vec.spec.key()
+        alone_by_key[name] = alone
         check((alone.history_m, alone.history_e)
               == (vec.history_m, vec.history_e),
               f"phase 8 {name}: (M, E) differ")
@@ -776,6 +800,365 @@ def sweep_vs_standalone(torch, card, res, ev_res, sweep_wall):
               sync_standalone_wall_mean_s=sum(
                   r["standalone_wall_s"] for r in rows[:3]) / 3,
               card=card))
+    return alone_by_key
+
+
+def eval_routes(torch, card, res, alone_by_key):
+    """Phase 8a: phase 7's int8 FedAvg trial (seed 1, FedTune), its packed
+    lane's final params evaluated on the card two ways: ``Evaluator``
+    (one ``model.forward`` per 256-row batch) and ``StackedEvaluator``
+    over the sweep's own last stacked evaluation (every trial of the
+    lane's (model, dataset) group, in sweep order, padded to a pow2).
+    Then the same trial's standalone run from phase 8: its final params
+    against the packed lane's, and the eval points on which the two
+    argmaxes differ.  Returns the printed record."""
+    from repro_torch.experiments import runner
+    from repro_torch.federated.evaluation import (Evaluator,
+                                                  StackedEvaluator,
+                                                  _pow2_lanes, shared_batches)
+    from repro_torch.launch.profile_sweep import full_width_grid
+    from repro_torch.tree import leaves, tree_stack
+
+    order = {s.key(): i for i, s in enumerate(
+        full_width_grid(rounds=5).expand())}
+    vec = next(r for r in res if r.spec.aggregator == "fedavg"
+               and r.spec.compression == "int8" and r.spec.seed == 1
+               and r.spec.tuner == "fedtune")
+    group = sorted((r for r in res if r.spec.seed == vec.spec.seed),
+                   key=lambda r: order[r.spec.key()])
+    lane = group.index(vec)
+    srv = runner.build_server(vec.spec, "cuda")
+    model, pts = srv.model, vec.spec.eval_points
+    batches = shared_batches(srv.dataset, pts, "cuda")
+
+    def preds(params):
+        with torch.no_grad():
+            return torch.cat([model.forward(params, bx).argmax(-1)
+                              for bx, _, _ in batches])
+
+    pad = _pow2_lanes(len(group))
+    stacked = tree_stack([r.params for r in group]
+                         + [group[0].params] * (pad - len(group)))
+    lanes = torch.func.vmap(model.forward, in_dims=(0, None))
+    with torch.no_grad():
+        logits_v = torch.cat([lanes(stacked, bx)[lane] for bx, _, _ in batches],
+                             dim=0)
+        logits_s = torch.cat([model.forward(vec.params, bx)
+                              for bx, _, _ in batches])
+    single = preds(vec.params)
+    acc_single = Evaluator(model, srv.dataset, pts, "cuda").evaluate(
+        vec.params)
+    acc_stacked = StackedEvaluator(model, srv.dataset, pts, "cuda").evaluate(
+        [r.params for r in group], pad_to=pad)[lane]
+    alone = alone_by_key[vec.spec.key()]
+    param_diff = max(float((a - b).abs().max()) for a, b in
+                     zip(leaves(alone.params), leaves(vec.params)))
+    rec = dict(phase="eval_routes", trial=vec.spec.key(), eval_points=pts,
+               group_lanes=len(group), padded_to=pad, lane=lane,
+               acc_evaluator=acc_single, acc_stacked=acc_stacked,
+               route_points_differ=int((logits_v.argmax(-1) != single)
+                                       .sum()),
+               route_logits_max_abs_diff=float(
+                   (logits_v - logits_s).abs().max()),
+               routes_bitwise=bool(torch.equal(logits_v, logits_s)),
+               params_max_abs_diff_vs_standalone=param_diff,
+               standalone_points_differ=int((preds(alone.params) != single)
+                                            .sum()),
+               acc_history_packed=vec.history_acc,
+               acc_history_standalone=alone.history_acc, card=card)
+    emit(rec)
+    # the finding departure 7 rests on: the two eval routes agree, so what
+    # separates a packed lane from its standalone run is its params
+    check(rec["route_points_differ"] == 0 and acc_single == acc_stacked,
+          f"phase 8a: Evaluator and StackedEvaluator disagree on "
+          f"{rec['route_points_differ']} eval points")
+    return rec
+
+
+def serve_queue():
+    """Phase 10's queue: 16 trials at full width (the sweep's 784-48-62 MLP
+    over the full ``emnist_like`` federation, batch 10, 512 eval points,
+    (M0, E0) = (20, 1.0)).  10 sync trials of 2-5 rounds (fedavg with and
+    without int8 uploads, fednova, fedadam; FedTune preferences 0 and 14;
+    seeds 0 and 1) and 6 event trials on the stragglers fleet (async
+    fedavg, 4-10 aggregations; buffered fedavg, 4-5 flushes)."""
+    from repro_torch.experiments import TrialSpec
+    from repro_torch.experiments.grid import parse_preferences
+
+    p0, p14 = parse_preferences("0,14")
+    base = dict(dataset="emnist", reduced=False, tuner="fedtune", m0=20,
+                e0=1.0, batch_size=10, eval_points=512, target_accuracy=0.99)
+    sync = [("fedavg", None, p0, 0, 2), ("fedavg", "int8", p14, 1, 5),
+            ("fednova", None, p14, 0, 3), ("fedadam", None, p0, 1, 4),
+            ("fedavg", None, p14, 1, 3), ("fedavg", "int8", p0, 0, 4),
+            ("fednova", None, p0, 1, 5), ("fedadam", None, p14, 0, 2),
+            ("fedavg", None, p0, 1, 5), ("fedavg", "int8", p14, 0, 3)]
+    event = [("async", p14, 0, 4), ("buffered", p14, 0, 4),
+             ("async", p0, 1, 10), ("buffered", p0, 1, 5),
+             ("async", p14, 1, 7), ("buffered", p14, 1, 4)]
+    specs = [TrialSpec(aggregator=a, compression=c, preference=p, seed=s,
+                       rounds=r, **base) for a, c, p, s, r in sync]
+    specs += [TrialSpec(aggregator="fedavg", mode=m, het="stragglers",
+                        preference=p, seed=s, rounds=r, **base)
+              for m, p, s, r in event]
+    # interleave sync and event trials in the queue: lanes retire and
+    # refill with both kinds mid-flight
+    return [specs[i] for i in (0, 10, 1, 2, 11, 3, 12, 4, 5, 13, 6, 7, 14,
+                               8, 15, 9)]
+
+
+SERVE_LANES = 6
+
+
+def serve_phase(torch, card):
+    """Phase 10: the 16-trial queue served on the card through 6 lanes.
+
+    (a) An uninterrupted drain with a snapshot before every step, into
+    store A: wall, trials/s, trial-rounds/s, mean occupancy, bytes and
+    median ms per snapshot, and every ``fed_reduce`` (T, M, N) and
+    ``fed_aggregate`` launch.  (b) The same drain killed after S // 2 of
+    its S steps (no final snapshot), restored on the card and drained to
+    the end, into store B: B must equal A row for row (``wall`` aside),
+    with no duplicate key, at most one step replayed and the restore under
+    1 s.  (c) Every trial alone through ``run_trial`` on the card from the
+    same initial params: (M, E), costs and dispatch/staleness logs equal;
+    accuracy equal, or within 0.01 (ROADMAP.md section 3, departure 7: a
+    packed lane's params are not a standalone run's bits), with the eval
+    points that differ counted.  (d) The drain again with tracing and NVTX
+    on: its store must equal A and its Chrome trace must validate; the
+    spans give the drain's wall split.  (e) A served trial's final params
+    plus a bf16 leaf through ``save_checkpoint``/``load_checkpoint`` onto
+    the card, bitwise.  Returns (launches of drain A, the record)."""
+    import os
+    import statistics
+
+    from repro_torch import obs
+    from repro_torch.checkpoint import checkpointer as ckpt
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.experiments import (ResultStore, TrialQueue,
+                                         TrialScheduler, run_trial)
+    from repro_torch.kernels import fed_aggregate as fa_mod
+    from repro_torch.kernels import fed_reduce as fr_mod
+    from repro_torch.kernels import ops
+    from repro_torch.obs.export import (validate_chrome_trace,
+                                        write_chrome_trace)
+    from repro_torch.tree import leaves
+
+    t_phase = time.perf_counter()
+    specs = serve_queue()
+    check(len(specs) == 16 and len({s.key() for s in specs}) == 16,
+          "phase 10: the queue is not 16 distinct trials")
+    out_dir = ROOT / "runs" / "chip_smoke_serve"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for f in out_dir.iterdir():
+        f.unlink()
+
+    def rows(store):
+        return [{k: v for k, v in r.items() if k != "wall"}
+                for r in store.load()]
+
+    def scheduler(tag, snapshot=True):
+        return TrialScheduler(
+            TrialQueue(specs=specs), max_lanes=SERVE_LANES,
+            store=ResultStore(str(out_dir / f"{tag}.jsonl")),
+            snapshot_path=str(out_dir / f"{tag}.snap") if snapshot else None,
+            device="cuda")
+
+    # (a) uninterrupted, a snapshot before every step; each snapshot's
+    # host time split into the copy of its tensors to the host, the choice
+    # of slot (both slots read and validated) and the two fsynced writes
+    sched = scheduler("a")
+    snap_ms, snap_bytes = [], []
+    inner_snapshot = sched.snapshot
+    snap_split = {"host_copy": 0.0, "slot_choice": 0.0, "write_fsync": 0.0}
+    snap_fns = {"host_copy": "flatten_to_numpy", "slot_choice": "_read_slot",
+                "write_fsync": "_fsync_write"}
+    snap_inner = {k: getattr(ckpt, f) for k, f in snap_fns.items()}
+
+    def split_timer(part):
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return snap_inner[part](*args, **kw)
+            finally:
+                snap_split[part] += time.perf_counter() - t0
+        return run
+
+    def timed_snapshot(path=None):
+        t0 = time.perf_counter()
+        npz = inner_snapshot(path)
+        snap_ms.append((time.perf_counter() - t0) * 1e3)
+        snap_bytes.append(os.path.getsize(npz) + os.path.getsize(
+            npz[:-len(".npz")] + ".json"))
+        return npz
+    sched.snapshot = timed_snapshot
+    shapes = {}
+    inner_op = ops.fed_reduce
+
+    def op_spy(w, rows_, seg, t, base=None, **kw):
+        key = f"T={t},M={rows_.shape[0]},N={rows_.shape[1]}"
+        shapes[key] = shapes.get(key, 0) + 1
+        return inner_op(w, rows_, seg, t, base, **kw)
+
+    ops.fed_reduce = op_spy
+    for part, f in snap_fns.items():
+        setattr(ckpt, f, split_timer(part))
+    try:
+        torch.cuda.synchronize()
+        fr_mod.launches = 0
+        fa_mod.launches = 0
+        t0 = time.perf_counter()
+        served = sched.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {"fed_reduce": fr_mod.launches,
+                  "fed_aggregate": fa_mod.launches}
+    finally:
+        ops.fed_reduce = inner_op
+        for part, f in snap_fns.items():
+            setattr(ckpt, f, snap_inner[part])
+    snap_split["meta_and_rename"] = (sum(snap_ms) / 1e3
+                                     - sum(snap_split.values()))
+    store_a = rows(sched.store)
+    steps = sched.stats.steps
+    check(len(served) == 16 and len(store_a) == 16,
+          f"phase 10: {len(served)} trials served, {len(store_a)} rows")
+    check(all(r.rounds == r.spec.rounds for r in served),
+          "phase 10: a served trial stopped short of its budget")
+    check(all(p.device.type == "cuda" for r in served
+              for p in leaves(r.params)),
+          "phase 10: served params are not all on cuda")
+    check(counts["fed_reduce"] > 0 and counts["fed_aggregate"] > 0,
+          f"phase 10: launches {counts}: both kernels must launch")
+    trial_rounds = sum(r.rounds for r in served)
+
+    # (b) killed after S // 2 steps, restored on the card, drained
+    killed = scheduler("b")
+    killed.drain(max_steps=steps // 2)
+    first_steps = killed.stats.steps
+    check(killed.pool.n_live > 0, "phase 10: the kill did not land mid-drain")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    resumed = TrialScheduler.restore(str(out_dir / "b.snap"),
+                                     store=killed.store, device="cuda")
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    for key in killed.store.completed_keys():
+        resumed.queue.mark_done(key)
+    replay_from = resumed.stats.steps
+    resumed.drain()
+    store_b = rows(resumed.store)
+    keys_b = [r["key"] for r in store_b]
+    check(len(keys_b) == len(set(keys_b)), "phase 10: duplicate store keys")
+    check(store_b == store_a, "phase 10: the killed-and-restored drain's "
+                              "store differs from the uninterrupted one")
+    replayed = first_steps - replay_from
+    check(0 <= replayed <= 1 and resumed.stats.steps == steps,
+          f"phase 10: replayed {replayed} steps, ended at "
+          f"{resumed.stats.steps} of {steps}")
+    check(restore_ms < 1000.0, f"phase 10: restore took {restore_ms} ms")
+
+    # (c) every trial alone, from the same (seeded) initial params
+    diffs, points = [], 0
+    t0 = time.perf_counter()
+    for r in served:
+        alone = run_trial(r.spec, device="cuda")
+        name = r.spec.key()
+        check((alone.history_m, alone.history_e)
+              == (r.history_m, r.history_e), f"phase 10 {name}: (M, E)")
+        check(alone.cost == r.cost, f"phase 10 {name}: costs differ")
+        check(alone.dispatch_log == r.dispatch_log
+              and alone.staleness_log == r.staleness_log,
+              f"phase 10 {name}: dispatch/staleness logs differ")
+        d = [abs(a - b) for a, b in zip(alone.history_acc, r.history_acc)]
+        diffs.append(max(d))
+        points += sum(round(x * r.spec.eval_points) for x in d)
+    torch.cuda.synchronize()
+    standalone_s = time.perf_counter() - t0
+    check(max(diffs) <= 0.01, f"phase 10: accuracy differs by {max(diffs)}")
+    rule = ("exact" if max(diffs) == 0.0 else
+            "within 0.01 (ROADMAP.md section 3, departure 7)")
+
+    # (d) traced, NVTX on: the same store, a valid trace, the wall split
+    traced = scheduler("c", snapshot=True)
+    inner_admit, inner_retire = traced.admit_pending, traced._retire
+
+    def admit_span():
+        with obs.span("admit_pending", phase="admit"):
+            return inner_admit()
+
+    def retire_span(spec, result):
+        with obs.span("retire_trial", phase="retire"):
+            return inner_retire(spec, result)
+    traced.admit_pending, traced._retire = admit_span, retire_span
+    obs.enable(nvtx=True)
+    nvtx = obs.tracer._annotation_cls is not None
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        traced.drain()
+        torch.cuda.synchronize()
+        traced_wall = time.perf_counter() - t0
+    finally:
+        obs.disable()
+    check(rows(traced.store) == store_a,
+          "phase 10: the traced drain's store differs from the untraced one")
+    trace = write_chrome_trace(str(out_dir / "c.trace.json"))
+    errors = validate_chrome_trace(trace)
+    check(errors == [], f"phase 10: trace violates the schema: {errors[:3]}")
+    split_names = {"admit": ("admit_pending",), "plan": ("PLAN", "COLLECT"),
+                   "pack": ("PACK:pack",), "train": ("TRAIN", "PACK:train"),
+                   "reduce": ("APPLY",), "eval": ("EVAL",),
+                   "retire": ("retire_trial",), "snapshot": ("snapshot",)}
+    split = {k: 0.0 for k in split_names}
+    for sp in obs.tracer.spans:
+        for k, names in split_names.items():
+            if sp.name in names or f"{sp.name}:{sp.phase}" in names:
+                split[k] += sp.wall_dur
+    split["other"] = traced_wall - sum(split.values())
+
+    # (e) a served trial's final params plus a bf16 leaf, through a
+    # checkpoint, back onto the card
+    tree = {"params": served[0].params,
+            "bf16": torch.randn(4099, device="cuda").to(torch.bfloat16)}
+    save_checkpoint(str(out_dir / "ck"), tree, step=served[0].rounds)
+    like = {"params": served[1].params,
+            "bf16": torch.zeros(4099, device="cuda", dtype=torch.bfloat16)}
+    back, meta = load_checkpoint(str(out_dir / "ck"), like)
+    check(meta["step"] == served[0].rounds, "phase 10: checkpoint step")
+    check(all(a.device.type == "cuda" and a.dtype == b.dtype
+              and torch.equal(a, b) for a, b in zip(leaves(back),
+                                                    leaves(tree))),
+          "phase 10: the checkpoint round trip is not bitwise on the card")
+
+    phase_s = time.perf_counter() - t_phase
+    rec = dict(phase="serve_trials", trials=len(served),
+               sync_trials=sum(s.mode == "sync" for s in specs),
+               event_trials=sum(s.mode != "sync" for s in specs),
+               max_lanes=SERVE_LANES, steps=steps, wall_s=wall,
+               trials_per_s=len(served) / wall, trial_rounds=trial_rounds,
+               trial_rounds_per_s=trial_rounds / wall,
+               local_steps=sum(r.local_steps for r in served),
+               mean_occupancy=sched.stats.mean_occupancy,
+               snapshots=len(snap_ms),
+               snapshot_bytes_median=statistics.median(snap_bytes),
+               snapshot_bytes_max=max(snap_bytes),
+               snapshot_ms_median=statistics.median(snap_ms),
+               snapshot_ms_max=max(snap_ms),
+               snapshot_split_s=snap_split,
+               launches=counts, fed_reduce_shapes=shapes,
+               kill_after_steps=first_steps, replayed_steps=replayed,
+               restore_ms=restore_ms, killed_store_equal=True,
+               standalone_s=standalone_s, standalone_rule=rule,
+               standalone_max_acc_diff=max(diffs),
+               standalone_eval_points_differ=points,
+               traced_wall_s=traced_wall, traced_store_equal=True,
+               trace_valid=True, trace_spans=len(obs.tracer.spans),
+               nvtx=nvtx, wall_split_s=split, checkpoint_bitwise=True,
+               phase_s=phase_s, card=card)
+    emit(rec)
+    obs.tracer.clear()
+    return counts, rec
 
 
 def sweep_card_vs_cpu(torch):
@@ -1001,10 +1384,15 @@ def main():
         sweep_full_width(torch, card)
     for k, v in sweep_launches.items():
         launches[k] += v
-    sweep_vs_standalone(torch, card, res, ev_res, sweep_wall)
+    alone_by_key = sweep_vs_standalone(torch, card, res, ev_res, sweep_wall)
+    eval_routes(torch, card, res, alone_by_key)
     sweep_card_vs_cpu(torch)
     del res, ev_res
     cases += sweep_reduce_cases(torch, card, floor, reduce_inputs)
+
+    serve_launches, _ = serve_phase(torch, card)
+    for k, v in serve_launches.items():
+        launches[k] += v
 
     summary = []
     for name, replaces, main_case in (

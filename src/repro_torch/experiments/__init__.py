@@ -8,9 +8,9 @@
              sync trials pack per virtual round, async/buffered trials
              pack off a merged multi-trial event queue.
 ``store``  — append-only JSONL results, resume keys, paper-style tables.
-
-The continuous-batching scheduler (``repro.experiments.scheduler``) is not
-ported yet (ROADMAP.md queue 1, item 12).
+``scheduler`` — the continuous-batching trial-serving daemon: a lane pool
+             over the sweep engines, admitting queued trials as lanes free.
+``snapshot`` — crash-safe scheduler snapshots and restore.
 """
 
 from repro_torch.experiments.grid import (CANONICAL_PREFERENCE,  # noqa: F401
@@ -20,6 +20,9 @@ from repro_torch.experiments.runner import (TrialResult,  # noqa: F401
                                             build_server, run_sweep,
                                             run_trial, run_vectorized,
                                             run_vectorized_events)
+from repro_torch.experiments.scheduler import (LanePool,  # noqa: F401
+                                               ServeStats, TrialQueue,
+                                               TrialScheduler, serve)
 from repro_torch.experiments.store import (ResultStore,  # noqa: F401
                                            aggregate_over_seeds,
                                            improvement_pct,

@@ -41,18 +41,25 @@ FedAsync mixer (``fed_aggregate``) or FedBuff buffer (``fed_reduce`` at a
 flush) through the engine's own plan/apply/finish methods.
 
 Parity contract (tests/test_torch_sweep.py): a vectorized sweep gives every
-trial the accuracies, FedTune (M, E) trajectory, cost totals and
-dispatch/staleness logs of its standalone ``FLServer.run()``.  Params are
-not bit-identical between a packed lane and a standalone run: a batched
-product does not give each lane the bits of a single product.  What the
-parity holds exactly comes from counts, decisions and numpy clocks.
+trial the FedTune (M, E) trajectory, cost totals and dispatch/staleness
+logs of its standalone ``FLServer.run()``; these come from counts,
+decisions and numpy clocks.  Params are not bit-identical between a packed
+lane and a standalone run: a batched product does not give each lane the
+bits of a single product, and an int8 upload round trip can turn a
+last-bit difference into a quantisation step.  So accuracies are equal on
+the CPU (the tests) but may differ by an eval point on the card: at full
+width the int8 FedAvg lane's params were 6.2e-4 from its standalone run's
+and one of 512 points flipped in one of 5 rounds (ROADMAP.md section 3,
+departure 7).
 
 ``torch`` cannot reproduce ``jax.random``: the entry points take an optional
 ``init_params(spec) -> numpy tree`` (e.g. the reference's
 ``model.init(PRNGKey(seed))``); without it a trial starts from the port's
 seeded ``model.init(seed, device)``.  Every entry point runs on ``device``
-(default ``cuda``).  The reference's tracing hooks and the sharded pack
-are not ported (ROADMAP.md queue 1, items 16 and 15).
+(default ``cuda``).  Spans and metrics (``repro_torch.obs``) sit at the
+reference's sites: PLAN/PACK/TRAIN/APPLY/EVAL per packed round,
+COLLECT/PACK/APPLY/EVAL per event macro-step, and the fused reduce's
+counters.  The sharded pack is not ported (ROADMAP.md queue 1, item 15).
 """
 
 from __future__ import annotations
@@ -64,6 +71,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs, perf
 from repro_torch.configs.paper_models import MLPConfig
 from repro_torch.core import CostModel, FedTune, FedTuneConfig, Preference
 from repro_torch.core.tuner import FixedTuner, HyperParams
@@ -82,7 +90,8 @@ from repro_torch.optim.optimizers import get_optimizer
 from repro_torch.runtime.batched import (_pow2, _stack_streams,
                                          bucket_by_steps, cohort_scan,
                                          make_client_step,
-                                         materialize_streams, to_device)
+                                         materialize_streams,
+                                         note_pack_metrics, to_device)
 from repro_torch.runtime.engine import EventDrivenRuntime, RuntimeConfig
 from repro_torch.runtime.events import (FAILURE, MergedEventQueue,
                                         TrialQueueView)
@@ -325,6 +334,7 @@ def _make_live(spec: TrialSpec, device, init_params: InitFn) -> _LiveTrial:
     srv = build_server(spec, device)
     eng = EventDrivenRuntime(srv, fleet=srv.fleet,
                              config=srv.runtime_config or RuntimeConfig())
+    eng.trace_label = spec.key()
     return _LiveTrial(spec=spec, srv=srv, eng=eng,
                       hp=HyperParams(m=spec.m0, e=spec.e0),
                       params=_initial_params(srv, spec, init_params))
@@ -364,6 +374,9 @@ def _run_group_batched(ents: List[Tuple[_LiveTrial, int]]):
     for t_pad, idx in sorted(bucket_by_steps(n_steps).items()):
         sel = [ents[i] for i in idx]
         m_pad = _pow2(len(sel))    # bound the set of (T, M) pack shapes
+        if obs.enabled():
+            note_pack_metrics(t_pad, m_pad, len(sel),
+                              sum(n_steps[i] for i in idx))
         streams = [tr.cohort.streams[j] for tr, j in sel]
         xs, ys, masks, active = to_device(dev, *_stack_streams(
             streams + [[]] * (m_pad - len(sel)), bs, t_pad))
@@ -459,15 +472,22 @@ def _fused_sync_reduce(live: List[_LiveTrial]):
         if quant:
             qrefs += [torch.zeros(n, dtype=qrefs[0].dtype, device=dev)] * (
                 t_pad - len(qrefs))
-        out = kernel_ops.fed_reduce(
-            torch.tensor(w, dtype=torch.float32, device=dev),
-            torch.stack(rows),
-            torch.tensor(seg, dtype=torch.int32, device=dev), t_pad,
-            normalize=True,
-            leaf_sizes=tuple(meta[2]) if quant else None,
-            quant_ref=torch.stack(qrefs) if quant else None,
-            quant_enabled=(torch.tensor(en, dtype=torch.bool, device=dev)
-                           if quant else None))
+        if obs.enabled():
+            obs.registry.inc("reduce_fused_dispatches")
+            obs.registry.sample("reduce_rows", m_pad)
+            obs.registry.sample("reduce_lanes", len(grp))
+        with obs.span("REDUCE", phase="apply", n_lanes=len(grp),
+                      n_rows=m_pad):
+            out = kernel_ops.fed_reduce(
+                torch.tensor(w, dtype=torch.float32, device=dev),
+                torch.stack(rows),
+                torch.tensor(seg, dtype=torch.int32, device=dev), t_pad,
+                normalize=True,
+                leaf_sizes=tuple(meta[2]) if quant else None,
+                quant_ref=torch.stack(qrefs) if quant else None,
+                quant_enabled=(torch.tensor(en, dtype=torch.bool,
+                                            device=dev)
+                               if quant else None))
         for s, tr in enumerate(grp):
             tr.cohort.agg_params = _unflatten(out[s], tr._meta)
 
@@ -538,55 +558,75 @@ def _to_result(tr: _LiveTrial, engine: str) -> TrialResult:
                                      tr.local_steps)
 
 
-def _sync_round_step(live: List[_LiveTrial]) -> int:
+def _sync_round_step(live: List[_LiveTrial], step_idx: int = 0) -> int:
     """Advance the given live sync trials by ONE packed virtual round
     (plan -> pack -> train -> reduce -> eval -> finish).  The live set is
     whatever the caller says it is (the fixed-set sweep passes every
-    unfinished trial; a continuous-batching scheduler would pass its
-    admitted lanes), and every pack/eval shape is keyed off that set.
-    Trials that end this round come back with ``done`` set; retiring them
-    is the caller's job.  Returns the number of packed client entries."""
+    unfinished trial, the continuous-batching scheduler its admitted
+    lanes), and every pack/eval shape is keyed off that set.  Trials that
+    end this round come back with ``done`` set; retiring them is the
+    caller's job.  ``step_idx`` only labels the round's metrics.  Returns
+    the number of packed client entries."""
     t0 = time.perf_counter()
+    if obs.enabled():
+        obs.registry.sample("lanes_live", len(live), step=step_idx,
+                            engine="sync")
     # 1. plan every live trial's round (per-trial rng streams)
-    for tr in live:
-        tr.plan = tr.eng.plan_sync_round(tr.hp)
-        tr.eng.clock.advance_to(tr.eng.clock.now + tr.plan.round_time)
+    with obs.span("PLAN", phase="plan", n_trials=len(live)):
+        for tr in live:
+            v0 = tr.eng.clock.now
+            tr.plan = tr.eng.plan_sync_round(tr.hp)
+            tr.eng.clock.advance_to(tr.eng.clock.now + tr.plan.round_time)
+            if obs.enabled():
+                obs.record("round", phase="round", trial=tr.spec.key(),
+                           round_idx=tr.round_idx,
+                           virtual=(v0, tr.eng.clock.now),
+                           n_included=len(tr.plan.included),
+                           n_active=len(tr.plan.active))
     # 2. materialize batch streams (the rng contract) and pack
     entries: List[Tuple[_LiveTrial, int]] = []
-    for tr in live:
-        cids = tr.plan.train_cids
-        if not cids:
-            tr.cohort = None
-            continue
-        data = [tr.srv.dataset.client_data(c) for c in cids]
-        streams, n_steps = materialize_streams(
-            data, tr.srv.config.batch_size, tr.hp.e, tr.srv.rng)
-        tr.local_steps += sum(n_steps)
-        tr.cohort = _Cohort(cids=cids, streams=streams, n_steps=n_steps,
-                            sizes=[len(y) for _, y in data],
-                            trained=[None] * len(cids),
-                            flat_rows=[None] * len(cids),
-                            losses=[0.0] * len(cids))
-        entries.extend((tr, j) for j in range(len(cids)))
+    with obs.span("PACK", phase="pack", n_trials=len(live)):
+        for tr in live:
+            cids = tr.plan.train_cids
+            if not cids:
+                tr.cohort = None
+                continue
+            data = [tr.srv.dataset.client_data(c) for c in cids]
+            streams, n_steps = materialize_streams(
+                data, tr.srv.config.batch_size, tr.hp.e, tr.srv.rng)
+            tr.local_steps += sum(n_steps)
+            tr.cohort = _Cohort(cids=cids, streams=streams, n_steps=n_steps,
+                                sizes=[len(y) for _, y in data],
+                                trained=[None] * len(cids),
+                                flat_rows=[None] * len(cids),
+                                losses=[0.0] * len(cids))
+            entries.extend((tr, j) for j in range(len(cids)))
     # 3. group by model and train each group's packed cohort
     groups: Dict[tuple, List[Tuple[_LiveTrial, int]]] = {}
     for ent in entries:
         groups.setdefault(_group_key(ent[0]), []).append(ent)
-    for ents in groups.values():
-        _run_group_batched(ents)
+    with perf.timed("train"), obs.span("TRAIN", phase="train",
+                                       n_entries=len(entries),
+                                       n_groups=len(groups)):
+        for ents in groups.values():
+            _run_group_batched(ents)
     # 4. per-trial aggregation + accounting, then ONE stacked eval of every
     #    due trial, then per-trial record + controller step
-    _fused_sync_reduce(live)           # one launch per model group
-    for tr in live:
-        _reduce_round(tr)
+    with obs.span("APPLY", phase="apply", n_trials=len(live)):
+        _fused_sync_reduce(live)       # one launch per model group
+        for tr in live:
+            _reduce_round(tr)
     due = [tr for tr in live
            if eval_due(tr.round_idx, tr.srv.config.eval_every,
                        tr.srv.config.max_rounds)]
-    accs = evaluate_stacked(
-        [(tr.srv.model, tr.srv.dataset, tr.srv.config.eval_points,
-          tr.params) for tr in due], pad_pow2=True)
+    with obs.span("EVAL", phase="eval", n_due=len(due)):
+        accs = evaluate_stacked(
+            [(tr.srv.model, tr.srv.dataset, tr.srv.config.eval_points,
+              tr.params) for tr in due], pad_pow2=True)
     acc_of = {id(tr): a for tr, a in zip(due, accs)}
     wall = time.perf_counter() - t0
+    if obs.enabled():
+        obs.counter("t_sim", max(tr.eng.clock.now for tr in live))
     for tr in live:
         tr.wall += wall / len(live)
         _finish_round(tr, wall / len(live), acc_of.get(id(tr)))
@@ -609,7 +649,7 @@ def _run_vectorized_sync(specs: Sequence[TrialSpec], *,
         live = [tr for tr in trials if not tr.done]
         if not live:
             break
-        n_entries = _sync_round_step(live)
+        n_entries = _sync_round_step(live, step_idx=n_rounds)
         for tr in live:
             if tr.done:
                 res = _to_result(tr, engine)
@@ -662,6 +702,7 @@ def _make_event_live(spec: TrialSpec, merged: MergedEventQueue,
     srv = build_server(spec, device)
     eng = EventDrivenRuntime(srv, fleet=srv.fleet,
                              config=srv.runtime_config or RuntimeConfig())
+    eng.trace_label = spec.key()
     view = TrialQueueView(merged, trial_ord)
     tr = _EventTrial(spec=spec, srv=srv, eng=eng, view=view)
     # initial concurrency dispatches straight into the merged queue
@@ -707,6 +748,9 @@ def _run_event_group(lanes: List[_Lane], min_lanes: int = 4):
     for t_pad, idx in sorted(buckets.items()):
         sel = [lanes[i] for i in idx]
         m_pad = _pow2(len(sel))
+        if obs.enabled():
+            note_pack_metrics(t_pad, m_pad, len(sel),
+                              sum(ln.n_steps for ln in sel))
         xs, ys, masks, active = to_device(dev, *_stack_streams(
             [ln.stream for ln in sel] + [[]] * (m_pad - len(sel)),
             bs, t_pad))
@@ -790,39 +834,45 @@ class _EventEngine:
             self.end_trial(tr)
             on_done(tr)
 
+        step_idx = self.n_steps - 1
         t0 = time.perf_counter()
+        if obs.enabled():
+            obs.registry.sample("lanes_live", len(live), step=step_idx,
+                                engine="events")
         # 1. COLLECT one pending arrival per live trial
         lanes: List[_Lane] = []
         packed = set()
         stash = []
-        while merged and len(packed) < len(live):
-            ev = merged.pop()
-            tr = by_ord[ev.trial_ord]
-            if tr.done:
-                continue           # stale event of a finished trial
-            if id(tr) in packed:
-                stash.append(ev)   # defer: this trial already packed
-                continue
-            tr.eng.clock.advance_to(ev.time)
-            if ev.kind == FAILURE:  # hard failure: retry inline, refill
-                tr.eng.handle_failure(tr.st, ev, queue=tr.view)
-                tr.eng.fill_event_concurrency(tr.st, tr.eng.clock.now,
-                                              queue=tr.view)
-                continue
-            fl = tr.eng.plan_event(tr.st, ev)
-            if fl is None:         # dropout: refill and keep collecting
-                tr.eng.fill_event_concurrency(tr.st, tr.eng.clock.now,
-                                              queue=tr.view)
-                continue
-            data = [tr.srv.dataset.client_data(fl.client_id)]
-            streams, n_steps = materialize_streams(
-                data, tr.srv.config.batch_size, fl.e, tr.srv.rng)
-            tr.local_steps += n_steps[0]
-            lanes.append(_Lane(tr=tr, fl=fl, stream=streams[0],
-                               n_steps=n_steps[0]))
-            packed.add(id(tr))
-        for ev in stash:
-            merged.requeue(ev)
+        with obs.span("COLLECT", phase="collect", n_live=len(live)) as sp:
+            while merged and len(packed) < len(live):
+                ev = merged.pop()
+                tr = by_ord[ev.trial_ord]
+                if tr.done:
+                    continue           # stale event of a finished trial
+                if id(tr) in packed:
+                    stash.append(ev)   # defer: this trial already packed
+                    continue
+                tr.eng.clock.advance_to(ev.time)
+                if ev.kind == FAILURE:  # hard failure: retry inline, refill
+                    tr.eng.handle_failure(tr.st, ev, queue=tr.view)
+                    tr.eng.fill_event_concurrency(tr.st, tr.eng.clock.now,
+                                                  queue=tr.view)
+                    continue
+                fl = tr.eng.plan_event(tr.st, ev)
+                if fl is None:         # dropout: refill and keep collecting
+                    tr.eng.fill_event_concurrency(tr.st, tr.eng.clock.now,
+                                                  queue=tr.view)
+                    continue
+                data = [tr.srv.dataset.client_data(fl.client_id)]
+                streams, n_steps = materialize_streams(
+                    data, tr.srv.config.batch_size, fl.e, tr.srv.rng)
+                tr.local_steps += n_steps[0]
+                lanes.append(_Lane(tr=tr, fl=fl, stream=streams[0],
+                                   n_steps=n_steps[0]))
+                packed.add(id(tr))
+            for ev in stash:
+                merged.requeue(ev)
+            sp.set(n_lanes=len(lanes), n_deferred=len(stash))
         # a live trial with nothing queued ends exactly as the standalone
         # loop does on an empty queue
         for tr in live:
@@ -835,8 +885,11 @@ class _EventEngine:
                 ln.params, ln.loss = ln.fl.params, 0.0
                 continue
             groups.setdefault(_group_key(ln.tr), []).append(ln)
-        for group in groups.values():
-            _run_event_group(group, min_lanes=min(4, len(live)))
+        with perf.timed("train"), obs.span("PACK", phase="train",
+                                           n_lanes=len(lanes),
+                                           n_groups=len(groups)):
+            for group in groups.values():
+                _run_event_group(group, min_lanes=min(4, len(live)))
         # 3. APPLY per trial, in collect (= merged pop) order: fold every
         #    lane into its trial's global model, evaluate every
         #    aggregating-and-due trial in ONE stacked evaluation, then
@@ -846,20 +899,23 @@ class _EventEngine:
         wall = time.perf_counter() - t0
         share = wall / max(len(lanes), 1)
         applied = []
-        for ln in lanes:
-            tr, fl = ln.tr, ln.fl
-            tr.wall += share
-            tr.srv.selector.update(int(fl.client_id), ln.loss,
-                                   fl.n_examples)
-            aggregated, staleness = tr.eng.apply_event(tr.st, fl, ln.params)
-            applied.append((ln, aggregated, staleness))
+        with obs.span("APPLY", phase="apply", n_lanes=len(lanes)):
+            for ln in lanes:
+                tr, fl = ln.tr, ln.fl
+                tr.wall += share
+                tr.srv.selector.update(int(fl.client_id), ln.loss,
+                                       fl.n_examples)
+                aggregated, staleness = tr.eng.apply_event(tr.st, fl,
+                                                           ln.params)
+                applied.append((ln, aggregated, staleness))
         due = [ln.tr for ln, aggregated, _s in applied
                if aggregated and eval_due(len(ln.tr.st.history),
                                           ln.tr.srv.config.eval_every,
                                           ln.tr.srv.config.max_rounds)]
-        accs = evaluate_stacked(
-            [(tr.srv.model, tr.srv.dataset, tr.srv.config.eval_points,
-              tr.st.params) for tr in due], pad_pow2=True)
+        with obs.span("EVAL", phase="eval", n_due=len(due)):
+            accs = evaluate_stacked(
+                [(tr.srv.model, tr.srv.dataset, tr.srv.config.eval_points,
+                  tr.st.params) for tr in due], pad_pow2=True)
         acc_of = {id(tr): a for tr, a in zip(due, accs)}
         for ln, aggregated, staleness in applied:
             tr = ln.tr
@@ -873,6 +929,8 @@ class _EventEngine:
                                           queue=tr.view)
             if len(tr.st.history) >= tr.srv.config.max_rounds:
                 end(tr)
+        if obs.enabled() and live:
+            obs.counter("t_sim", max(tr.eng.clock.now for tr in live))
         return len(lanes)
 
 

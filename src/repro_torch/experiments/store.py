@@ -17,19 +17,21 @@ render those as extra column suffixes (``fedavg·stragglers``,
 the defaults (homogeneous/sync/uncompressed) instead of KeyError-ing, so
 old stores keep resuming and tabulating.
 
-Copy of ``repro.experiments.store`` without its tracing hooks; the port
-imports nothing of ``repro``.  The record schema is the reference's, so a
-store written by either package resumes and tabulates in the other.
+Copy of ``repro.experiments.store``; the port imports nothing of
+``repro``.  The record schema is the reference's, so a store written by
+either package resumes and tabulates in the other.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import time
 from typing import Dict, Iterable, List, Optional
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.core.costs import SystemCost
 from repro_torch.core.preferences import Preference
 from repro_torch.experiments.grid import TrialSpec, spec_from_dict
@@ -80,6 +82,7 @@ class ResultStore:
         return key in self.completed_keys()
 
     def append(self, record: dict):
+        t0 = time.perf_counter()
         with open(self.path, "a") as f:
             f.write(json.dumps(record) + "\n")
             f.flush()
@@ -87,6 +90,10 @@ class ResultStore:
         if (self._completed is not None
                 and record.get("status") == "done" and "key" in record):
             self._completed.add(record["key"])
+        if obs.enabled():
+            # fsynced-append latency: the store is on every trial's
+            # completion path, so a slow disk shows up here first
+            obs.registry.observe("store_write_s", time.perf_counter() - t0)
 
     def clear(self):
         if os.path.exists(self.path):

@@ -5,10 +5,12 @@ The host-side accumulation ``correct += float(acc) * n`` over 256-example
 batches is the reference's float sequence, so equal per-batch accuracies
 give equal results.  ``StackedEvaluator`` evaluates T trials' params in
 one ``torch.func.vmap`` of the accuracy per test batch, over test batches
-staged on the device once per (dataset, eval_points, device); lane i equals
-``Evaluator.evaluate`` on that lane's params, because the per-batch
-accuracy is an exact count over n and the host accumulation is the same
-float sequence.
+staged on the device once per (dataset, eval_points, device).  Lane i's
+logits are not the bits of ``Evaluator.evaluate``'s single forward: a
+batched product rounds differently (within 4.4e-6 on the H100, 3.8e-6 on
+the CPU).  Its accuracy is the same unless an argmax margin is that thin:
+on the card the two routes gave the same argmax on all 512 eval points of
+the sweep's int8 FedAvg lane (``chip_smoke.py``'s eval-route phase).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch import obs, perf
 from repro_torch.tree import leaves, tree_stack
 
 EVAL_BATCH = 256               # test batch staging granularity (bounds memory)
@@ -57,7 +60,8 @@ class Evaluator:
             self._batches = staged_batches(self.dataset, self.eval_points,
                                            self.device)
         correct, total = 0.0, 0
-        with torch.no_grad():
+        with torch.no_grad(), perf.timed("eval"), obs.span(
+                "eval", phase="eval", n_lanes=1):
             for bx, by, n in self._batches:
                 logits = self.model.forward(params, bx)
                 acc = (logits.argmax(-1) == by).to(torch.float32).mean()
@@ -74,9 +78,13 @@ _STAGED: Dict[tuple, Tuple[Any, List[tuple]]] = {}
 def shared_batches(dataset, eval_points: int, device) -> List[tuple]:
     """``staged_batches`` of ``dataset``, staged once per device."""
     key = (id(dataset), eval_points, str(torch.device(device)))
-    if key not in _STAGED:
-        _STAGED[key] = (dataset, staged_batches(dataset, eval_points,
-                                                device))
+    if key in _STAGED:
+        if obs.enabled():
+            obs.registry.inc("eval_batch_cache_hits")
+        return _STAGED[key][1]
+    if obs.enabled():
+        obs.registry.inc("eval_batch_cache_misses")
+    _STAGED[key] = (dataset, staged_batches(dataset, eval_points, device))
     return _STAGED[key][1]
 
 
@@ -84,7 +92,9 @@ class StackedEvaluator:
     """T trials' evaluation as one workload: a T-stacked params tree
     through ``torch.func.vmap`` of the accuracy over the shared staged
     batches, one launch sequence per test batch instead of one per (trial,
-    batch).  Lane i equals ``Evaluator.evaluate(params_list[i])``."""
+    batch).  Lane i's accuracy is ``Evaluator.evaluate(params_list[i])``'s
+    unless an argmax margin is within the last-bit difference of a batched
+    product (see the module docstring)."""
 
     def __init__(self, model, dataset, eval_points: int, device):
         self.model = model
@@ -122,7 +132,8 @@ class StackedEvaluator:
             return (logits.argmax(-1) == by).to(torch.float32).mean()
 
         lanes = torch.func.vmap(accuracy, in_dims=(0, None, None))
-        with torch.no_grad():
+        with torch.no_grad(), perf.timed("eval"), obs.span(
+                "eval_stacked", phase="eval", n_lanes=t):
             accs = torch.stack([lanes(stacked, bx, by)
                                 for bx, by, _ in batches]).cpu().numpy()
         correct = [0.0] * t

@@ -16,6 +16,7 @@ from typing import Any, List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch import perf
 from repro_torch.core.costs import CostModel, SystemCost
 from repro_torch.core.tuner import HyperParams, Tuner
 from repro_torch.data.synthetic import FederatedDataset
@@ -133,13 +134,14 @@ class FLServer:
         server rng stream identically (batch permutations)."""
         cfg = self.config
         x, y = self.dataset.client_data(int(cid))
-        upd = local_train(
-            self.model, params, x, y, passes=e,
-            batch_size=cfg.batch_size, optimizer=self.optimizer,
-            rng=self.rng, prox_mu=cfg.prox_mu)
-        if cfg.compression:
-            upd = upd._replace(params=compress_delta(
-                params, upd.params, cfg.compression))
+        with perf.timed("train"):
+            upd = local_train(
+                self.model, params, x, y, passes=e,
+                batch_size=cfg.batch_size, optimizer=self.optimizer,
+                rng=self.rng, prox_mu=cfg.prox_mu)
+            if cfg.compression:
+                upd = upd._replace(params=compress_delta(
+                    params, upd.params, cfg.compression))
         upd = upd._replace(client_id=int(cid))
         self.selector.update(int(cid), upd.last_loss, len(y))
         return upd, len(y)

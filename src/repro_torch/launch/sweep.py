@@ -23,10 +23,11 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.sweep --preset smoke \
       --device cpu --table --out runs/s.jsonl
 
-The flags are the reference's, plus ``--device``.  ``--pack sharded`` and
-``--trace``/``--trace-jax`` raise ``NotImplementedError`` until the
-multi-GPU and observability slices land (ROADMAP.md queue 1, items 15 and
-16).
+The flags are the reference's, plus ``--device``.  ``--trace`` writes a
+dual-clock Chrome trace and a metrics JSONL beside the store
+(``--trace-jax`` adds an NVTX range per span).  ``--pack sharded`` raises
+``NotImplementedError`` until the multi-GPU slice lands (ROADMAP.md queue
+1, item 15).
 """
 
 from __future__ import annotations
@@ -117,18 +118,16 @@ def main(argv=None):
                          "smoke-async = the 8-trial async/buffered grid)")
     ap.add_argument("--trace", nargs="?", const="auto", default=None,
                     metavar="PATH",
-                    help="dual-clock trace of the sweep (not ported yet)")
+                    help="record a dual-clock trace (Chrome trace-event "
+                         "JSON + metrics JSONL, paths derived from --out "
+                         "unless PATH is given); parity-neutral")
     ap.add_argument("--trace-jax", action="store_true",
-                    help="with --trace: profiler annotations (not ported)")
+                    help="with --trace: also open an NVTX range per span, "
+                         "so a device profile lines up with the spans")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on: cuda (default) or cpu")
     ap.add_argument("--verbose", action="store_true")
     args = ap.parse_args(argv)
-
-    if args.trace is not None or args.trace_jax:
-        raise NotImplementedError(
-            "--trace is not ported yet: it comes with the observability "
-            "slice (ROADMAP.md queue 1, item 16)")
 
     from repro_torch.device import resolve_device
     from repro_torch.experiments import (ResultStore, SweepSpec, TrialSpec,
@@ -176,6 +175,10 @@ def main(argv=None):
         print(f"sweep: --limit {args.limit} -> running {len(pending)} "
               "trial(s) this invocation", flush=True)
 
+    if args.trace is not None:
+        from repro_torch import obs
+        obs.enable(nvtx=args.trace_jax)
+
     t0 = time.perf_counter()
     results = run_sweep(pending, store=store, engine=args.engine,
                         pack=args.pack, verbose=args.verbose, device=device)
@@ -187,6 +190,20 @@ def main(argv=None):
     print(f"sweep: ran {len(results)} trial(s) in {wall:.1f}s "
           f"({args.engine} engine, device={device}); store={args.out}",
           flush=True)
+
+    if args.trace is not None:
+        from repro_torch import obs
+        from repro_torch.obs.export import (trace_paths_for,
+                                            write_chrome_trace,
+                                            write_metrics_jsonl)
+        obs.disable()
+        trace_path, metrics_path = trace_paths_for(
+            args.out, None if args.trace == "auto" else args.trace)
+        write_chrome_trace(trace_path)
+        n_rows = write_metrics_jsonl(metrics_path)
+        print(f"sweep: trace -> {trace_path} ({len(obs.tracer.spans)} "
+              f"spans); metrics -> {metrics_path} ({n_rows} rows) — open "
+              "the trace at https://ui.perfetto.dev", flush=True)
 
     if args.table:
         print()

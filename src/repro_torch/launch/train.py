@@ -11,11 +11,15 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --runtime buffered \
       --het stragglers --buffer-k 8 --fedtune
 
-The flags are the reference's.  ``--mode mesh``, ``--trace``/``--trace-jax``
-and ``--checkpoint`` raise ``NotImplementedError`` until the multi-GPU,
-tracing and checkpoint slices land (see ROADMAP.md), and so does the
-``sharded`` client-execution backend; ``--client-exec batched`` trains a
-sync round's clients as one packed cohort.
+The flags are the reference's, plus ``--device``.  ``--checkpoint PATH``
+saves the final params (``repro_torch.checkpoint.save_checkpoint``: a file
+the reference's ``load_checkpoint`` reads too); ``--trace`` writes a
+dual-clock Chrome trace and a metrics JSONL, and ``--trace-jax`` adds an
+NVTX range per span (the reference's flag, whose JAX trace annotations
+become NVTX ranges here).  ``--mode mesh`` and the ``sharded``
+client-execution backend raise ``NotImplementedError`` until the
+multi-GPU slice lands (see ROADMAP.md); ``--client-exec batched`` trains
+a sync round's clients as one packed cohort.
 """
 
 from __future__ import annotations
@@ -59,9 +63,12 @@ def main(argv=None):
                          "is not ported)")
     ap.add_argument("--trace", nargs="?", const="runs/train.trace.json",
                     default=None, metavar="PATH",
-                    help="dual-clock trace of the run (not ported yet)")
+                    help="record a dual-clock trace of the run: Chrome "
+                         "trace-event JSON (open in Perfetto) plus a "
+                         "metrics JSONL beside it")
     ap.add_argument("--trace-jax", action="store_true",
-                    help="with --trace: profiler annotations (not ported)")
+                    help="with --trace: also open an NVTX range per span, "
+                         "so a device profile lines up with the spans")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on: cuda (default) or cpu")
     args = ap.parse_args(argv)
@@ -70,14 +77,6 @@ def main(argv=None):
         raise NotImplementedError(
             "--mode mesh is not ported yet: it comes with the multi-GPU "
             "slice (see ROADMAP.md)")
-    if args.trace is not None or args.trace_jax:
-        raise NotImplementedError(
-            "--trace is not ported yet: it comes with the observability "
-            "slice (see ROADMAP.md)")
-    if args.checkpoint:
-        raise NotImplementedError(
-            "--checkpoint is not ported yet: it comes with the serving/"
-            "checkpoint slice (see ROADMAP.md)")
 
     import numpy as np
 
@@ -122,13 +121,39 @@ def main(argv=None):
                  log_every=max(args.rounds // 20, 1),
                  selection=args.selection),
         tuner=tuner, fleet=fleet, runtime_config=rtcfg, device=device)
+    if args.trace is not None:
+        from repro_torch import obs
+        obs.enable(nvtx=args.trace_jax)
     res = server.run()
+    if args.trace is not None:
+        from repro_torch import obs
+        from repro_torch.obs.export import (trace_paths_for,
+                                            write_chrome_trace,
+                                            write_metrics_jsonl)
+        obs.disable()
+        trace_path, metrics_path = trace_paths_for("", args.trace)
+        write_chrome_trace(trace_path)
+        write_metrics_jsonl(metrics_path)
+        print(f"trace -> {trace_path}; metrics -> {metrics_path} — open "
+              "the trace at https://ui.perfetto.dev", flush=True)
     c = res.total_cost
     print(f"\ndone: rounds={res.rounds} acc={res.final_accuracy:.3f} "
           f"M={res.final_m} E={res.final_e:g} t_sim={res.sim_time:.4g} "
           f"device={device}")
     print(f"CompT={c.comp_t:.4g} TransT={c.trans_t:.4g} "
           f"CompL={c.comp_l:.4g} TransL={c.trans_l:.4g}")
+    if args.checkpoint:
+        from repro_torch.checkpoint import save_checkpoint
+        # the final params with the run's scalar summary as metadata
+        save_checkpoint(args.checkpoint, res.params, step=res.rounds,
+                        metadata={
+                            "final_accuracy": res.final_accuracy,
+                            "costs": list(c.as_tuple()),
+                            "runtime": args.runtime,
+                            "het": args.het,
+                            "sim_time": res.sim_time,
+                        })
+        print(f"checkpoint written to {args.checkpoint}")
     return res
 
 

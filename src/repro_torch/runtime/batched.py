@@ -30,6 +30,7 @@ from typing import Any, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.data.loader import client_batches
 from repro_torch.federated.aggregation import ClientUpdate
 from repro_torch.models.registry import Model
@@ -163,6 +164,27 @@ def bucket_by_steps(n_steps: Sequence[int]):
     return buckets
 
 
+def note_pack_metrics(t_pad: int, m_pad: int, n_lanes: int,
+                      real_steps: int):
+    """Pack-shape metrics for one bucket: lanes and steps actually used
+    against the padded (m_pad, t_pad) grid.  ``padding_waste`` is the
+    fraction of that grid spent on padding, the series the bucketing and
+    coalescing heuristics are judged by.  Shared by every cohort runner;
+    callers gate on ``obs.enabled()``."""
+    padded_steps = m_pad * t_pad
+    obs.registry.inc("pack_dispatches")
+    obs.registry.inc("pack_lanes_real", n_lanes)
+    obs.registry.inc("pack_lanes_padded", m_pad)
+    obs.registry.inc("pack_steps_real", real_steps)
+    obs.registry.inc("pack_steps_padded", padded_steps)
+    obs.registry.sample("pack_width", n_lanes, t_pad=t_pad, m_pad=m_pad)
+    obs.registry.sample(
+        "padding_waste",
+        1.0 - real_steps / padded_steps if padded_steps else 0.0,
+        t_pad=t_pad)
+    obs.registry.observe("pack_width_lanes", n_lanes)
+
+
 def batched_local_train(model: Model, global_params,
                         data: Sequence[Tuple[np.ndarray, np.ndarray]], *,
                         passes: float, batch_size: int, optimizer: Optimizer,
@@ -188,6 +210,8 @@ def batched_local_train(model: Model, global_params,
         xs, ys, masks, active = to_device(dev, *_stack_streams(
             [streams[i] for i in idx], batch_size, t_pad))
         m = len(idx)
+        if obs.enabled():
+            note_pack_metrics(t_pad, m, m, sum(n_steps[i] for i in idx))
         global_b = tree_map(
             lambda p: p.expand((m,) + tuple(p.shape)).clone(), global_params)
         opt_b = optimizer.init(global_b)

@@ -22,8 +22,9 @@ All stochasticity flows from two seeded generators — the server rng
 (availability/dropout) — consumed in the reference's order, so a run's
 decisions, clocks and logs equal the reference's.  Sync mode trains a
 round's clients one at a time (``sequential``) or as one packed cohort
-(``batched``, ``runtime/batched.py``); the ``sharded`` backend and the
-reference's tracing hooks come with later slices.
+(``batched``, ``runtime/batched.py``); the ``sharded`` backend comes with
+the multi-GPU slice.  Spans and metrics (``repro_torch.obs``) sit at the
+reference's sites and only read clocks and counts.
 
 The event loop is factored into plan/apply/account/finish methods over an
 ``EventLoopState``, each taking an optional ``queue`` (default: the
@@ -40,6 +41,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.core.tuner import HyperParams
 from repro_torch.federated.aggregation import (FedBuffAggregator,
                                                apply_async_update)
@@ -166,6 +168,7 @@ class EventDrivenRuntime:
         self.sys_rng = np.random.default_rng(self.rt.system_seed)
         self.clock = VirtualClock()
         self.queue = EventQueue()
+        self.trace_label: str = "run"     # span attribution (the trial key)
         cm = server.cost_model
         self._c1 = cm.train_flops_per_example
         self._uf = upload_factor(server.config.compression)
@@ -241,6 +244,7 @@ class EventDrivenRuntime:
     # ------------------------------------------------------------------
     # sync: deadline rounds with straggler cutoff
     # ------------------------------------------------------------------
+    @obs.traced("plan_sync_round", phase="plan")
     def plan_sync_round(self, hp: HyperParams) -> SyncRoundPlan:
         """Decide one sync round's participation: selection (+ availability
         retries), per-client timing, dropout draws, failures and retries,
@@ -248,6 +252,8 @@ class EventDrivenRuntime:
         reference's order."""
         srv, rt = self.srv, self.rt
         t0 = self.clock.now
+        if obs.enabled() and self.fleet.churn is not None:
+            obs.registry.sample("fleet_size", self.fleet.n_active(t0))
         m = min(hp.m, srv.dataset.n_clients)
         participants = [int(c) for c in srv.selector.select(m)]
         active = [c for c in participants
@@ -289,6 +295,12 @@ class EventDrivenRuntime:
                     failed_trans.append(
                         self.fleet.trans_time(cid, self._down, 0.0))
                     detect = offsets[i] + comp[i] + trans[i]
+                    if obs.enabled():
+                        obs.registry.inc("client_failures")
+                        obs.record("failure", phase="failure",
+                                   trial=self.trace_label,
+                                   virtual=(t0 + offsets[i], t0 + detect),
+                                   cid=int(cid), attempt=attempts[i])
                     if attempts[i] < rt.max_retries:
                         backoff = rt.retry_backoff * (comp[i] + trans[i])
                         rep = self._pick_replacement(tried, t0)
@@ -301,6 +313,15 @@ class EventDrivenRuntime:
                             offsets.append(detect + backoff)
                             attempts.append(attempts[i] + 1)
                             survived.append(not self._drops(rep))
+                            if obs.enabled():
+                                obs.registry.inc("retries_scheduled")
+                                obs.record(
+                                    "retry", phase="failure",
+                                    trial=self.trace_label,
+                                    virtual=(t0 + detect,
+                                             t0 + detect + backoff),
+                                    cid=int(rep),
+                                    attempt=attempts[i] + 1)
                 i += 1
             total = [o + c + t
                      for o, c, t in zip(offsets, comp, trans)]
@@ -329,12 +350,19 @@ class EventDrivenRuntime:
         else:
             round_time = deadline if np.isfinite(deadline) else (
                 max(total) if total else 0.0)
+        if obs.enabled():
+            obs.registry.inc("sync_dispatched", len(active))
+            obs.registry.inc("sync_dropouts",
+                             len(active) - sum(survived) - len(failed))
+            obs.registry.inc("sync_stragglers_cut",
+                             sum(survived) - len(included))
         return SyncRoundPlan(active=active, sizes=sizes, comp=comp,
                              trans=trans, included=included,
                              round_time=round_time,
                              offsets=tuple(offsets), failed=tuple(failed),
                              failed_trans=tuple(failed_trans))
 
+    @obs.traced("account_sync_round", phase="account")
     def account_sync_round(self, plan: SyncRoundPlan, hp: HyperParams):
         """Charge one planned sync round to the cost model: critical-path
         times over the included arrivals (and failed attempts), exact
@@ -362,6 +390,7 @@ class EventDrivenRuntime:
 
         for r in range(cfg.max_rounds):
             t0 = time.perf_counter()
+            v0 = self.clock.now
             plan = self.plan_sync_round(hp)
             self.clock.advance_to(self.clock.now + plan.round_time)
             included, active = plan.included, plan.active
@@ -378,7 +407,14 @@ class EventDrivenRuntime:
 
             if eval_due(r, cfg.eval_every, cfg.max_rounds):
                 accuracy = srv._evaluate(params)
-            wall = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            wall = t1 - t0
+            if obs.enabled():
+                obs.record("round", phase="round", trial=self.trace_label,
+                           round_idx=r, wall=(t0, t1),
+                           virtual=(v0, self.clock.now),
+                           n_included=len(included), n_active=len(active))
+                obs.counter("t_sim", self.clock.now)
             history.append(RoundRecord(r, hp.m, hp.e, accuracy, round_cost,
                                        wall, sim_time=self.clock.now,
                                        n_updates=len(included)))
@@ -447,6 +483,8 @@ class EventDrivenRuntime:
         kind = DROPOUT if self._drops(cid) else ARRIVAL
         if self.fleet.has_failures() and self.fleet.fails(cid, now, attempt):
             kind = FAILURE
+        if obs.enabled():
+            obs.registry.inc("event_dispatched")
         queue = self.queue if queue is None else queue
         queue.push(now + comp + trans, kind, client_id=cid)
 
@@ -460,8 +498,19 @@ class EventDrivenRuntime:
         st.pend_trans_load += self._down
         st.pend_comp.append(fl.comp_time)
         st.pend_trans.append(down_trans)
+        if obs.enabled():
+            obs.registry.inc("client_failures")
+            obs.record("failure", phase="failure", trial=self.trace_label,
+                       virtual=(ev.time - fl.comp_time - fl.trans_time,
+                                ev.time),
+                       cid=fl.client_id, attempt=fl.attempt)
         if fl.attempt < self.rt.max_retries:
             backoff = self.rt.retry_backoff * (fl.comp_time + fl.trans_time)
+            if obs.enabled():
+                obs.registry.inc("retries_scheduled")
+                obs.record("retry", phase="failure", trial=self.trace_label,
+                           virtual=(ev.time, ev.time + backoff),
+                           cid=fl.client_id, attempt=fl.attempt + 1)
             self.dispatch_event(st, fl.client_id, ev.time + backoff,
                                 queue, attempt=fl.attempt + 1)
 
@@ -471,6 +520,8 @@ class EventDrivenRuntime:
         queue = self.queue if queue is None else queue
         srv = self.srv
         target = min(st.hp.m, srv.dataset.n_clients)
+        if obs.enabled() and self.fleet.churn is not None:
+            obs.registry.sample("fleet_size", self.fleet.n_active(now))
         for _ in range(5):               # availability retry passes
             need = target - len(st.inflight)
             if need <= 0:
@@ -491,11 +542,20 @@ class EventDrivenRuntime:
             if cohort:
                 self.dispatch_event(st, cohort[0], now, queue)
 
+    @obs.traced("plan_event", phase="plan")
     def plan_event(self, st: EventLoopState, ev) -> Optional[_InFlight]:
         """Retire one popped event's in-flight record and charge its loads.
         Returns the record whose client must now train, or None for a
         dropout."""
         fl = st.inflight.pop(ev.client_id)
+        if obs.enabled():
+            obs.record("inflight", phase="inflight", trial=self.trace_label,
+                       virtual=(ev.time - fl.comp_time - fl.trans_time,
+                                ev.time),
+                       cid=fl.client_id,
+                       kind="dropout" if ev.kind == DROPOUT else "arrival")
+            if ev.kind == DROPOUT:
+                obs.registry.inc("event_dropouts")
         st.pend_comp_load += self._c1 * fl.e * fl.n_examples
         st.pend_trans_load += self._down
         if ev.kind == DROPOUT:
@@ -505,6 +565,7 @@ class EventDrivenRuntime:
         st.pend_trans.append(fl.trans_time)
         return fl
 
+    @obs.traced("apply_event", phase="apply")
     def apply_event(self, st: EventLoopState, fl: _InFlight,
                     client_params) -> Tuple[bool, int]:
         """Fold one trained arrival into the global model: FedAsync mixing
@@ -513,6 +574,8 @@ class EventDrivenRuntime:
         rt = self.rt
         staleness = st.version - fl.version
         st.staleness_log.append(int(staleness))
+        if obs.enabled():
+            obs.registry.observe("staleness", staleness)
         if rt.mode == "async":
             st.params = apply_async_update(
                 st.params, client_params, mix=rt.async_mix,
@@ -526,6 +589,7 @@ class EventDrivenRuntime:
             return True, staleness
         return False, staleness
 
+    @obs.traced("account_event_round", phase="account")
     def account_event_round(self, st: EventLoopState):
         """Charge one aggregation window to the cost model and reset the
         pending accumulators."""
@@ -540,6 +604,7 @@ class EventDrivenRuntime:
         st.last_agg_clock = self.clock.now
         return round_cost
 
+    @obs.traced("finish_event_round", phase="finish")
     def finish_event_round(self, st: EventLoopState, staleness: int,
                            wall: float, accuracy: Optional[float] = None):
         """Complete one aggregation: bump the model version, account the
@@ -551,6 +616,12 @@ class EventDrivenRuntime:
         srv, cfg, rt = self.srv, self.srv.config, self.rt
         st.version += 1
         r = len(st.history)
+        if obs.enabled():
+            obs.record("agg_window", phase="round", trial=self.trace_label,
+                       round_idx=r,
+                       virtual=(st.last_agg_clock, self.clock.now),
+                       staleness=int(staleness))
+            obs.counter("t_sim", self.clock.now)
         round_cost = self.account_event_round(st)
         if accuracy is not None:
             st.accuracy = accuracy
@@ -571,6 +642,7 @@ class EventDrivenRuntime:
                                    srv.cost_model.total, st.hp)
         st.hp = st.hp.clamped(srv.dataset.n_clients, 100.0)
 
+    @obs.traced("account_event_tail", phase="account")
     def account_event_tail(self, st: EventLoopState):
         """Account the loads of arrivals after the last aggregation."""
         if st.pend_comp_load > 0.0 or st.pend_trans_load > 0.0:

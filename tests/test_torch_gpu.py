@@ -17,7 +17,11 @@ block, T = 1, T not a multiple of the time chunk, both copy widths);
 for its kernel) over MQA, GQA with the soft-cap, ragged and unaligned
 lengths (S not a multiple of the 16-key tile at every head dim), many kv
 tiles through the K/V ring, non-causal windows and the model's strided
-layout.  This file imports no JAX, so it runs where only torch is.
+layout.  The serving tests drive a staggered sync + async + buffered
+queue through ``serve`` on the card (both kernels launch; the records keep
+the CPU drain's (M, E), costs and logs) and restore a killed drain's
+snapshot onto the card.  This file imports no JAX, so it runs where only
+torch is.
 """
 
 import numpy as np
@@ -317,3 +321,76 @@ def test_fused_sync_reduce_is_bitwise_against_plain(cuda, monkeypatch):
     want = ref.fed_reduce_ref(w, rows, seg, t, **kw)
     for s, tr in enumerate(live):
         assert torch.equal(_flatten(tr.cohort.agg_params)[0], want[s])
+
+
+def test_served_queue_on_cuda_launches_both_kernels(cuda, tmp_path):
+    """A staggered sync + async + buffered queue through ``serve`` on the
+    card with 2 lanes: every trial finishes its rounds with params on the
+    card, ``fed_reduce`` launches (the FedAvg group's fused reduce, the
+    FedBuff flushes) and ``fed_aggregate`` launches (FedAsync mixes), and
+    the records keep the CPU drain's (M, E), costs and logs."""
+    from repro_torch.experiments import serve
+    from repro_torch.tree import leaves
+
+    specs = ([_sweep_spec(seed=s, rounds=1 + s % 2,
+                          compression="int8" if s == 1 else None)
+              for s in range(3)]
+             + [_sweep_spec(seed=3, rounds=3, mode="async"),
+                _sweep_spec(seed=4, rounds=2, mode="buffered")])
+    fr_mod.launches = fa_mod.launches = 0
+    got = serve(specs, max_lanes=2, device=cuda)
+    torch.cuda.synchronize()
+    assert fr_mod.launches > 0 and fa_mod.launches > 0
+    cpu = {r.spec.key(): r for r in serve(specs, max_lanes=2, device="cpu")}
+    assert len(got) == len(specs)
+    for r in got:
+        c = cpu[r.spec.key()]
+        assert r.rounds == r.spec.rounds
+        assert all(t.device.type == "cuda" for t in leaves(r.params))
+        assert (r.history_m, r.history_e) == (c.history_m, c.history_e)
+        assert r.cost == c.cost
+        assert r.dispatch_log == c.dispatch_log
+        assert r.staleness_log == c.staleness_log
+
+
+def test_snapshot_restores_onto_cuda(cuda, tmp_path):
+    """A drain killed after one macro-step and restored on the card ends
+    with the uninterrupted card drain's store rows (wall aside), its
+    tensors on the card; a bf16 checkpoint round-trips there bitwise."""
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.experiments import (ResultStore, TrialQueue,
+                                         TrialScheduler)
+    from repro_torch.tree import leaves
+
+    specs = [_sweep_spec(seed=0, rounds=2),
+             _sweep_spec(seed=1, rounds=2, mode="async")]
+
+    def rows(store):
+        return [{k: v for k, v in r.items() if k != "wall"}
+                for r in store.load()]
+
+    ref = ResultStore(str(tmp_path / "ref.jsonl"))
+    TrialScheduler(TrialQueue(specs=specs), max_lanes=2, store=ref,
+                   device=cuda).drain()
+    store = ResultStore(str(tmp_path / "kill.jsonl"))
+    snap = str(tmp_path / "s.snap")
+    TrialScheduler(TrialQueue(specs=specs), max_lanes=2, store=store,
+                   snapshot_path=snap, device=cuda).drain(max_steps=1)
+    resumed = TrialScheduler.restore(snap, store=store, device=cuda)
+    assert resumed.pool.n_live == 2
+    for tr in resumed._sync_live:
+        assert all(t.device.type == "cuda" for t in leaves(tr.params))
+    for tr in resumed._event_live:
+        assert all(t.device.type == "cuda" for t in leaves(tr.st.params))
+    resumed.drain()
+    assert rows(store) == rows(ref)
+
+    tree = {"w": torch.randn(4, 6, device=cuda),
+            "h": torch.randn(9, device=cuda).to(torch.bfloat16)}
+    save_checkpoint(str(tmp_path / "ck"), tree)
+    like = {"w": torch.zeros(4, 6, device=cuda),
+            "h": torch.zeros(9, device=cuda, dtype=torch.bfloat16)}
+    back, _ = load_checkpoint(str(tmp_path / "ck"), like)
+    for a, b in zip(leaves(back), leaves(tree)):
+        assert a.device.type == "cuda" and a.dtype == b.dtype
+        assert torch.equal(a, b)

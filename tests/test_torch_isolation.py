@@ -1,5 +1,6 @@
 """The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither ``jax`` nor any ``repro`` module.
+neither ``jax`` nor any ``repro`` module, nor ``ml_dtypes`` (the
+checkpointer carries bfloat16 as raw bits).
 
 Checked twice: dynamically, by importing every ``repro_torch`` module in a
 fresh interpreter and inspecting ``sys.modules``; and statically, by
@@ -28,7 +29,8 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
-             or m == "repro" or m.startswith("repro."))
+             or m == "repro" or m.startswith("repro.")
+             or m == "ml_dtypes" or m.startswith("ml_dtypes."))
 print(len(names), bad)
 sys.exit(1 if bad else 0)
 """
@@ -36,7 +38,7 @@ sys.exit(1 if bad else 0)
 
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
-    return top in ("jax", "jaxlib", "repro")
+    return top in ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 def test_importing_every_port_module_loads_no_jax_or_repro():
@@ -69,6 +71,8 @@ def test_no_port_file_imports_jax_or_repro():
 def test_the_scan_catches_a_forbidden_import(tmp_path):
     f = tmp_path / "x.py"
     f.write_text("import numpy\nfrom repro.kernels import ref\n"
-                 "import jax.numpy as jnp\nfrom repro_torch import tree\n")
+                 "import jax.numpy as jnp\nfrom repro_torch import tree\n"
+                 "import ml_dtypes\n")
     assert [m for m in _imports(f) if _forbidden(m)] == ["repro.kernels",
-                                                         "jax.numpy"]
+                                                         "jax.numpy",
+                                                         "ml_dtypes"]

@@ -26,10 +26,14 @@ Against the JAX package, on the same numpy inputs:
     server step (tau = 1e-3) grows a 1e-6 difference about 60x a round.
 """
 
+import json
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -364,9 +368,18 @@ def test_unported_paths_raise(tmp_path, monkeypatch):
                                        "--out", out])):
         with pytest.raises(NotImplementedError, match="item 15"):
             call()
-    for flags in (["--trace"], ["--trace-jax"]):
-        with pytest.raises(NotImplementedError, match="item 16"):
-            t_sweep.main(flags + ["--device", "cpu"])
+    # --trace (with --trace-jax's NVTX ranges, absent from a CPU build)
+    # writes a schema-valid trace and a metrics JSONL beside the store
+    from repro_torch.obs.export import validate_chrome_trace
+    for flags, base in ((["--trace"], "s"),
+                        (["--trace", str(tmp_path / "t.trace.json"),
+                          "--trace-jax"], "t")):
+        t_sweep.main(flags + ["--device", "cpu", "--rounds", "1",
+                              "--no-resume", "--out", out])
+        trace = json.loads((tmp_path / f"{base}.trace.json").read_text())
+        assert validate_chrome_trace(trace) == []
+        assert any(ev["name"] == "TRAIN" for ev in trace["traceEvents"])
+        assert (tmp_path / f"{base}.metrics.jsonl").exists()
     with pytest.raises(ValueError, match="batched"):
         run_vectorized([tiny_spec()], pack="origami", device="cpu")
     with pytest.raises(NotImplementedError, match="item 15"):

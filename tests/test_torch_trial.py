@@ -9,10 +9,14 @@ port, sync mode over a homogeneous fleet equals ``run_legacy`` bit for bit
 (as tests/test_runtime.py pins for the reference).
 """
 
+import json
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 import jax  # noqa: E402
 
@@ -155,9 +159,28 @@ def test_unported_paths_raise():
         srv = t_server("sync", None, 1)
         srv.runtime_config = RuntimeConfig(client_exec="sharded")
         srv.run()
-    for flags in (["--mode", "mesh"], ["--trace"], ["--checkpoint", "x"]):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            t_train.main(flags + ["--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="not ported"):
+        t_train.main(["--mode", "mesh", "--device", "cpu"])
+
+
+def test_launcher_trace_and_checkpoint(tmp_path):
+    """``--trace`` writes a schema-valid dual-clock trace and its metrics;
+    ``--checkpoint`` saves the final params, which load back bitwise."""
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.obs.export import validate_chrome_trace
+    trace = tmp_path / "run.trace.json"
+    res = t_train.main(["--rounds", "2", "--m", "3", "--e", "1",
+                        "--device", "cpu", "--trace", str(trace),
+                        "--checkpoint", str(tmp_path / "ck" / "x")])
+    events = json.loads(trace.read_text())["traceEvents"]
+    assert validate_chrome_trace({"traceEvents": events}) == []
+    assert sum(ev["name"] == "round" and ev["ph"] == "X"
+               for ev in events) >= 2
+    assert (tmp_path / "run.metrics.jsonl").exists()
+    got, meta = load_checkpoint(str(tmp_path / "ck" / "x"), res.params)
+    assert meta["step"] == 2
+    for a, b in zip(leaves(got), leaves(res.params)):
+        assert torch.equal(a, b)
 
 
 def test_launcher_runs_on_cpu(capsys):
