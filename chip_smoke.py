@@ -26,11 +26,16 @@ exits non-zero on failure:
      ``flash_attention`` within rtol = atol = 2e-5 (recurrentgemma-9b's
      local layer B=2, H=16, Kh=1, S=4096, D=256, window 2048; gemma2-2b's
      global layer H=8, Kh=4, cap 50; a ragged S=4000; a small non-causal
-     case).  The attention bound counts the live (query, key) pairs of this
-     run's masks on the kernel's own route: its products run on the tensor
-     cores as three TF32 passes (3xTF32), so ``bound_ms`` is 3 x flops at
-     495 TFLOP/s (``bound_route``), with the f32 SIMT figure (flops at 67
-     TFLOP/s) kept beside it as ``bound_f32_simt_ms``.  Its library
+     case), and the rest of the LM zoo's prefill shapes: granite-moe
+     (H=16, Kh=8, S=T=4096, D=64), dbrx (H=48, Kh=8, S=T=2048, D=128),
+     seamless-m4t's encoder (H=Kh=16, S=T=1024, D=64, non-causal) and
+     cross-attention (S=512, T=1024, non-causal), internvl2's prefix plus
+     prompt (H=14, Kh=2, S=T=2304, D=64), all at B=2.  The attention
+     bound counts the live (query, key) pairs of this run's masks on the
+     kernel's own route: its products run on the tensor cores as three
+     TF32 passes (3xTF32), so ``bound_ms`` is 3 x flops at 495 TFLOP/s
+     (``bound_route``), with the f32 SIMT figure (flops at 67 TFLOP/s)
+     kept beside it as ``bound_f32_simt_ms``.  Its library
      yardstick is ``scaled_dot_product_attention`` with the window as an
      explicit mask (none where there is a cap); the scan has no one-call
      library equivalent.
@@ -57,6 +62,20 @@ exits non-zero on failure:
   6. ``reduced(recurrentgemma-9b, n_layers=3)`` from the same init params
      on the card and on the CPU, prompt 160, 8 decode steps fed the CPU
      run's tokens: the logits must agree within 1e-4 at every step.
+  5b. The rest of the LM zoo at full width through ``generate`` (f32 params
+     drawn on the card, batch 2, 32 greedy tokens; ``ZOO``): xlstm-350m (24
+     layers, prompt 2048, no attention), granite-moe-1b-a400m (24, 4096),
+     dbrx-132b (its first 2 of 40 layers, every width kept, 2048),
+     seamless-m4t-medium (12 encoder + 12 decoder layers, 1024 audio frames
+     x 1024, prompt 512) and internvl2-1b (24, 256 vision patches x 896
+     before a 2048-token prompt).  Each: the parameter count of the
+     reference's tree, ``flash_attention`` launched exactly 0, 24, 2, 36
+     and 24 times by one prefill (counts set to 0 just before), finite
+     logits, decode within 5e-3 of prefill (xLSTM at a 128-token prompt,
+     one mLSTM chunk), prefill and decode tokens/s and peak memory.
+  6b. Phase 6's rule for each of the five, reduced to 3 layers (prompt 64):
+     logits within 1e-4 at every step; a MoE route that differs between
+     the devices is printed with its top-k margin.
 
   7. The vectorized sweep engine at paper scale through ``run_sweep`` on
      the card (``launch/profile_sweep.full_width_grid``): 48 sync trials
@@ -542,6 +561,14 @@ def lm_kernel_cases(torch, np, card, flush):
     attn_case("gemma2_global", 2, 8, 4, 4096, 4096, 256, True, None, 50.0)
     attn_case("ragged_s4000", 2, 16, 1, 4000, 4000, 256, True, 2048, None)
     attn_case("small_noncausal", 1, 4, 2, 256, 256, 64, False, None, None)
+    # the rest of the LM zoo's shapes (phase 5b's prefills)
+    attn_case("granite_moe", 2, 16, 8, 4096, 4096, 64, True, None, None)
+    attn_case("dbrx", 2, 48, 8, 2048, 2048, 128, True, None, None)
+    attn_case("seamless_encoder", 2, 16, 16, 1024, 1024, 64, False, None,
+              None)
+    attn_case("seamless_cross", 2, 16, 16, 512, 1024, 64, False, None, None)
+    attn_case("internvl2_prefix", 2, 14, 2, 2304, 2304, 64, True, None,
+              None)
     return results
 
 
@@ -1319,6 +1346,198 @@ def serve_card_vs_cpu(torch, np):
               tolerance=1e-4))
 
 
+# phase 5b: the rest of the zoo at full width.  Per config: the layers kept
+# (None: all), batch, prompt, flash_attention launches per prefill, and the
+# parameter count of the reference's tree (``repro.models.lm.init_params``;
+# ``ModelConfig.param_count()`` leaves out the frontend projection and
+# counts the xLSTM blocks otherwise).
+ZOO = (
+    ("xlstm-350m", None, 2, 2048, 0, 253_232_224),
+    ("granite-moe-1b-a400m", None, 2, 4096, 24, 1_334_628_352),
+    ("dbrx-132b", 2, 2, 2048, 2, 7_751_301_120),
+    ("seamless-m4t-medium", None, 2, 512, 36, 716_451_840),
+    ("internvl2-1b", None, 2, 2048, 24, 494_583_808),
+)
+# an xLSTM prompt is one mLSTM chunk or a multiple of it: decode is held
+# against prefill at one chunk
+XLSTM_CHECK_LEN = 128
+
+
+def serve_zoo(torch, card):
+    """Phase 5b: each of the other five LM families at full width through
+    ``generate`` (f32 params drawn on the card, 32 greedy tokens).  Returns
+    the ``flash_attention`` launches of their prefills."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fl_mod
+    from repro_torch.kernels import rglru_scan as sc_mod
+    from repro_torch.launch.serve import (cut_layers, frontend_input,
+                                          generate, prefix_len)
+    from repro_torch.models import build_model
+    from repro_torch.tree import leaves
+
+    steps, total = 32, 0
+    for arch, keep, b, s_len, want_fl, want_params in ZOO:
+        cfg = get_config(arch)
+        if keep is not None:
+            cfg = cut_layers(cfg, keep)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = build_model(cfg)
+        t0 = time.perf_counter()
+        params = model.init(0, "cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in leaves(params))
+        check(n_params == want_params,
+              f"{arch}: {n_params} params, want {want_params}")
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        prompt = torch.randint(0, cfg.vocab_size, (b, s_len), generator=gen,
+                               device="cuda")
+        fe = frontend_input(cfg, b, gen, "cuda")
+        p_len = prefix_len(cfg, fe)
+        torch.cuda.synchronize()
+        fl_mod.launches = 0
+        sc_mod.launches = 0
+        out = generate(model, params, prompt, steps, frontend=fe)
+        counts = {"flash_attention": fl_mod.launches,
+                  "rglru_scan": sc_mod.launches}
+        check(counts == {"flash_attention": want_fl, "rglru_scan": 0},
+              f"{arch}: launches {counts}, wanted {want_fl} flash_attention "
+              "and no rglru_scan (one prefill)")
+        total += counts["flash_attention"]
+        logits = torch.cat([out["prefill_logits"][None], out["step_logits"]])
+        check(logits.shape == (steps + 1, b, cfg.vocab_size),
+              f"{arch}: logits shape {tuple(logits.shape)}")
+        check(bool(torch.isfinite(logits).all()),
+              f"{arch}: logits not all finite")
+        check(out["prefix_len"] == p_len, f"{arch}: prefix length")
+
+        # decode against prefill: prefill S-1 tokens, decode the last one
+        s_chk = min(s_len, XLSTM_CHECK_LEN) if cfg.family == "ssm" else s_len
+        if s_chk == s_len:
+            want = out["prefill_logits"]
+        else:
+            cache = model.init_cache(b, max_len=s_chk + 1, device="cuda")
+            want, _ = model.prefill(params, prompt[:, :s_chk], cache,
+                                    frontend=fe)
+        cache = model.init_cache(b, max_len=p_len + s_chk + 1, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, cache = model.prefill(params, prompt[:, :s_chk - 1], cache,
+                                 frontend=fe)
+        torch.cuda.synchronize()
+        prefill2_s = time.perf_counter() - t0
+        dec, _ = model.decode_step(params, prompt[:, s_chk - 1],
+                                   p_len + s_chk - 1, cache)
+        err = float((dec - want).abs().max())
+        check(err < 5e-3, f"{arch}: decode vs prefill differ by {err} "
+                          ">= 5e-3")
+        peak = torch.cuda.max_memory_allocated()
+        emit(dict(phase="serve_zoo", arch=arch, family=cfg.family,
+                  layers=cfg.n_layers, of_layers=get_config(arch).n_layers,
+                  params=n_params, dtype="float32", batch=b,
+                  prompt_len=s_len, prefix_len=p_len,
+                  frontend=None if fe is None else list(fe.shape),
+                  decode_tokens=steps, init_s=init_s,
+                  prefill_s=out["prefill_s"],
+                  prefill_tok_per_s=out["prefill_tok_per_s"],
+                  check_prompt_len=s_chk,
+                  prefill_s_again=prefill2_s,
+                  prefill_tok_per_s_again=b * (s_chk - 1) / prefill2_s,
+                  decode_s=out["decode_s"],
+                  decode_tok_per_s=out["decode_tok_per_s"],
+                  decode_ms_per_step=out["decode_s"] / steps * 1e3,
+                  launches_per_prefill=counts,
+                  decode_vs_prefill_max_abs_err=err,
+                  logit_abs_max=float(logits.abs().max()),
+                  ids0=out["ids"][0].tolist(), peak_mem_bytes=peak,
+                  peak_mem_gib=peak / 2**30, card=card))
+        del params, out, logits, cache, dec, want
+    torch.cuda.empty_cache()
+    return total
+
+
+def zoo_card_vs_cpu(torch, np):
+    """Phase 6b: phase 6's rule for each of the five families, reduced to 3
+    layers.  The router's expert ids are recorded on both devices; a route
+    that flips is printed with its top-k margin before the logits are
+    held to 1e-4."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import build_model
+    from repro_torch.models import ffn as ffn_mod
+    from repro_torch.tree import tree_map
+
+    inner = ffn_mod._route
+    routes = []
+
+    def route_spy(params, xf, moe):
+        out = inner(params, xf, moe)
+        probs = torch.softmax(xf.float() @ params["router"].float(), dim=-1)
+        top = torch.sort(probs, dim=-1, descending=True).values
+        routes.append((out[1].cpu(), (top[:, moe.top_k - 1]
+                                      - top[:, moe.top_k]).cpu()))
+        return out
+
+    ffn_mod._route = route_spy
+    try:
+        for arch, *_ in ZOO:
+            cfg = reduced(get_config(arch), n_layers=3)
+            model = build_model(cfg)
+            params = model.init(0, "cpu")
+            b, s_len, steps = 2, 64, 8
+            rng = np.random.default_rng(2)
+            prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                   (b, s_len)))
+            fe = None if cfg.frontend is None else torch.from_numpy(
+                rng.standard_normal((b, cfg.frontend.seq_len,
+                                     cfg.frontend.feature_dim)).astype(
+                                         np.float32))
+            fe_c = None if fe is None else fe.to("cuda")
+            routes.clear()
+            cpu = generate(model, params, prompt, steps, frontend=fe)
+            cpu_routes = list(routes)
+            routes.clear()
+            p_len = cpu["prefix_len"]
+            params_c = tree_map(lambda p: p.to("cuda"), params)
+            cache = model.init_cache(b, max_len=p_len + s_len + steps + 1,
+                                     device="cuda")
+            logits, cache = model.prefill(params_c, prompt.to("cuda"), cache,
+                                          frontend=fe_c)
+            errs = [float((logits.cpu() - cpu["prefill_logits"]).abs().max())]
+            for i in range(steps):
+                tok = cpu["ids"][:, i].to("cuda")
+                logits, cache = model.decode_step(params_c, tok,
+                                                  p_len + s_len + i, cache)
+                errs.append(float((logits.cpu() - cpu["step_logits"][i])
+                                  .abs().max()))
+            flips = []
+            for call, ((ids, margin), (ids_c, _)) in enumerate(
+                    zip(cpu_routes, routes)):
+                for tok in torch.nonzero((ids != ids_c).any(-1)).flatten():
+                    flips.append(dict(call=call, token=int(tok),
+                                      cpu=ids[tok].tolist(),
+                                      card=ids_c[tok].tolist(),
+                                      top_k_margin=float(margin[tok])))
+            if flips:
+                emit(dict(phase="serve_zoo_card_vs_cpu", arch=cfg.name,
+                          route_flips=flips))
+            check(len(cpu_routes) == len(routes),
+                  f"{cfg.name}: {len(cpu_routes)} routes on the CPU, "
+                  f"{len(routes)} on the card")
+            check(max(errs) <= 1e-4,
+                  f"{cfg.name}: card vs CPU logits differ by {max(errs)} "
+                  f"> 1e-4 (per step {errs}; route flips {len(flips)})")
+            emit(dict(phase="serve_zoo_card_vs_cpu", arch=cfg.name,
+                      layers=cfg.n_layers, prompt_len=s_len,
+                      prefix_len=p_len, decode_tokens=steps,
+                      moe_routes_compared=len(routes),
+                      route_flips=len(flips), max_abs_err=errs,
+                      tolerance=1e-4))
+    finally:
+        ffn_mod._route = inner
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--baseline", type=Path, default=None,
@@ -1378,6 +1597,9 @@ def main():
     lm_launches = serve_full_width(torch, np, card)
     launches.update(lm_launches)
     serve_card_vs_cpu(torch, np)
+    torch.cuda.empty_cache()
+    launches["flash_attention"] += serve_zoo(torch, card)
+    zoo_card_vs_cpu(torch, np)
     torch.cuda.empty_cache()
 
     res, ev_res, sweep_wall, sweep_launches, reduce_inputs = \

@@ -3,9 +3,12 @@
 Replaces the Pallas TPU kernel ``src/repro/kernels/flash_attention.py::
 _kernel`` (wrapper ``flash_attention``, ``pl.pallas_call`` at line 113).
 The Hopper kernel is ``csrc/flash_attention.cu``; its plain version is
-``ref.flash_attention_ref``.  On the serving path it is the prefill of every
-local-attention layer (recurrentgemma-9b: B=2, H=16, Kh=1, S=T=4096, D=256,
-window 2048, f32).
+``ref.flash_attention_ref``.  On the serving path it is every
+full-sequence attention of a prefill: recurrentgemma-9b's local layers
+(B=2, H=16, Kh=1, S=T=4096, D=256, window 2048), granite-moe's (G=2,
+D=64), dbrx's (G=6, D=128), internvl2's over the vision prefix and the
+prompt (G=7, D=64), seamless-m4t's non-causal encoder and its decoder's
+self- and cross-attention (S=512 queries over T=1024 frames); f32.
 
 What bounds it on the H100: operations (206 GFLOP against 0.29 GB at
 that shape).  Both products run on the tensor cores (``wgmma`` with TF32

@@ -3,15 +3,18 @@
 Port of ``repro.models.attention`` for serving.  Three execution paths:
   * ``naive_attention`` materialises the (S, T) scores: the plain path,
     which a CPU tensor takes;
-  * on a CUDA tensor the full-sequence core is ``ops.flash_attention``, the
-    Hopper kernel, whatever the sequence length (the reference's naive and
-    blocked paths compute the same function);
+  * on a CUDA tensor every full-sequence core is ``ops.flash_attention``,
+    the Hopper kernel, whatever the sequence length (the reference's naive
+    and blocked paths compute the same function): causal self-attention,
+    the encoder's non-causal self-attention and cross-attention to the
+    encoder's output (T != S, no rope);
   * ``decode_attention``: one query token against a (possibly ring-buffer)
-    KV cache, plain PyTorch as in the reference.
+    KV cache, and ``cross_decode_attention``, one query against the
+    encoder's output: plain PyTorch, as in the reference.
 
-Full-sequence positions are ``arange(S)``, as every caller of the
-reference passes them.  The blocked path's custom VJP (training) waits for
-its slice (see ROADMAP.md).
+Full-sequence positions are ``arange(S)`` (keys: ``arange(T)``), as every
+caller of the reference passes them.  The blocked path's custom VJP
+(training) waits for its slice (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -31,15 +34,25 @@ from repro_torch.models.common import apply_rope, dense_init, softcap
 # ---------------------------------------------------------------------------
 
 def init_attention_params(gen: torch.Generator, cfg: ModelConfig, *,
-                          dtype=torch.float32):
-    d, h, k, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+                          d_in: Optional[int] = None,
+                          n_heads: Optional[int] = None,
+                          n_kv: Optional[int] = None,
+                          head_dim: Optional[int] = None,
+                          bias: Optional[bool] = None, dtype=torch.float32):
+    """The config's widths unless given (the encoder's own, or the decoder's
+    cross-attention without bias)."""
+    d = cfg.d_model if d_in is None else d_in
+    h = cfg.n_heads if n_heads is None else n_heads
+    k = cfg.n_kv_heads if n_kv is None else n_kv
+    hd = cfg.head_dim if head_dim is None else head_dim
+    use_bias = cfg.qkv_bias if bias is None else bias
     p = {
         "wq": dense_init(gen, (d, h, hd), dtype, fan_in=d),
         "wk": dense_init(gen, (d, k, hd), dtype, fan_in=d),
         "wv": dense_init(gen, (d, k, hd), dtype, fan_in=d),
         "wo": dense_init(gen, (h, hd, d), dtype, fan_in=h * hd),
     }
-    if cfg.qkv_bias:
+    if use_bias:
         dev = gen.device
         p["bq"] = torch.zeros((h, hd), dtype=dtype, device=dev)
         p["bk"] = torch.zeros((k, hd), dtype=dtype, device=dev)
@@ -48,17 +61,23 @@ def init_attention_params(gen: torch.Generator, cfg: ModelConfig, *,
 
 
 def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig,
-                 positions: torch.Tensor):
-    """Returns q:(B,S,K,G,D), k,v:(B,S,K,D)."""
+                 positions: torch.Tensor, *, rope: bool = True,
+                 kv_input: Optional[torch.Tensor] = None,
+                 kv_positions: Optional[torch.Tensor] = None):
+    """Returns q:(B,S,K,G,D), k,v:(B,T,K,D); keys and values come from
+    ``kv_input`` (cross-attention) when it is given."""
+    kv_x = x if kv_input is None else kv_input
     q = torch.einsum("bse,ehd->bshd", x, params["wq"])
-    k = torch.einsum("bte,ekd->btkd", x, params["wk"])
-    v = torch.einsum("bte,ekd->btkd", x, params["wv"])
+    k = torch.einsum("bte,ekd->btkd", kv_x, params["wk"])
+    v = torch.einsum("bte,ekd->btkd", kv_x, params["wv"])
     if "bq" in params:
         q = q + params["bq"]
         k = k + params["bk"]
         v = v + params["bv"]
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if rope:
+        kv_pos = positions if kv_positions is None else kv_positions
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, kv_pos, cfg.rope_theta)
     n_kv = k.shape[2]
     g = q.shape[2] // n_kv
     q = q.reshape(q.shape[0], q.shape[1], n_kv, g, q.shape[3])
@@ -100,36 +119,69 @@ def naive_attention(q, k, v, *, q_pos, k_pos, causal=True,
     return out.reshape(b, s, kh * g, d)
 
 
-def flash_core(q, k, v, *, window: Optional[int],
+def flash_core(q, k, v, *, causal: bool = True, window: Optional[int],
                cap: Optional[float]) -> torch.Tensor:
-    """Causal self-attention over positions ``arange(S)`` through
-    ``ops.flash_attention``: q (B,S,K,G,D), k/v (B,S,K,D) -> (B,S,K*G,D).
-    The kernel reads the model's layout through strides, (B,S,H,D) viewed
-    as (B,H,S,D), and writes its output in q's layout: no copies."""
+    """Attention through ``ops.flash_attention``: q (B,S,K,G,D), k/v
+    (B,T,K,D) -> (B,S,K*G,D).  The kernel reads the model's layout through
+    strides, (B,S,H,D) viewed as (B,H,S,D), and writes its output in q's
+    layout: no copies where the projections are dense."""
     b, s, kh, g, d = q.shape
-    out = ops.flash_attention(q.reshape(b, s, kh * g, d).transpose(1, 2),
-                              k.transpose(1, 2), v.transpose(1, 2),
-                              causal=True, window=window, cap=cap)
+    q = q.reshape(b, s, kh * g, d).contiguous()
+    out = ops.flash_attention(q.transpose(1, 2),
+                              k.contiguous().transpose(1, 2),
+                              v.contiguous().transpose(1, 2),
+                              causal=causal, window=window, cap=cap)
     return out.transpose(1, 2)
 
 
-def _attend(q, k, v, positions, *, window: Optional[int],
+def _attend(q, k, v, q_pos, k_pos, *, causal: bool, window: Optional[int],
             cap: Optional[float]) -> torch.Tensor:
     """The full-sequence core: the plain path on the CPU, the kernel on
-    CUDA."""
+    CUDA.  The kernel places query i at key i + (T - S); the positions
+    here are ``arange``, so a mask agrees with it when S == T or when
+    there is none (non-causal, no window: cross-attention)."""
     if q.device.type == "cpu":
-        return naive_attention(q, k, v, q_pos=positions, k_pos=positions,
-                               window=window, cap=cap)
-    return flash_core(q, k, v, window=window, cap=cap)
+        return naive_attention(q, k, v, q_pos=q_pos, k_pos=k_pos,
+                               causal=causal, window=window, cap=cap)
+    if q.shape[1] != k.shape[1] and (causal or window is not None):
+        raise ValueError(
+            f"a masked attention over S={q.shape[1]} queries and "
+            f"T={k.shape[1]} keys at positions arange(S), arange(T) is not "
+            "the kernel's alignment")
+    return flash_core(q, k, v, causal=causal, window=window, cap=cap)
 
 
-def attention(params, cfg: ModelConfig, spec: LayerSpec,
-              x: torch.Tensor) -> torch.Tensor:
-    """Causal self-attention over a full sequence. x: (B,S,E)."""
+def attention(params, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
+              *, causal: bool = True,
+              kv_input: Optional[torch.Tensor] = None,
+              rope: bool = True) -> torch.Tensor:
+    """Self-attention over a full sequence x (B,S,E), or cross-attention
+    to ``kv_input`` (B,T,E').  Query positions are ``arange(S)``, key
+    positions ``arange(T)``."""
     positions = torch.arange(x.shape[1], device=x.device)
-    q, k, v = _project_qkv(params, x, cfg, positions)
-    out = _attend(q, k, v, positions, window=spec.window,
-                  cap=cfg.attn_softcap)
+    kv_positions = None if kv_input is None else torch.arange(
+        kv_input.shape[1], device=x.device)
+    q, k, v = _project_qkv(params, x, cfg, positions, rope=rope,
+                           kv_input=kv_input, kv_positions=kv_positions)
+    out = _attend(q, k, v, positions,
+                  positions if kv_positions is None else kv_positions,
+                  causal=causal, window=spec.window, cap=cfg.attn_softcap)
+    return _out_proj(out, params)
+
+
+def cross_decode_attention(params, cfg: ModelConfig, spec: LayerSpec,
+                           x: torch.Tensor, pos: int,
+                           enc_out: torch.Tensor) -> torch.Tensor:
+    """One decoded query (B,1,E) at global position ``pos`` against the
+    encoder output (B,T,E), no rope: plain PyTorch on every device, as the
+    reference's decode runs it (``use_kernel=False``).  K and V are
+    projected from ``enc_out`` again each step, as in the reference."""
+    q_pos = torch.tensor([pos], dtype=torch.int32, device=x.device)
+    k_pos = torch.arange(enc_out.shape[1], device=x.device)
+    q, k, v = _project_qkv(params, x, cfg, q_pos, rope=False,
+                           kv_input=enc_out)
+    out = naive_attention(q, k, v, q_pos=q_pos, k_pos=k_pos, causal=False,
+                          window=spec.window, cap=cfg.attn_softcap)
     return _out_proj(out, params)
 
 
@@ -163,8 +215,8 @@ def prefill_into_cache(params, cfg: ModelConfig, spec: LayerSpec,
     positions = torch.arange(x.shape[1], device=x.device)
     q, k, v = _project_qkv(params, x, cfg, positions)
     s = q.shape[1]
-    out = _attend(q, k, v, positions, window=spec.window,
-                  cap=cfg.attn_softcap)
+    out = _attend(q, k, v, positions, positions, causal=True,
+                  window=spec.window, cap=cfg.attn_softcap)
     c = cache.k.shape[1]
     if c > s:  # cache has spare room: fill the first s slots
         pad = c - s

@@ -56,6 +56,12 @@ def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
     return cap * torch.tanh(x / cap)
 
 
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: log(1 + e^x) with no threshold (``F.softplus``
+    returns x itself above 20)."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.gelu``'s default, the tanh approximation (PyTorch's default
     is the exact erf form)."""
@@ -64,6 +70,22 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 def activation(name: str):
     return {"silu": F.silu, "gelu": gelu, "relu": F.relu}[name]
+
+
+def causal_conv(x: torch.Tensor, conv_w: torch.Tensor,
+                conv_b: torch.Tensor) -> torch.Tensor:
+    """x: (B,S,W); width-cw causal depthwise conv via shifted adds (the
+    reference's ``_causal_conv`` of the recurrent and xLSTM blocks)."""
+    cw = conv_w.shape[0]
+    out = torch.zeros_like(x)
+    for i in range(cw):
+        if i == 0:
+            shifted = x
+        else:
+            shifted = torch.zeros_like(x)
+            shifted[:, i:] = x[:, :-i]
+        out = out + shifted * conv_w[cw - 1 - i]
+    return out + conv_b
 
 
 # ---------------------------------------------------------------------------

@@ -1,18 +1,26 @@
-"""Decoder-only language model assembled from ``LayerSpec``s, for serving.
+"""Language models assembled from ``LayerSpec``s, for serving: a
+decoder-only LM, an encoder-decoder (the audio family) or a VLM whose text
+follows a prefix of vision patches.
 
-Port of ``repro.models.lm`` for the ``attn`` and ``rglru`` mixers with the
-dense FFN (recurrentgemma-9b, gemma2-2b, qwen2-7b, command-r-35b,
-minitron-8b).  Any other mixer, the MoE FFN, the encoder-decoder and the
-frontend-prefixed VLM raise ``NotImplementedError``; so do the training
-loss and its chunked cross-entropy (see ROADMAP.md).
+Port of ``repro.models.lm`` for every mixer (attention, RG-LRU, mLSTM,
+sLSTM), the dense FFN and the MoE, the encoder stack over (stub) audio
+frames and the (stub) vision-patch prefix: all ten LM configs serve.  The
+training loss and its chunked cross-entropy wait for their slice (see
+ROADMAP.md).
 
 API (params are nested dicts and lists of tensors, leaf for leaf the
 reference's, so ``repro_torch.weights`` carries them across):
   init_params(cfg, gen, dtype)
-  forward(params, cfg, tokens)                 # full-seq logits
-  init_cache(cfg, batch, max_len, ...)         # decode state
-  prefill(params, cfg, tokens, cache)          # build cache, last logits
-  decode_step(params, cfg, token, pos, cache)  # one token
+  forward(params, cfg, tokens, frontend=)          # full-seq logits
+  init_cache(cfg, batch, max_len, ...)             # decode state
+  prefill(params, cfg, tokens, cache, frontend=)   # build cache, last logits
+  decode_step(params, cfg, token, pos, cache)      # one token
+
+``frontend`` is (B, frames, features) for the encoder-decoder and (B,
+patches, features) for the VLM, whose logits and positions then cover the
+prefix as well.  The full-sequence forward runs the MoE as ``moe_ffn``
+(capacity dispatch by default); prefill and decode run it drop-free
+(``moe_ffn_dense``), as the reference serves it.
 """
 
 from __future__ import annotations
@@ -22,33 +30,23 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.configs.base import (FFN_DENSE, FFN_NONE, MIX_ATTN,
-                                      MIX_RGLRU, LayerSpec, ModelConfig)
+                                      MIX_MLSTM, MIX_RGLRU, MIX_SLSTM,
+                                      LayerSpec, ModelConfig)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import recurrent as rec_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.common import (dense_init, embed_init, rmsnorm,
                                        softcap)
 from repro_torch.tree import leaves
 
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` unless every layer of ``cfg`` runs on
-    modules the port has."""
-    why = []
-    mixers = sorted({s.mixer for s in cfg.layers} - {MIX_ATTN, MIX_RGLRU})
-    if mixers:
-        why.append(f"mixers {mixers}")
-    ffns = sorted({s.ffn for s in cfg.layers} - {FFN_DENSE, FFN_NONE})
-    if ffns:
-        why.append(f"ffn {ffns}")
-    if cfg.encoder is not None:
-        why.append("the encoder-decoder stack")
-    if cfg.frontend is not None:
-        why.append(f"the {cfg.frontend.kind} frontend")
-    if why:
-        raise NotImplementedError(
-            f"{cfg.name} needs {', '.join(why)}, which the port does not "
-            "have yet (see ROADMAP.md)")
+_MIXER_INIT = {
+    MIX_ATTN: lambda gen, cfg, dtype: attn_mod.init_attention_params(
+        gen, cfg, dtype=dtype),
+    MIX_RGLRU: rec_mod.init_rglru_params,
+    MIX_MLSTM: xlstm_mod.init_mlstm_params,
+    MIX_SLSTM: xlstm_mod.init_slstm_params,
+}
 
 
 # ---------------------------------------------------------------------------
@@ -59,22 +57,42 @@ def _init_layer(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
                 dtype):
     zeros = lambda: torch.zeros((cfg.d_model,), dtype=dtype,  # noqa: E731
                                 device=gen.device)
-    p: Dict[str, Any] = {"ln1": zeros()}
-    if spec.mixer == MIX_ATTN:
-        p["mixer"] = attn_mod.init_attention_params(gen, cfg, dtype=dtype)
-    else:
-        p["mixer"] = rec_mod.init_rglru_params(gen, cfg, dtype=dtype)
+    p: Dict[str, Any] = {"ln1": zeros(),
+                         "mixer": _MIXER_INIT[spec.mixer](gen, cfg, dtype)}
     if spec.ffn != FFN_NONE:
         p["ln2"] = zeros()
-        p["ffn"] = ffn_mod.init_mlp_params(gen, cfg.d_model, cfg.d_ff, dtype)
+        if spec.ffn == FFN_DENSE:
+            p["ffn"] = ffn_mod.init_mlp_params(gen, cfg.d_model, cfg.d_ff,
+                                               dtype)
+        else:
+            p["ffn"] = ffn_mod.init_moe_params(gen, cfg.d_model, cfg.moe,
+                                               dtype)
+    if cfg.is_encoder_decoder:
+        p["ln_cross"] = zeros()
+        p["cross"] = attn_mod.init_attention_params(gen, cfg, bias=False,
+                                                    dtype=dtype)
     return p
+
+
+def _init_encoder(gen: torch.Generator, cfg: ModelConfig, dtype):
+    e = cfg.encoder
+    zeros = lambda: torch.zeros((e.d_model,), dtype=dtype,  # noqa: E731
+                                device=gen.device)
+    layers = [{
+        "ln1": zeros(),
+        "mixer": attn_mod.init_attention_params(
+            gen, cfg, d_in=e.d_model, n_heads=e.n_heads, n_kv=e.n_kv_heads,
+            head_dim=e.head_dim, bias=False, dtype=dtype),
+        "ln2": zeros(),
+        "ffn": ffn_mod.init_mlp_params(gen, e.d_model, e.d_ff, dtype),
+    } for _ in range(e.n_layers)]
+    return {"layers": layers, "final_norm": zeros()}
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator,
                 dtype=torch.float32):
     """Random params drawn from ``gen`` on ``gen``'s device, in the
     reference's tree shape."""
-    check_supported(cfg)
     params: Dict[str, Any] = {
         "embed": embed_init(gen, (cfg.vocab_size, cfg.d_model), dtype),
         "layers": [_init_layer(gen, cfg, spec, dtype) for spec in cfg.layers],
@@ -84,6 +102,11 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size),
                                        dtype)
+    if cfg.frontend is not None:
+        params["frontend_proj"] = dense_init(
+            gen, (cfg.frontend.feature_dim, cfg.d_model), dtype)
+    if cfg.is_encoder_decoder:
+        params["encoder"] = _init_encoder(gen, cfg, dtype)
     return params
 
 
@@ -95,29 +118,87 @@ def param_count(params) -> int:
 # blocks
 # ---------------------------------------------------------------------------
 
-def _ffn(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor):
+def _ffn(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor, *,
+         serving: bool):
+    """The FFN's residual step; the MoE drop-free when ``serving``."""
     if spec.ffn == FFN_NONE:
         return x
     h2 = rmsnorm(x, p["ln2"], cfg.norm_eps)
-    return x + ffn_mod.mlp(p["ffn"], h2, cfg.act)
+    if spec.ffn == FFN_DENSE:
+        return x + ffn_mod.mlp(p["ffn"], h2, cfg.act)
+    moe = ffn_mod.moe_ffn_dense if serving else ffn_mod.moe_ffn
+    return x + moe(p["ffn"], h2, cfg.moe, cfg.act)[0]
 
 
-def _block(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor):
+def _cross(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
+           enc_out: Optional[torch.Tensor]):
+    """The decoder's cross-attention residual step (none without an
+    encoder)."""
+    if enc_out is None:
+        return x
+    hc = rmsnorm(x, p["ln_cross"], cfg.norm_eps)
+    return x + attn_mod.attention(p["cross"], cfg, spec, hc, causal=False,
+                                  kv_input=enc_out, rope=False)
+
+
+def _block(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
+           enc_out: Optional[torch.Tensor] = None):
     """One block over the full sequence."""
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
     if spec.mixer == MIX_ATTN:
         mix = attn_mod.attention(p["mixer"], cfg, spec, h)
-    else:
+    elif spec.mixer == MIX_RGLRU:
         mix = rec_mod.rglru_block(p["mixer"], h)
-    return _ffn(p, cfg, spec, x + mix)
+    elif spec.mixer == MIX_MLSTM:
+        mix = xlstm_mod.mlstm_block(p["mixer"], h, cfg)
+    else:
+        mix = xlstm_mod.slstm_block(p["mixer"], h, cfg)
+    x = _cross(p, cfg, spec, x + mix, enc_out)
+    return _ffn(p, cfg, spec, x, serving=False)
 
 
-def _embed_inputs(params, cfg: ModelConfig, tokens: torch.Tensor):
+def _encode(params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
+    """The encoder over (stub) frontend frames: (B, T, F) -> (B, T, d_enc).
+    Non-causal self-attention with rope over positions ``arange(T)``."""
+    x = frames @ params["frontend_proj"]
+    enc_spec = LayerSpec()
+    for lp in params["encoder"]["layers"]:
+        h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
+        x = x + attn_mod.attention(lp["mixer"], cfg, enc_spec, h,
+                                   causal=False)
+        h2 = rmsnorm(x, lp["ln2"], cfg.norm_eps)
+        x = x + ffn_mod.mlp(lp["ffn"], h2, cfg.act)
+    return rmsnorm(x, params["encoder"]["final_norm"], cfg.norm_eps)
+
+
+def _embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor):
     emb = params["embed"]
     # sqrt(d) rounded in f32, as the reference computes it
     scale = torch.sqrt(torch.tensor(float(cfg.d_model), dtype=torch.float32,
                                     device=emb.device)).to(emb.dtype)
     return emb[tokens.long()] * scale
+
+
+def _embed_inputs(params, cfg: ModelConfig, tokens: torch.Tensor,
+                  frontend: Optional[torch.Tensor] = None):
+    """Token embeddings (scaled by sqrt(d)), after the VLM's projected
+    patch embeddings (not scaled) where the config has that prefix."""
+    x = _embed_tokens(params, cfg, tokens)
+    if cfg.frontend is not None and cfg.frontend.kind == "vision_patches":
+        if frontend is None:
+            raise ValueError(f"{cfg.name} needs frontend patch embeddings")
+        fx = frontend @ params["frontend_proj"]
+        x = torch.cat([fx.to(x.dtype), x], dim=1)
+    return x
+
+
+def _encoder_output(params, cfg: ModelConfig,
+                    frontend: Optional[torch.Tensor]):
+    if not cfg.is_encoder_decoder:
+        return None
+    if frontend is None:
+        raise ValueError(f"{cfg.name} needs frontend frames for its encoder")
+    return _encode(params, cfg, frontend)
 
 
 def _unembed(params, cfg: ModelConfig, x: torch.Tensor):
@@ -132,11 +213,14 @@ def _unembed(params, cfg: ModelConfig, x: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 @torch.no_grad()
-def forward(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens: (B, S). Returns logits (B, S, V) in f32."""
-    x = _embed_inputs(params, cfg, tokens)
+def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
+            frontend: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """tokens: (B, S_text).  Returns logits (B, S_total, V) in f32, S_total
+    counting a vision prefix."""
+    enc_out = _encoder_output(params, cfg, frontend)
+    x = _embed_inputs(params, cfg, tokens, frontend)
     for p, spec in zip(params["layers"], cfg.layers):
-        x = _block(p, cfg, spec, x)
+        x = _block(p, cfg, spec, x, enc_out)
     return _unembed(params, cfg, x)
 
 
@@ -148,42 +232,63 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                decode_window: Optional[int] = None, dtype=torch.float32,
                device=None):
     """decode_window forces a sliding window onto full-attention layers
-    (the reference's long-context serving adaptation)."""
-    check_supported(cfg)
+    (the reference's long-context serving adaptation).  ``max_len`` counts
+    a vision prefix."""
     layers = []
     for spec in cfg.layers:
         if spec.mixer == MIX_ATTN:
             layers.append(attn_mod.init_kv_cache(
                 cfg, spec, batch, max_len, decode_window=decode_window,
                 dtype=dtype, device=device))
-        else:
+        elif spec.mixer == MIX_RGLRU:
             layers.append(rec_mod.init_rglru_state(cfg, batch, dtype,
                                                    device))
-    return {"layers": layers}
+        elif spec.mixer == MIX_MLSTM:
+            layers.append(xlstm_mod.init_mlstm_state(cfg, batch, dtype,
+                                                     device))
+        else:
+            layers.append(xlstm_mod.init_slstm_state(cfg, batch, dtype,
+                                                     device))
+    cache: Dict[str, Any] = {"layers": layers}
+    if cfg.is_encoder_decoder:
+        cache["enc_out"] = torch.zeros(
+            (batch, cfg.frontend.seq_len, cfg.encoder.d_model), dtype=dtype,
+            device=device)
+    return cache
 
 
 def _prefill_block(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
-                   st):
+                   st, enc_out: Optional[torch.Tensor]):
     """One block of the prompt pass; fills this layer's cache or state."""
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
     if spec.mixer == MIX_ATTN:
         mix, st = attn_mod.prefill_into_cache(p["mixer"], cfg, spec, h, st)
-    else:
+    elif spec.mixer == MIX_RGLRU:
         mix, h_last, u = rec_mod.rglru_sequence(p["mixer"], h)
         st = rec_mod.RGLRUState(
             h=h_last,
             conv_tail=u[:, -(cfg.conv1d_width - 1):].to(st.conv_tail.dtype))
-    return _ffn(p, cfg, spec, x + mix), st
+    elif spec.mixer == MIX_MLSTM:
+        mix, st = xlstm_mod.mlstm_sequence(p["mixer"], h, cfg)
+    else:
+        mix, st = xlstm_mod.slstm_sequence(p["mixer"], h, cfg)
+    x = _cross(p, cfg, spec, x + mix, enc_out)
+    return _ffn(p, cfg, spec, x, serving=True), st
 
 
 @torch.no_grad()
-def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, cache):
-    """Run the prompt (B, S) through the model, filling the cache.
+def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, cache, *,
+            frontend: Optional[torch.Tensor] = None):
+    """Run the prompt (B, S) (after a vision prefix, or with the encoder's
+    output for cross-attention) through the model, filling the cache.
     Returns (last-position logits (B, V), cache)."""
-    x = _embed_inputs(params, cfg, tokens)
+    enc_out = _encoder_output(params, cfg, frontend)
+    if enc_out is not None:
+        cache = dict(cache, enc_out=enc_out)
+    x = _embed_inputs(params, cfg, tokens, frontend)
     new_layers = []
     for p, spec, st in zip(params["layers"], cfg.layers, cache["layers"]):
-        x, st = _prefill_block(p, cfg, spec, x, st)
+        x, st = _prefill_block(p, cfg, spec, x, st, enc_out)
         new_layers.append(st)
     logits = _unembed(params, cfg, x[:, -1:])
     return logits[:, 0], dict(cache, layers=new_layers)
@@ -192,19 +297,29 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, cache):
 @torch.no_grad()
 def decode_step(params, cfg: ModelConfig, token: torch.Tensor, pos: int,
                 cache):
-    """token: (B,) ints; pos: the global position of this token.
-    Returns (logits (B, V), new cache).  Attention caches are updated in
-    place (see ``attention.decode_attention``)."""
-    x = _embed_inputs(params, cfg, token)[:, None]              # (B,1,d)
+    """token: (B,) ints; pos: the global position of this token (a vision
+    prefix counted).  Returns (logits (B, V), new cache).  Attention caches
+    are updated in place (see ``attention.decode_attention``)."""
+    x = _embed_tokens(params, cfg, token)[:, None]              # (B,1,d)
+    enc_out = cache.get("enc_out")
     new_layers = []
     for p, spec, st in zip(params["layers"], cfg.layers, cache["layers"]):
         h = rmsnorm(x, p["ln1"], cfg.norm_eps)
         if spec.mixer == MIX_ATTN:
             mix, st = attn_mod.decode_attention(p["mixer"], cfg, spec, h,
                                                 int(pos), st)
-        else:
+        elif spec.mixer == MIX_RGLRU:
             mix, st = rec_mod.rglru_decode_step(p["mixer"], h, st)
-        x = _ffn(p, cfg, spec, x + mix)
+        elif spec.mixer == MIX_MLSTM:
+            mix, st = xlstm_mod.mlstm_decode_step(p["mixer"], h, st, cfg)
+        else:
+            mix, st = xlstm_mod.slstm_decode_step(p["mixer"], h, st, cfg)
+        x = x + mix
+        if enc_out is not None:
+            hc = rmsnorm(x, p["ln_cross"], cfg.norm_eps)
+            x = x + attn_mod.cross_decode_attention(p["cross"], cfg, spec,
+                                                    hc, int(pos), enc_out)
+        x = _ffn(p, cfg, spec, x, serving=True)
         new_layers.append(st)
     logits = _unembed(params, cfg, x)
     return logits[:, 0], dict(cache, layers=new_layers)

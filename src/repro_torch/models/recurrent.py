@@ -18,7 +18,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.common import dense_init, gelu
+from repro_torch.models.common import causal_conv, dense_init, gelu, softplus
 
 _C = 8.0  # Griffin's recurrence sharpness constant
 
@@ -48,32 +48,11 @@ def init_rglru_params(gen: torch.Generator, cfg: ModelConfig,
     }
 
 
-def _causal_conv(x: torch.Tensor, conv_w: torch.Tensor,
-                 conv_b: torch.Tensor) -> torch.Tensor:
-    """x: (B,S,W); width-cw causal depthwise conv via shifted adds."""
-    cw = conv_w.shape[0]
-    out = torch.zeros_like(x)
-    for i in range(cw):
-        if i == 0:
-            shifted = x
-        else:
-            shifted = torch.zeros_like(x)
-            shifted[:, i:] = x[:, :-i]
-        out = out + shifted * conv_w[cw - 1 - i]
-    return out + conv_b
-
-
-def _softplus(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.softplus``: log(1 + e^x) with no threshold (``F.softplus``
-    returns x itself above 20)."""
-    return torch.logaddexp(x, torch.zeros_like(x))
-
-
 def _gates(params, u: torch.Tensor):
     """u: conv output (..., W). Returns (a, beta*i*u) recurrence coeffs."""
     r = torch.sigmoid(u * params["a_gate_w"] + params["a_gate_b"])
     i = torch.sigmoid(u * params["x_gate_w"] + params["x_gate_b"])
-    log_a = -_C * _softplus(params["lam"]) * r
+    log_a = -_C * softplus(params["lam"]) * r
     a = torch.exp(log_a)
     beta = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12))
     return a, beta * i * u
@@ -108,7 +87,7 @@ def rglru_sequence(params, x: torch.Tensor
     same inputs, so the port takes h from this one."""
     gate = gelu(x @ params["w_gate_branch"])
     u = x @ params["w_in"]
-    uc = _causal_conv(u, params["conv_w"], params["conv_b"])
+    uc = causal_conv(u, params["conv_w"], params["conv_b"])
     a, b = _gates(params, uc)
     h = rglru_scan(a.to(torch.float32), b.to(torch.float32))
     y = (h.to(x.dtype) * gate) @ params["w_out"]

@@ -1,9 +1,9 @@
 """Uniform model handles (counterpart of ``repro.models.registry``).
 
 ``build_model(cfg)`` returns a ``Model`` whose functional API the FL
-substrate and the launchers use: the paper's MLP, and the LM configs whose
-layers the port can run (``lm.check_supported``).  ResNet and the other LM
-configs raise ``NotImplementedError`` until their slices land.
+substrate and the launchers use: the paper's MLP, and every LM config for
+serving (its ``loss_fn`` is None: the LM training loss waits for its
+slice).  ResNet raises ``NotImplementedError`` until its slice lands.
 """
 
 from __future__ import annotations
@@ -55,8 +55,8 @@ def _classifier_loss(forward):
 
 def _lm_model(cfg: ModelConfig) -> Model:
     """Serving handle of an LM config (the training loss waits for its
-    slice, so ``loss_fn`` is None)."""
-    lm_mod.check_supported(cfg)
+    slice, so ``loss_fn`` is None).  ``forward`` and ``prefill`` take the
+    frontend input (audio frames or vision patches) as ``frontend=``."""
 
     def init(seed: int, device, dtype=torch.float32):
         gen = torch.Generator(device=torch.device(device))
@@ -70,10 +70,11 @@ def _lm_model(cfg: ModelConfig) -> Model:
     return Model(
         config=cfg,
         init=init,
-        forward=lambda params, tokens: lm_mod.forward(params, cfg, tokens),
+        forward=lambda params, tokens, frontend=None: lm_mod.forward(
+            params, cfg, tokens, frontend=frontend),
         init_cache=init_cache,
-        prefill=lambda params, tokens, cache: lm_mod.prefill(
-            params, cfg, tokens, cache),
+        prefill=lambda params, tokens, cache, frontend=None: lm_mod.prefill(
+            params, cfg, tokens, cache, frontend=frontend),
         decode_step=lambda params, token, pos, cache: lm_mod.decode_step(
             params, cfg, token, pos, cache),
     )

@@ -16,8 +16,11 @@ block, T = 1, T not a multiple of the time chunk, both copy widths);
 ``flash_attention`` within rtol = atol = 2e-5 (the reference's tolerance
 for its kernel) over MQA, GQA with the soft-cap, ragged and unaligned
 lengths (S not a multiple of the 16-key tile at every head dim), many kv
-tiles through the K/V ring, non-causal windows and the model's strided
-layout.  The serving tests drive a staggered sync + async + buffered
+tiles through the K/V ring, non-causal windows, the model's strided
+layout and the rest of the LM zoo's shapes scaled down (G = 2, 6 and 7,
+non-causal encoder and cross-attention with S < T); a reduced MoE config
+and a reduced encoder-decoder serve on the card with every full-sequence
+attention through the kernel.  The serving tests drive a staggered sync + async + buffered
 queue through ``serve`` on the card (both kernels launch; the records keep
 the CPU drain's (M, E), costs and logs) and restore a killed drain's
 snapshot onto the card.  This file imports no JAX, so it runs where only
@@ -196,6 +199,12 @@ def _qkv_cuda(b, h, kh, s, t, d, seed, dev):
     (2, 4, 1, 100, 100, 32, True, None, None),     # S % 16 != 0 at D=32
     (1, 8, 2, 201, 201, 64, True, 50, 30.0),       # ... at D=64
     (2, 4, 4, 333, 333, 128, True, 100, None),     # ... at D=128
+    # the rest of the LM zoo, scaled down
+    (2, 16, 8, 300, 300, 64, True, None, None),    # granite-moe, G=2
+    (1, 48, 8, 130, 130, 128, True, None, None),   # dbrx, G=6
+    (2, 16, 16, 200, 200, 64, False, None, None),  # seamless encoder, G=1
+    (2, 16, 16, 96, 200, 64, False, None, None),   # seamless cross, S < T
+    (1, 14, 2, 272, 272, 64, True, None, None),    # internvl2 prefix, G=7
 ])
 def test_flash_attention_kernel_matches_plain(cuda, b, h, kh, s, t, d,
                                               causal, window, cap):
@@ -225,6 +234,47 @@ def test_flash_attention_kernel_reads_strided_layout(cuda):
     pos = torch.arange(150, device=cuda)
     want = naive_attention(q, k, v, q_pos=pos, k_pos=pos, window=64)
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m",
+                                  "seamless-m4t-medium"])
+def test_serve_zoo_on_cuda_launches_the_kernel(cuda, arch):
+    """A reduced MoE config and a reduced encoder-decoder served on the
+    card: every full-sequence attention of the prefill launches the kernel
+    (seamless: the encoder's, the decoder's and the cross-attention), and
+    the logits agree with the CPU's within 1e-4 (``chip_smoke.py`` phase
+    6b's rule) for 4 steps fed the CPU's tokens."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.serve import frontend_input, generate
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_map
+
+    cfg = reduced(get_config(arch), n_layers=2)
+    model = build_model(cfg)
+    params = model.init(0, "cpu")
+    gen = torch.Generator().manual_seed(1)
+    b, s, steps = 2, 48, 4
+    prompt = torch.randint(0, cfg.vocab_size, (b, s), generator=gen)
+    fe = frontend_input(cfg, b, gen, "cpu")
+    cpu = generate(model, params, prompt, steps, frontend=fe)
+    want = cfg.n_layers + (cfg.encoder.n_layers + cfg.n_layers
+                           if cfg.is_encoder_decoder else 0)
+    params_c = tree_map(lambda p: p.to(cuda), params)
+    fe_c = None if fe is None else fe.to(cuda)
+    cache = model.init_cache(b, max_len=s + steps + 1, device=cuda)
+    before = fl_mod.launches
+    logits, cache = model.prefill(params_c, prompt.to(cuda), cache,
+                                  frontend=fe_c)
+    torch.cuda.synchronize()
+    assert fl_mod.launches == before + want
+    torch.testing.assert_close(logits.cpu(), cpu["prefill_logits"],
+                               rtol=1e-4, atol=1e-4)
+    for i in range(steps):
+        logits, cache = model.decode_step(params_c, cpu["ids"][:, i].to(cuda),
+                                          s + i, cache)
+        torch.testing.assert_close(logits.cpu(), cpu["step_logits"][i],
+                                   rtol=1e-4, atol=1e-4)
+    assert fl_mod.launches == before + want
 
 
 def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda):
