@@ -7,8 +7,9 @@ Run from the root of a checkout on a machine with one NVIDIA H100, the CUDA
 toolkit (``nvcc``) and a CUDA build of PyTorch.  Phases, each of which
 exits non-zero on failure:
 
-  1. Build the four hand-written kernels from ``src/repro_torch/kernels/
-     csrc`` with nvcc (printing the build seconds and ptxas's register
+  1. Build the hand-written kernels from ``src/repro_torch/kernels/csrc``
+     with nvcc (six entry points: the four TPU kernels' ports and the two
+     training backwards; printing the build seconds and ptxas's register
      report) and print the card's name and power limit.
   2. Hold each FedTune kernel against its plain PyTorch version on the card
      at the main path's shapes: ``fed_reduce`` bitwise (FedAvg, FedBuff
@@ -39,6 +40,20 @@ exits non-zero on failure:
      yardstick is ``scaled_dot_product_attention`` with the window as an
      explicit mask (none where there is a cap); the scan has no one-call
      library equivalent.
+  2c. The training kernels at the training path's shapes: the forward's
+     log-sum-exp against the plain one; ``flash_attention_bwd`` from the
+     same (q, k, v, out, lse, dout) within 1e-4 of each gradient's max-abs
+     and bitwise equal to itself run twice (gemma2-2b's global layer, cap
+     50, and its local one, window 4096; recurrentgemma-9b's local layer,
+     window 2048, Kh=1; a ragged S=4000; seamless-m4t's non-causal
+     cross-attention S=512, T=1024); the reverse scan ``rglru_scan_bwd``
+     bitwise (B=2, T=4096, W=4096; W=4099; T=1).  Each case: card, plain
+     and library ms (the backward of SDPA with the mask explicit, none
+     under a cap or for the scan), the bound on the kernel's route (the
+     attention backward runs its products as 3xTF32 on the tensor cores:
+     3 x 10 D flops a live pair at 495 TFLOP/s; the f32 SIMT figure, 10 D
+     at 67 TFLOP/s, beside it) and ptxas's registers, shared memory and
+     spills.
   3. Drive the FedTune path on the card: ``FLServer`` with ``MLP_EMNIST``
      at full width (784-200-62, 169,462 params) over the full
      ``emnist_like`` federation, FedTune on, in sync (M=20, E=2, 5 rounds),
@@ -124,9 +139,29 @@ pre-pass and the kernel alone timed as well) and without.
      counted); a traced drain with NVTX ranges (the same store, a trace
      valid against ``trace_schema.json``, the wall split by span); a
      bf16 checkpoint round trip on the card.
+  11. Federated LM training through ``launch/steps.make_fl_train_step``
+     (remat, f32, params drawn on the card from a seed): gemma2-2b at full
+     width and depth (26 layers, 2.61 B params) and recurrentgemma-9b cut
+     to its first 6 layers (two rg-lru/rg-lru/attn cycles, every width
+     kept, 2.23 B params), each B=2 x S=4096 with FedAvg weights [1, 2],
+     3 rounds.  The counts are set to 0 before each step and read after:
+     a step launches ``flash_attention`` twice per attention layer (the
+     pass and its recompute) and its backward once, ``rglru_scan`` twice
+     per RG-LRU layer and its backward once (gemma2: 52 and 26;
+     recurrentgemma: 4 and 2, 8 and 4).  Loss, params and momentum (so
+     the gradients) must be finite.  Prints step seconds, training
+     tokens/s (B x S x E over the step's wall), the loss per round and the
+     peak memory.
+  11a. The same step reduced to 3 layers (gemma2-2b, recurrentgemma-9b;
+     B=2, S=256) on the card and on the CPU from the same init params:
+     loss within 1e-4, every gradient leaf within 1e-4 of its max-abs, and
+     one ``fl_train_step``'s params and momentum likewise.
 
 The last three lines are the card's name and power limit (as nvidia-smi
-gives them), the kernels' JSON summary and ``{"ok": true, "device":
+gives them), the kernels' JSON summary (six entries: ``fed_reduce``,
+``fed_aggregate``, ``flash_attention``, ``rglru_scan``,
+``flash_attention_bwd`` and ``rglru_scan_bwd``; the launches are the main
+path's, phase 11's training steps included) and ``{"ok": true, "device":
 {...}}``.  Without a GPU, or without the port's sources beside this file,
 it exits 1 and prints no result.
 
@@ -144,6 +179,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -1238,6 +1274,356 @@ def sweep_reduce_cases(torch, card, floor, inputs):
 
 
 # ---------------------------------------------------------------------------
+# phase 2c: the training kernels (backward) against their plain versions
+# ---------------------------------------------------------------------------
+
+def ptxas_table(log_text: str):
+    """ptxas -v's report per compiled entry function (mangled name):
+    registers, static shared bytes, spill stores and loads."""
+    table, cur = {}, None
+    for ln in log_text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = m.group(1)
+            table[cur] = {}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            table[cur].update(spill_stores=int(m.group(1)),
+                              spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            table[cur]["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", ln)
+        if m:
+            table[cur]["static_smem"] = int(m.group(1))
+    return table
+
+
+def ptxas_of(table, needle: str):
+    """The report of the one entry function whose name holds ``needle``."""
+    hits = {fn: v for fn, v in table.items() if needle in fn}
+    return next(iter(hits.values())) if len(hits) == 1 else hits
+
+
+def train_kernel_cases(torch, np, card, flush, ptxas):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fl_mod
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rglru_scan as sc_mod
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(3)
+    results = []
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a)).to(dev)
+
+    def max_rel(got, want):
+        return float((got - want).abs().max()) / max(
+            float(want.abs().max()), 1e-30)
+
+    def sdpa_bwd(q, k, v, dout, causal, window, s_len, t_len):
+        """The library yardstick: the backward of one SDPA call with the
+        mask explicit (k, v repeated to H heads outside the timing)."""
+        qk = torch.arange(s_len, device=dev)[:, None] + (t_len - s_len)
+        kp = torch.arange(t_len, device=dev)[None, :]
+        mask = torch.ones((s_len, t_len), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= kp <= qk
+        if window is not None:
+            mask &= kp > qk - window
+        g = q.shape[1] // k.shape[1]
+        qq = q.detach().clone().requires_grad_(True)
+        kk = k.repeat_interleave(g, 1).requires_grad_(True)
+        vv = v.repeat_interleave(g, 1).requires_grad_(True)
+        out = F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask)
+        return lambda: torch.autograd.grad(out, (qq, kk, vv), dout,
+                                           retain_graph=True)
+
+    def attn_case(name, b, h, kh, s_len, t_len, d, causal, window, cap):
+        q = t(rng.standard_normal((b, h, s_len, d)).astype(np.float32))
+        k = t(rng.standard_normal((b, kh, t_len, d)).astype(np.float32))
+        v = t(rng.standard_normal((b, kh, t_len, d)).astype(np.float32))
+        dout = t(rng.standard_normal((b, h, s_len, d)).astype(np.float32))
+        kw = dict(causal=causal, window=window, cap=cap)
+        out, lse = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
+        _, k_lse = fl_mod.flash_attention(q, k, v, return_lse=True, **kw)
+        lse_err = float((k_lse - lse).abs().max())
+        check(lse_err <= 1e-4 * max(1.0, float(lse.abs().max())),
+              f"flash_attention {name}: the kernel's lse is {lse_err} off")
+        got = fl_mod.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+        again = fl_mod.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+        want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+        torch.cuda.synchronize()
+        same = all(bool(torch.equal(a, c)) for a, c in zip(got, again))
+        check(same, f"flash_attention_bwd {name}: two calls differ")
+        rel = [max_rel(g, w) for g, w in zip(got, want)]
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        check(max(rel) <= 1e-4, f"flash_attention_bwd {name}: (dq, dk, dv) "
+                                f"off by {rel} of their max-abs (> 1e-4)")
+        del again, want
+        pairs = live_pairs(s_len, t_len, causal, window) * b * h
+        flops = 10 * d * pairs
+        # reads q, k, v, out, dout, lse; writes dq, dk, dv
+        nbytes = 4 * (d * (4 * b * h * s_len + 4 * b * kh * t_len)
+                      + b * h * s_len)
+        # the kernel's route: every product is three TF32 tensor-core passes
+        bound_ms, bound_by = bound(nbytes, 3 * flops, TF32_FLOPS_PER_S)
+        simt_ms, _ = bound(nbytes, flops)
+        lib, lib_note = None, "none: scaled_dot_product_attention has no " \
+            "soft-cap"
+        if cap is None:
+            lib = sdpa_bwd(q, k, v, dout, causal, window, s_len, t_len)
+            lib_note = ("backward of F.scaled_dot_product_attention(q, k, v,"
+                        " attn_mask=mask), k and v repeated to H heads")
+        ms = median_ms(torch, lambda: fl_mod.flash_attention_bwd(
+            q, k, v, out, lse, dout, **kw), flush, iters=10)
+        plain_ms = median_ms(torch, lambda: ref.flash_attention_bwd_ref(
+            q, k, v, out, lse, dout, **kw), flush, iters=3, warmup=1)
+        library_ms = None if lib is None else median_ms(torch, lib, flush,
+                                                        iters=5)
+        smem = 4 * (6 * 32 * (d + 4) + 2 * 32 * 40 + 4 * 32)
+        rec = dict(
+            phase="train_kernel_check", kernel="flash_attention_bwd",
+            case=name, shape=dict(B=b, H=h, Kh=kh, S=s_len, T=t_len, D=d),
+            causal=causal, window=window, cap=cap,
+            check="max-abs diff <= 1e-4 of max-abs, two calls bitwise",
+            rel_err=dict(dq=rel[0], dk=rel[1], dv=rel[2]), max_abs_err=err,
+            deterministic=same, lse_max_abs_err=lse_err, ms=ms,
+            plain_ms=plain_ms, library_ms=library_ms, library_call=lib_note,
+            live_pairs=pairs, bytes=nbytes, flops=flops, bound_ms=bound_ms,
+            bound_by=bound_by,
+            bound_route="tf32x3: 3 x 10 D flops a live pair at 495 TFLOP/s",
+            bound_f32_simt_ms=simt_ms,
+            ptxas=dict(dkv=ptxas_of(ptxas, f"attn_bwd_dkvILi{d}E"),
+                       dq=ptxas_of(ptxas, f"attn_bwd_dqILi{d}E"),
+                       dynamic_smem_bytes=smem),
+            card=card)
+        emit(rec)
+        results.append(rec)
+        del q, k, v, dout, out, lse, got, lib
+        torch.cuda.empty_cache()
+
+    def scan_case(name, b, t_len, w):
+        a = t(rng.uniform(0.9, 0.999, (b, t_len, w)).astype(np.float32))
+        x = t((rng.standard_normal((b, t_len, w)) * 0.1).astype(np.float32))
+        dh = t(rng.standard_normal((b, t_len, w)).astype(np.float32))
+        h = sc_mod.rglru_scan(a, x)
+        got = sc_mod.rglru_scan_bwd(a, h, dh)
+        want = ref.rglru_scan_bwd_ref(a, h, dh)
+        torch.cuda.synchronize()
+        equal = all(bool(torch.equal(g, c)) for g, c in zip(got, want))
+        err = max(float((g - c).abs().max()) for g, c in zip(got, want))
+        check(equal, f"rglru_scan_bwd {name}: kernel != plain version "
+                     f"(max abs err {err})")
+        n = b * t_len * w
+        nbytes, flops = 20 * n, 3 * n
+        bound_ms, bound_by = bound(nbytes, flops)
+        rec = dict(
+            phase="train_kernel_check", kernel="rglru_scan_bwd", case=name,
+            shape=dict(B=b, T=t_len, W=w), check="bitwise", equal=equal,
+            max_abs_err=err,
+            ms=median_ms(torch, lambda: sc_mod.rglru_scan_bwd(a, h, dh),
+                         flush),
+            plain_ms=median_ms(torch, lambda: ref.rglru_scan_bwd_ref(
+                a, h, dh), flush, iters=3, warmup=1),
+            library_ms=None,
+            library_call="none: PyTorch has no one-call reverse linear "
+                         "recurrence",
+            bytes=nbytes, flops=flops, bound_ms=bound_ms, bound_by=bound_by,
+            ptxas={"16-byte copies": ptxas_of(ptxas,
+                                              "rglru_scan_bwd_kernelILb1E"),
+                   "4-byte copies": ptxas_of(ptxas,
+                                             "rglru_scan_bwd_kernelILb0E")},
+            card=card)
+        emit(rec)
+        results.append(rec)
+
+    t0 = time.perf_counter()
+    scan_case("recurrentgemma_train", 2, 4096, 4096)
+    scan_case("ragged_w4099", 2, 4096, 4099)
+    scan_case("t1", 2, 1, 4096)
+    attn_case("gemma2_global", 2, 8, 4, 4096, 4096, 256, True, None, 50.0)
+    attn_case("gemma2_local", 2, 8, 4, 4096, 4096, 256, True, 4096, 50.0)
+    attn_case("recurrentgemma_local", 2, 16, 1, 4096, 4096, 256, True, 2048,
+              None)
+    attn_case("ragged_s4000", 2, 16, 1, 4000, 4000, 256, True, 2048, None)
+    attn_case("seamless_cross_noncausal", 2, 16, 16, 512, 1024, 64, False,
+              None, None)
+    emit(dict(phase="train_kernel_check", seconds=time.perf_counter() - t0))
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phase 11/11a: federated LM training through make_fl_train_step
+# ---------------------------------------------------------------------------
+
+# arch, layers kept (None: all), batch, sequence, microbatches, the
+# reference tree's parameter count
+TRAIN = (
+    ("gemma2-2b", None, 2, 4096, 1, 2_614_222_080),
+    ("recurrentgemma-9b", 6, 2, 4096, 1, 2_227_392_512),
+)
+TRAIN_ROUNDS = 3
+TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "rglru_scan",
+                 "rglru_scan_bwd")
+
+
+def train_counts(fl_mod, sc_mod, reset: bool = False):
+    """The four LM kernels' launch counts (set to 0 first when asked)."""
+    if reset:
+        fl_mod.launches = fl_mod.bwd_launches = 0
+        sc_mod.launches = sc_mod.bwd_launches = 0
+    return {"flash_attention": fl_mod.launches,
+            "flash_attention_bwd": fl_mod.bwd_launches,
+            "rglru_scan": sc_mod.launches,
+            "rglru_scan_bwd": sc_mod.bwd_launches}
+
+
+def all_finite(torch, tensors) -> bool:
+    return all(bool(torch.isfinite(x).all()) for x in tensors)
+
+
+def train_full_width(torch, card):
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.kernels import flash_attention as fl_mod
+    from repro_torch.kernels import rglru_scan as sc_mod
+    from repro_torch.launch.distributed_fl import WEIGHTS, round_batch
+    from repro_torch.launch.serve import cut_layers
+    from repro_torch.launch.steps import DEFAULT_LR, make_fl_train_step
+    from repro_torch.models import stacked
+    from repro_torch.tree import leaves, tree_map
+
+    totals = dict.fromkeys(TRAIN_KERNELS, 0)
+    for arch, keep, b, s_len, mb, n_want in TRAIN:
+        cfg = get_config(arch)
+        if keep is not None:
+            cfg = cut_layers(cfg, keep)
+        n_attn = sum(sp.mixer == "attn" for sp in cfg.layers)
+        n_rglru = sum(sp.mixer == "rglru" for sp in cfg.layers)
+        # remat: every layer's forward runs twice (the pass and its
+        # recompute in the backward), its backward once, per microbatch
+        want = {"flash_attention": 2 * n_attn * mb,
+                "flash_attention_bwd": n_attn * mb,
+                "rglru_scan": 2 * n_rglru * mb,
+                "rglru_scan_bwd": n_rglru * mb}
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = stacked.init_params_stacked(cfg, gen)
+        momentum = tree_map(torch.zeros_like, params)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(x.numel() for x in leaves(params))
+        check(n_params == n_want, f"{arch}: {n_params} params, want {n_want}")
+        step, _ = make_fl_train_step(
+            cfg, InputShape("train_4k_cut", seq_len=s_len, global_batch=b,
+                            kind="train"), microbatches=mb)
+        bgen = torch.Generator(device="cuda").manual_seed(7)
+        torch.cuda.reset_peak_memory_stats()
+        secs, losses, accs = [], [], []
+        for r in range(TRAIN_ROUNDS):
+            batch = round_batch(cfg, b, s_len, bgen, "cuda")
+            torch.cuda.synchronize()
+            train_counts(fl_mod, sc_mod, reset=True)
+            t0 = time.perf_counter()
+            params, momentum, loss, metrics = step(params, momentum, batch)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            counts = train_counts(fl_mod, sc_mod)
+            check(counts == want, f"{arch} round {r}: launches {counts}, "
+                                  f"wanted {want}")
+            for k in TRAIN_KERNELS:
+                totals[k] += counts[k]
+            losses.append(float(loss))
+            accs.append(float(metrics["acc"]))
+            check(math.isfinite(losses[-1]), f"{arch}: loss {losses[-1]}")
+            # momentum = 0.9 m + g: finite momentum means finite grads
+            check(all_finite(torch, leaves(momentum)),
+                  f"{arch} round {r}: a gradient is not finite")
+            check(all_finite(torch, leaves(params)),
+                  f"{arch} round {r}: a parameter is not finite")
+        peak = torch.cuda.max_memory_allocated()
+        emit(dict(phase="train_full_width", arch=arch, layers=cfg.n_layers,
+                  params=n_params, dtype="float32", batch=b, seq_len=s_len,
+                  weights=[WEIGHTS[i % len(WEIGHTS)] for i in range(b)],
+                  microbatches=mb, local_passes=1, remat=True, lr=DEFAULT_LR,
+                  rounds=TRAIN_ROUNDS, init_s=init_s, step_s=secs,
+                  train_tok_per_s=[b * s_len / dt for dt in secs],
+                  loss=losses, acc=accs, launches_per_step=want,
+                  peak_mem_bytes=peak, peak_mem_gib=peak / 2**30, card=card))
+        del params, momentum, step, batch, loss, metrics
+        torch.cuda.empty_cache()
+    return totals
+
+
+def train_card_vs_cpu(torch, np):
+    """Phase 11a: a reduced step (3 layers) from the same init params on
+    the card and on the CPU: the loss and every gradient leaf within 1e-4
+    of its max-abs, then one ``fl_train_step``'s params and momentum."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch.steps import make_fl_train_step
+    from repro_torch.models import build_model, stacked
+    from repro_torch.tree import leaves, tree_map
+
+    def max_rel(got, want):
+        num = float((got.cpu() - want).abs().max())
+        return 0.0 if num == 0.0 else num / max(float(want.abs().max()),
+                                                1e-30)
+
+    def loss_and_grads(p, batch, cfg):
+        for x in leaves(p):
+            x.requires_grad_(True)
+        loss, _ = stacked.loss_fn(p, cfg, batch, remat=True)
+        loss.backward()
+        grads = [x.grad for x in leaves(p)]
+        for x in leaves(p):
+            x.grad = None
+            x.requires_grad_(False)
+        return loss.item(), grads
+
+    for arch in ("gemma2-2b", "recurrentgemma-9b"):
+        cfg = reduced(get_config(arch), n_layers=3)
+        b, s_len = 2, 256
+        p_cpu = stacked.stack_params(build_model(cfg).init(0, "cpu"), cfg)
+        p_card = tree_map(lambda x: x.to("cuda"), p_cpu)
+        rng = np.random.default_rng(11)
+        batch = {"tokens": torch.from_numpy(
+                     rng.integers(0, cfg.vocab_size, (b, s_len))),
+                 "labels": torch.from_numpy(
+                     rng.integers(-1, cfg.vocab_size, (b, s_len))),
+                 "weight": torch.tensor([1.0, 2.0])}
+        batch_c = {k: v.to("cuda") for k, v in batch.items()}
+        l_cpu, g_cpu = loss_and_grads(p_cpu, batch, cfg)
+        l_card, g_card = loss_and_grads(p_card, batch_c, cfg)
+        loss_err = abs(l_card - l_cpu) / abs(l_cpu)
+        grad_err = max(max_rel(g, w) for g, w in zip(g_card, g_cpu))
+        check(loss_err <= 1e-4, f"{arch}: card vs CPU loss {loss_err}")
+        check(grad_err <= 1e-4, f"{arch}: card vs CPU grads {grad_err}")
+        step, _ = make_fl_train_step(
+            cfg, InputShape("t", seq_len=s_len, global_batch=b,
+                            kind="train"), lr=1e-2)
+        m_cpu = tree_map(torch.zeros_like, p_cpu)
+        m_card = tree_map(torch.zeros_like, p_card)
+        p_cpu, m_cpu, _, _ = step(p_cpu, m_cpu, batch)
+        p_card, m_card, _, _ = step(p_card, m_card, batch_c)
+        step_err = max(max_rel(g, w) for g, w in zip(
+            leaves(p_card) + leaves(m_card), leaves(p_cpu) + leaves(m_cpu)))
+        check(step_err <= 1e-4, f"{arch}: card vs CPU step {step_err}")
+        emit(dict(phase="train_card_vs_cpu", arch=cfg.name,
+                  layers=cfg.n_layers, batch=b, seq_len=s_len,
+                  loss_cpu=l_cpu, loss_card=l_card, loss_rel_err=loss_err,
+                  grad_max_rel_err=grad_err, step_max_rel_err=step_err,
+                  tolerance=1e-4))
+
+
+# ---------------------------------------------------------------------------
 # phase 5/6: the LM serving path
 # ---------------------------------------------------------------------------
 
@@ -1585,6 +1971,8 @@ def main():
                         device="cuda")
     cases, floor = kernel_cases(torch, np, card, flush, old_lib)
     cases += lm_kernel_cases(torch, np, card, flush)
+    ptxas_fns = ptxas_table(log.read_text()) if log.exists() else {}
+    cases += train_kernel_cases(torch, np, card, flush, ptxas_fns)
     del flush
 
     from repro_torch.models import build_model
@@ -1616,20 +2004,33 @@ def main():
     for k, v in serve_launches.items():
         launches[k] += v
 
+    torch.cuda.empty_cache()
+    for k, v in train_full_width(torch, card).items():
+        launches[k] = launches.get(k, 0) + v
+    train_card_vs_cpu(torch, np)
+
     summary = []
-    for name, replaces, main_case in (
-            ("fed_reduce", "src/repro/kernels/fed_reduce.py:45", "fedavg"),
-            ("fed_aggregate", "src/repro/kernels/fed_aggregate.py:23",
-             "fedasync_mix"),
-            ("flash_attention", "src/repro/kernels/flash_attention.py:32",
+    csrc = "src/repro_torch/kernels/csrc"
+    for name, source, replaces, main_case in (
+            ("fed_reduce", "fed_reduce.cu",
+             "src/repro/kernels/fed_reduce.py:45", "fedavg"),
+            ("fed_aggregate", "fed_aggregate.cu",
+             "src/repro/kernels/fed_aggregate.py:23", "fedasync_mix"),
+            ("flash_attention", "flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:32",
              "recurrentgemma_local"),
-            ("rglru_scan", "src/repro/kernels/rglru_scan.py:26",
-             "recurrentgemma_prefill")):
-        mine = [c for c in cases if c["kernel"] == name]
+            ("rglru_scan", "rglru_scan.cu",
+             "src/repro/kernels/rglru_scan.py:26", "recurrentgemma_prefill"),
+            # the gradients around those kernels: no Pallas kernel has a
+            # backward; the reference takes them in jnp
+            ("flash_attention_bwd", "flash_attention_bwd.cu",
+             "src/repro/models/attention.py:229", "gemma2_global"),
+            ("rglru_scan_bwd", "rglru_scan.cu",
+             "src/repro/models/recurrent.py:71", "recurrentgemma_train")):
+        mine = [c for c in cases if c.get("kernel") == name]
         head = next(c for c in mine if c["case"] == main_case)
         summary.append(dict(
-            name=name, route="cuda",
-            source=f"src/repro_torch/kernels/csrc/{name}.cu",
+            name=name, route="cuda", source=f"{csrc}/{source}",
             replaces=replaces, launches=launches[name],
             max_abs_err=max(c["max_abs_err"] for c in mine),
             ms=head["ms"], plain_ms=head["plain_ms"],
@@ -1637,7 +2038,8 @@ def main():
             library_ms=head["library_ms"], shape=head["shape"],
             parity={c["case"]: c["check"] for c in mine},
             **{k: head[k] for k in ("bound_route", "bound_f32_simt_ms",
-                                    "launch_floor_ms") if k in head}))
+                                    "bound_tf32x3_ms", "launch_floor_ms")
+               if k in head}))
     print(card, flush=True)
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -27,7 +27,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("fed_reduce.cu", "fed_aggregate.cu", "rglru_scan.cu",
-           "flash_attention.cu")
+           "flash_attention.cu", "flash_attention_bwd.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -104,21 +104,27 @@ def build(csrc: Path = CSRC, build_dir: Path = BUILD_DIR,
 
 
 def _entry_points():
-    """Each source's C entry point and its argument types (pointers and
+    """Each source's C entry points and their argument types (pointers and
     the stream as ``c_void_p``, sizes as ``c_int``, strides as
-    ``c_longlong``)."""
+    ``c_longlong``, a host array of strides as a ``c_longlong`` pointer)."""
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    f32 = ctypes.c_float
     return {
-        "fed_reduce.cu": ("fed_reduce_f32",
-                          [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
-                           ptr]),
-        "fed_aggregate.cu": ("fed_aggregate_f32",
-                             [ptr, ptr, ptr, ptr, i32, i32, i32, ptr]),
-        "rglru_scan.cu": ("rglru_scan_f32",
-                          [ptr, ptr, ptr, i32, i32, i32, i32, ptr]),
-        "flash_attention.cu": ("flash_attention_f32",
-                               [ptr] * 5 + [i64] * 12 + [i32] * 8
-                               + [ctypes.c_float] * 2 + [i32, ptr]),
+        "fed_reduce.cu": [("fed_reduce_f32",
+                           [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
+                            ptr])],
+        "fed_aggregate.cu": [("fed_aggregate_f32",
+                              [ptr, ptr, ptr, ptr, i32, i32, i32, ptr])],
+        "rglru_scan.cu": [("rglru_scan_f32",
+                           [ptr, ptr, ptr, i32, i32, i32, i32, ptr]),
+                          ("rglru_scan_bwd_f32",
+                           [ptr] * 5 + [i32] * 4 + [ptr])],
+        "flash_attention.cu": [("flash_attention_f32",
+                                [ptr] * 6 + [i64] * 12 + [i32] * 8
+                                + [f32] * 2 + [i32, ptr])],
+        "flash_attention_bwd.cu": [("flash_attention_bwd_f32",
+                                    [ptr] * 10 + [ctypes.POINTER(i64)]
+                                    + [i32] * 8 + [f32] * 2 + [i32, ptr])],
     }
 
 
@@ -127,14 +133,15 @@ def library(csrc: Path = CSRC, build_dir: Path = BUILD_DIR,
             sources=SOURCES) -> ctypes.CDLL:
     """The built kernels, loaded once per process, with every entry
     point's argument and result types declared.  The defaults are the
-    port's own four kernels; another ``csrc`` (an older checkout's, say)
+    port's own kernels; another ``csrc`` (an older checkout's, say)
     builds into its own library beside them."""
     lib = ctypes.CDLL(str(build(csrc, build_dir, sources)))
-    for src, (name, argtypes) in _entry_points().items():
+    for src, entries in _entry_points().items():
         if src in sources:
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            for name, argtypes in entries:
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
     return lib
 
 

@@ -95,6 +95,11 @@
 // A row whose first visited tile is all masked gets p = exp(0) = 1 there,
 // which the next tile's alpha = exp(-1e30 - m) = 0 wipes out, as on the
 // TPU; every row has a live key because the wrapper refuses causal S > T.
+//
+// For training the kernel also writes each row's log-sum-exp,
+// lse = m + log(max(l, 1e-30)) as (B, H, S) f32 (the reference's
+// _flash_forward saves the same), which flash_attention_bwd.cu reads; a
+// null lse pointer (serving) writes nothing.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -128,6 +133,7 @@ struct AttnCfg {
 
 struct AttnArgs {
   const float* q; const float* k; const float* v; float* out;
+  float* lse;                        // (B, H, S) contiguous, or null
   long long q_sb, q_sh, q_ss;
   long long k_sb, k_sh, k_st;
   long long v_sb, v_sh, v_st;
@@ -553,6 +559,8 @@ flash_attention_kernel(const AttnArgs p, const float* planes, int n16) {
     for (int n = 0; n < DH / 8; ++n)
       *reinterpret_cast<float2*>(dst + n * 8) =
           make_float2(acc[4 * n + 2 * half] / den, acc[4 * n + 2 * half + 1] / den);
+    if (p.lse != nullptr && dh == 0 && tq == 0)
+      p.lse[(b * p.H + h) * p.S + pos] = (half ? m1 : m0) + logf(den);
   }
 }
 
@@ -581,11 +589,12 @@ int launch_flash(const AttnArgs& a, int B, float* planes, cudaStream_t stream) {
 // position); the head dim is contiguous and every row 16-byte aligned.
 // causal: 0 or 1; window <= 0 means none; cap <= 0 means none.  D is one of
 // 32, 64, 128, 256.  planes: f32 scratch of B * Kh * ceil(T / 16) * 64 * D
-// floats, 16-byte aligned (the split K/V tiles).  Launches the split pass
-// and the attention kernel on `stream` and returns cudaGetLastError().
-// Allocates nothing.
+// floats, 16-byte aligned (the split K/V tiles).  lse: (B, H, S) f32,
+// contiguous, or null for none.  Launches the split pass and the attention
+// kernel on `stream` and returns cudaGetLastError().  Allocates nothing.
 extern "C" int flash_attention_f32(
     const void* q, const void* k, const void* v, void* out, void* planes,
+    void* lse,
     long long q_sb, long long q_sh, long long q_ss,
     long long k_sb, long long k_sh, long long k_st,
     long long v_sb, long long v_sh, long long v_st,
@@ -601,6 +610,7 @@ extern "C" int flash_attention_f32(
     return static_cast<int>(cudaErrorInvalidValue);
   AttnArgs a{static_cast<const float*>(q), static_cast<const float*>(k),
              static_cast<const float*>(v), static_cast<float*>(out),
+             static_cast<float*>(lse),
              q_sb, q_sh, q_ss, k_sb, k_sh, k_st, v_sb, v_sh, v_st,
              o_sb, o_sh, o_ss, H, KH, S, T, causal, window, scale, cap};
   auto s = static_cast<cudaStream_t>(stream);

@@ -34,6 +34,18 @@ raise ``ValueError``.
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel (the split pass and the attention kernel, one entry point) or
 raises.  ``launches`` counts the kernel's launches, one a call.
+
+Training (``ops.flash_attention`` under autograd) asks the forward for the
+rows' log-sum-exp as well (``return_lse``; serving passes a null pointer and
+its launches do not change) and takes the gradient from
+``flash_attention_bwd``: the Hopper kernel ``csrc/flash_attention_bwd.cu``
+(plain version ``ref.flash_attention_bwd_ref``), counted in
+``bwd_launches``.  What bounds it is operations too (10 D flops a live
+pair: 2.08 ms as 3xTF32 at gemma2-2b's global layer); its products run on
+the tensor cores as warp-level ``mma.sync`` 3xTF32, it is deterministic (no
+atomics: a block owns a key tile of a kv head for dK/dV and walks all of
+its group's rows, another owns 32 rows for dQ), and it skips the tiles the
+mask leaves out.
 """
 
 from __future__ import annotations
@@ -46,29 +58,39 @@ from repro_torch.kernels import ref
 
 HEAD_DIMS = (32, 64, 128, 256)
 
-# Launches of the CUDA kernel in this process (set it to 0 to start a count).
+# Launches of the CUDA kernels in this process (set them to 0 to start a
+# count): the forward and the backward.
 launches = 0
+bwd_launches = 0
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
-                    cap: Optional[float] = None) -> torch.Tensor:
-    """q: (B, H, S, D); k, v: (B, Kh, T, D), H % Kh == 0 -> (B, H, S, D)."""
+                    cap: Optional[float] = None, return_lse: bool = False):
+    """q: (B, H, S, D); k, v: (B, Kh, T, D), H % Kh == 0 -> (B, H, S, D),
+    and with ``return_lse`` also the rows' log-sum-exp (B, H, S) f32."""
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                       cap=cap)
-    return _launch(q, k, v, causal, window, cap)
+                                       cap=cap, return_lse=return_lse)
+    return _launch(q, k, v, causal, window, cap, return_lse)
 
 
-def _launch(q, k, v, causal, window, cap):
-    global launches
-    from repro_torch.kernels import build
+def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
+                        window: Optional[int] = None,
+                        cap: Optional[float] = None):
+    """The gradient (dq, dk, dv) of ``flash_attention`` from its output
+    ``out``, its ``lse`` (B, H, S) and the output's gradient ``dout``."""
+    if q.device.type == "cpu":
+        return ref.flash_attention_bwd_ref(q, k, v, out, lse, dout,
+                                           causal=causal, window=window,
+                                           cap=cap)
+    return _launch_bwd(q, k, v, out, lse, dout, causal, window, cap)
 
-    dev = q.device
-    if dev.type != "cuda":
-        raise ValueError(f"flash_attention kernel needs a CUDA tensor, got "
-                         f"{dev}")
-    for name, x in (("q", q), ("k", k), ("v", v)):
+
+def _check_rows(dev, named):
+    """Each tensor: 4-d f32 on ``dev``, head dim contiguous, rows 16-byte
+    aligned (what the kernels read through their strides)."""
+    for name, x in named:
         if x.dim() != 4 or x.device != dev:
             raise ValueError(f"{name} must be a 4-d tensor on {dev}, got "
                              f"{tuple(x.shape)} on {x.device}")
@@ -79,6 +101,9 @@ def _launch(q, k, v, causal, window, cap):
                 or x.data_ptr() % 16:
             raise ValueError(f"{name}: the head dim must be contiguous and "
                              "every row 16-byte aligned")
+
+
+def _check_shapes(q, k, v, causal, window, cap):
     b, h, s, d = q.shape
     kh, t = k.shape[1], k.shape[2]
     if k.shape != (b, kh, t, d) or v.shape != k.shape:
@@ -97,16 +122,36 @@ def _launch(q, k, v, causal, window, cap):
         raise ValueError(f"cap must be > 0, got {cap}")
     if b > 65535 or kh > 65535:
         raise ValueError(f"B={b} and Kh={kh} must be <= 65535")
+
+
+def _cuda_device(q, what):
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"{what} kernel needs a CUDA tensor, got {dev}")
+    return dev
+
+
+def _launch(q, k, v, causal, window, cap, return_lse=False):
+    global launches
+    from repro_torch.kernels import build
+
+    dev = _cuda_device(q, "flash_attention")
+    _check_rows(dev, (("q", q), ("k", k), ("v", v)))
+    _check_shapes(q, k, v, causal, window, cap)
+    b, h, s, d = q.shape
+    kh, t = k.shape[1], k.shape[2]
     out = torch.empty_like(q)           # q's layout where q is dense
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=dev) \
+        if return_lse else None
     if q.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     # scratch for the kernel's split pass: K and V in 16-key tiles of four
     # TF32 operand planes (hi and lo of K and of V transposed)
     planes = torch.empty(b * kh * -(-t // 16) * 64 * d, dtype=torch.float32,
                          device=dev)
     err = build.library().flash_attention_f32(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        planes.data_ptr(),
+        planes.data_ptr(), None if lse is None else lse.data_ptr(),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *out.stride()[:3], b, h, kh, s, t, d, int(causal),
         0 if window is None else int(window), float(d ** -0.5),
@@ -116,4 +161,44 @@ def _launch(q, k, v, causal, window, cap):
         raise RuntimeError(
             f"flash_attention kernel launch failed: CUDA error {err}")
     launches += 1
-    return out
+    return (out, lse) if return_lse else out
+
+
+def _launch_bwd(q, k, v, out, lse, dout, causal, window, cap):
+    global bwd_launches
+    import ctypes
+
+    from repro_torch.kernels import build
+
+    dev = _cuda_device(q, "flash_attention_bwd")
+    _check_rows(dev, (("q", q), ("k", k), ("v", v), ("out", out),
+                      ("dout", dout)))
+    _check_shapes(q, k, v, causal, window, cap)
+    b, h, s, d = q.shape
+    kh, t = k.shape[1], k.shape[2]
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"out and dout must be {tuple(q.shape)}, got "
+                         f"{tuple(out.shape)} and {tuple(dout.shape)}")
+    if lse.shape != (b, h, s) or lse.dtype != torch.float32 \
+            or lse.device != dev or not lse.is_contiguous():
+        raise ValueError(f"lse must be a contiguous ({b}, {h}, {s}) float32 "
+                         f"tensor on {dev}, got {tuple(lse.shape)} "
+                         f"{lse.dtype} on {lse.device}")
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    if q.numel() == 0:
+        return dq, dk, dv
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=dev)
+    strides = (ctypes.c_longlong * 24)(*(
+        st for x in (q, k, v, out, dout, dq, dk, dv) for st in x.stride()[:3]))
+    err = build.library().flash_attention_bwd_f32(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), strides, b, h, kh, s, t, d,
+        int(causal), 0 if window is None else int(window), float(d ** -0.5),
+        0.0 if cap is None else float(cap),
+        dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"flash_attention_bwd kernel launch failed: CUDA error {err}")
+    bwd_launches += 1
+    return dq, dk, dv

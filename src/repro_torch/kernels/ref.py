@@ -16,9 +16,11 @@ the same f32 inputs they give the same bits:
     ``jnp.round``), and ``g + q * scale`` is one fused multiply-add.
 
 The LM zoo's ``flash_attention_ref`` and ``rglru_scan_ref`` follow at the
-end.  On a CPU tensor the kernel wrappers (``fed_reduce.py``,
-``fed_aggregate.py``, ``flash_attention.py``, ``rglru_scan.py``) run these
-functions; on the card the kernels are held against them.
+end, with their backward passes ``flash_attention_bwd_ref`` and
+``rglru_scan_bwd_ref``.  On a CPU tensor the kernel wrappers
+(``fed_reduce.py``, ``fed_aggregate.py``, ``flash_attention.py``,
+``rglru_scan.py``) run these functions; on the card the kernels are held
+against them.
 """
 
 from __future__ import annotations
@@ -153,32 +155,88 @@ def fed_reduce_ref(weights: torch.Tensor, rows: torch.Tensor,
 NEG_INF = -1e30
 
 
-def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        causal: bool = True, window: Optional[int] = None,
-                        cap: Optional[float] = None) -> torch.Tensor:
-    """q: (B, H, S, D); k, v: (B, Kh, T, D) with H % Kh == 0 -> (B, H, S, D).
-    Materialises the (S, T) scores in f32; the output has q's dtype."""
-    b, h, s, d = q.shape
-    kh, t = k.shape[1], k.shape[2]
-    g = h // kh
-    qr = q.reshape(b, kh, g, s, d).to(torch.float32)
-    scores = torch.einsum("bkgsd,bktd->bkgst", qr, k.to(torch.float32))
-    scores = scores * (d ** -0.5)
-    if cap is not None:
-        scores = cap * torch.tanh(scores / cap)
-    q_pos = torch.arange(s, device=q.device)[:, None] + (t - s)
-    k_pos = torch.arange(t, device=q.device)[None, :]
-    mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
+def _attn_mask(s: int, t: int, causal: bool, window: Optional[int], device
+               ) -> torch.Tensor:
+    """(S, T) bool: query i (at key position i + T - S) sees key j."""
+    q_pos = torch.arange(s, device=device)[:, None] + (t - s)
+    k_pos = torch.arange(t, device=device)[None, :]
+    mask = torch.ones((s, t), dtype=torch.bool, device=device)
     if causal:
         mask &= k_pos <= q_pos
     if window is not None:
         mask &= k_pos > q_pos - window
+    return mask
+
+
+def _attn_scores(q, k, causal, window, cap):
+    """Capped and masked scores (B, Kh, G, S, T) in f32, the mask, and
+    d(capped)/d(raw) (None without a cap)."""
+    b, h, s, d = q.shape
+    kh, t = k.shape[1], k.shape[2]
+    qr = q.reshape(b, kh, h // kh, s, d).to(torch.float32)
+    scores = torch.einsum("bkgsd,bktd->bkgst", qr, k.to(torch.float32))
+    scores = scores * (d ** -0.5)
+    dcap = None
+    if cap is not None:
+        th = torch.tanh(scores / cap)
+        scores = cap * th
+        dcap = 1.0 - th * th
+    mask = _attn_mask(s, t, causal, window, q.device)
     scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+    return scores, mask, dcap
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: Optional[int] = None,
+                        cap: Optional[float] = None, return_lse: bool = False):
+    """q: (B, H, S, D); k, v: (B, Kh, T, D) with H % Kh == 0 -> (B, H, S, D).
+    Materialises the (S, T) scores in f32; the output has q's dtype.  With
+    ``return_lse`` also the rows' log-sum-exp (B, H, S) in f32,
+    ``m + log(max(l, 1e-30))`` as the reference's ``_flash_forward``."""
+    b, h, s, d = q.shape
+    scores, _, _ = _attn_scores(q, k, causal, window, cap)
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgst,bktd->bkgsd", p, v.to(torch.float32))
-    return out.reshape(b, h, s, d).to(q.dtype)
+    out = out.reshape(b, h, s, d).to(q.dtype)
+    if not return_lse:
+        return out
+    m = scores.amax(dim=-1)
+    l = torch.exp(scores - m[..., None]).sum(dim=-1)
+    lse = m + torch.log(torch.clamp_min(l, 1e-30))
+    return out, lse.reshape(b, h, s)
 
 
+def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal: bool = True,
+                            window: Optional[int] = None,
+                            cap: Optional[float] = None):
+    """The attention's gradient, (dq, dk, dv), from the forward's ``out``
+    and ``lse`` (B, H, S) and the output's gradient ``dout`` (B, H, S, D):
+    ``repro.models.attention._flash_backward``'s maths over the whole
+    (S, T) score matrix in f32, with the kernel's alignment (query i at key
+    i + T - S).  delta = rowsum(dout * out), P = exp(s - lse),
+    dS = P (dP - delta), times 1 - tanh^2 of the raw score under a cap and
+    zero where the mask is off; a kv head's dk and dv sum its G heads."""
+    b, h, s, d = q.shape
+    kh, t = k.shape[1], k.shape[2]
+    g = h // kh
+    scale = d ** -0.5
+    f32 = torch.float32
+    scores, mask, dcap = _attn_scores(q, k, causal, window, cap)
+    do = dout.reshape(b, kh, g, s, d).to(f32)
+    delta = torch.einsum("bkgsd,bkgsd->bkgs", do,
+                         out.reshape(b, kh, g, s, d).to(f32))
+    p = torch.exp(scores - lse.reshape(b, kh, g, s, 1).to(f32))
+    dp = torch.einsum("bkgsd,bktd->bkgst", do, v.to(f32))
+    ds = p * (dp - delta[..., None])
+    if dcap is not None:
+        ds = ds * dcap
+    ds = torch.where(mask, ds, torch.zeros_like(ds))
+    qr = q.reshape(b, kh, g, s, d).to(f32)
+    dq = torch.einsum("bkgst,bktd->bkgsd", ds, k.to(f32)) * scale
+    dk = torch.einsum("bkgst,bkgsd->bktd", ds, qr) * scale
+    dv = torch.einsum("bkgst,bkgsd->bktd", p, do)
+    return (dq.reshape(b, h, s, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 def rglru_scan_ref(a: torch.Tensor, b: torch.Tensor,
                    h0: Optional[torch.Tensor] = None) -> torch.Tensor:
     """h_t = a_t * h_{t-1} + b_t over axis 1; a, b: (B, T, W) -> (B, T, W).
@@ -194,3 +252,26 @@ def rglru_scan_ref(a: torch.Tensor, b: torch.Tensor,
         h = af[:, i] * h + bf[:, i]
         out[:, i] = h
     return out.to(a.dtype)
+
+
+def rglru_scan_bwd_ref(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor):
+    """The scan's gradient: (da, db) from the coefficients ``a``, the
+    forward's output ``h`` and its gradient ``dh``, all (B, T, W).  A
+    reverse sequential loop in f32, each product rounded before the add
+    (no fused multiply-add), as the kernel runs it:
+    g_t = dh_t + a_{t+1} * g_{t+1} (from a_T = g_T = 0), db_t = g_t and
+    da_t = g_t * h_{t-1} with h_{-1} = 0."""
+    bsz, t, w = a.shape
+    f32 = torch.float32
+    af, hf, dhf = a.to(f32), h.to(f32), dh.to(f32)
+    g = torch.zeros((bsz, w), dtype=f32, device=a.device)
+    a_next = torch.zeros_like(g)
+    zero = torch.zeros_like(g)
+    da = torch.empty((bsz, t, w), dtype=f32, device=a.device)
+    db = torch.empty_like(da)
+    for i in range(t - 1, -1, -1):
+        g = dhf[:, i] + a_next * g
+        db[:, i] = g
+        da[:, i] = g * (hf[:, i - 1] if i > 0 else zero)
+        a_next = af[:, i]
+    return da.to(a.dtype), db.to(a.dtype)

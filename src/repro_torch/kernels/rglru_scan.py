@@ -15,6 +15,12 @@ and b stream through a ring of shared-memory time chunks filled by
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel or raises.  ``launches`` counts the kernel's launches.
+
+Training takes the gradient from ``rglru_scan_bwd``: the reverse scan
+(entry point ``rglru_scan_bwd_f32`` of the same source), one lane per
+(batch, channel) walking T backwards through the same ``cp.async`` ring,
+bitwise equal to ``ref.rglru_scan_bwd_ref``; bound by bytes (a, h, dh read,
+da and db written: 20 bytes an element).  ``bwd_launches`` counts it.
 """
 
 from __future__ import annotations
@@ -23,8 +29,10 @@ import torch
 
 from repro_torch.kernels import ref
 
-# Launches of the CUDA kernel in this process (set it to 0 to start a count).
+# Launches of the CUDA kernels in this process (set them to 0 to start a
+# count): the forward scan and the reverse scan.
 launches = 0
+bwd_launches = 0
 
 
 def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -34,25 +42,40 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _launch(a, b)
 
 
-def _launch(a, b):
-    global launches
-    from repro_torch.kernels import build
+def rglru_scan_bwd(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor):
+    """The scan's gradient: a, h (the forward's output), dh: (B, T, W) ->
+    (da, db)."""
+    if a.device.type == "cpu":
+        return ref.rglru_scan_bwd_ref(a, h, dh)
+    return _launch_bwd(a, h, dh)
 
-    dev = a.device
+
+def _check(what, named):
+    """Contiguous (B, T, W) f32 tensors of one shape on one CUDA device."""
+    dev = named[0][1].device
     if dev.type != "cuda":
-        raise ValueError(f"rglru_scan kernel needs a CUDA tensor, got {dev}")
-    for name, x in (("a", a), ("b", b)):
+        raise ValueError(f"{what} kernel needs a CUDA tensor, got {dev}")
+    for name, x in named:
         if x.dim() != 3 or x.dtype != torch.float32 or x.device != dev \
                 or not x.is_contiguous():
             raise ValueError(f"{name} must be a contiguous (B, T, W) float32 "
                              f"tensor on {dev}, got {tuple(x.shape)} "
                              f"{x.dtype} on {x.device}")
-    if a.shape != b.shape:
-        raise ValueError(f"a and b differ in shape: {tuple(a.shape)} vs "
-                         f"{tuple(b.shape)}")
+        if x.shape != named[0][1].shape:
+            raise ValueError(f"{named[0][0]} and {name} differ in shape: "
+                             f"{tuple(named[0][1].shape)} vs "
+                             f"{tuple(x.shape)}")
+    if named[0][1].shape[0] > 65535:
+        raise ValueError(f"B={named[0][1].shape[0]} must be <= 65535")
+    return dev
+
+
+def _launch(a, b):
+    global launches
+    from repro_torch.kernels import build
+
+    dev = _check("rglru_scan", (("a", a), ("b", b)))
     bsz, t, w = a.shape
-    if bsz > 65535:
-        raise ValueError(f"B={bsz} must be <= 65535")
     out = torch.empty_like(a)
     if a.numel() == 0:
         return out
@@ -63,3 +86,23 @@ def _launch(a, b):
         raise RuntimeError(f"rglru_scan kernel launch failed: CUDA error {err}")
     launches += 1
     return out
+
+
+def _launch_bwd(a, h, dh):
+    global bwd_launches
+    from repro_torch.kernels import build
+
+    dev = _check("rglru_scan_bwd", (("a", a), ("h", h), ("dh", dh)))
+    bsz, t, w = a.shape
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    if a.numel() == 0:
+        return da, db
+    err = build.library().rglru_scan_bwd_f32(
+        a.data_ptr(), h.data_ptr(), dh.data_ptr(), da.data_ptr(),
+        db.data_ptr(), bsz, t, w, dev.index or 0,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"rglru_scan_bwd kernel launch failed: CUDA error {err}")
+    bwd_launches += 1
+    return da, db

@@ -13,8 +13,13 @@ Port of ``repro.models.attention`` for serving.  Three execution paths:
     encoder's output: plain PyTorch, as in the reference.
 
 Full-sequence positions are ``arange(S)`` (keys: ``arange(T)``), as every
-caller of the reference passes them.  The blocked path's custom VJP
-(training) waits for its slice (see ROADMAP.md).
+caller of the reference passes them.
+
+Training: on the CPU autograd runs through ``naive_attention``'s ops, as
+the reference's naive path; on CUDA ``ops.flash_attention`` is an autograd
+Function whose backward is the hand-written kernel
+(``kernels/csrc/flash_attention_bwd.cu``), the counterpart of the blocked
+path's custom VJP (``repro.models.attention._flash_backward``).
 """
 
 from __future__ import annotations

@@ -19,22 +19,33 @@ import torch.nn.functional as F
 # init helpers
 # ---------------------------------------------------------------------------
 
+class MetaGenerator:
+    """Stands in for a ``torch.Generator`` in the init functions to build a
+    param tree on the ``meta`` device: shapes and dtypes, nothing allocated
+    or drawn (``launch.steps.param_struct``)."""
+    device = torch.device("meta")
+
+
+def _normal(gen, shape) -> torch.Tensor:
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device="meta")
+    return torch.randn(shape, generator=gen, device=gen.device,
+                       dtype=torch.float32)
+
+
 def dense_init(gen: torch.Generator, shape, dtype=torch.float32,
                fan_in: Optional[int] = None) -> torch.Tensor:
     """Normal(0, 1/fan_in) on ``gen``'s device; fan_in defaults to
     ``shape[-2]`` (``shape[0]`` for a vector)."""
     if fan_in is None:
         fan_in = shape[-2] if len(shape) >= 2 else shape[0]
-    x = torch.randn(shape, generator=gen, device=gen.device,
-                    dtype=torch.float32)
+    x = _normal(gen, shape)
     return x.mul_(math.sqrt(1.0 / max(fan_in, 1))).to(dtype)
 
 
 def embed_init(gen: torch.Generator, shape, dtype=torch.float32
                ) -> torch.Tensor:
-    x = torch.randn(shape, generator=gen, device=gen.device,
-                    dtype=torch.float32)
-    return x.mul_(0.02).to(dtype)
+    return _normal(gen, shape).mul_(0.02).to(dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -46,6 +46,12 @@ EXPERT_RANGE = "moe_expert_products"
 _MOE_IMPL = contextvars.ContextVar("moe_impl", default="dispatch")
 
 
+def current_moe_impl() -> str:
+    """The impl ``moe_ffn`` takes here ("dispatch" unless inside
+    ``moe_impl``)."""
+    return _MOE_IMPL.get()
+
+
 @contextlib.contextmanager
 def moe_impl(kind: str):
     """Run ``moe_ffn`` as ``"dispatch"`` or ``"dense"`` inside the block."""

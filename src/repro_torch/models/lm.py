@@ -1,20 +1,26 @@
-"""Language models assembled from ``LayerSpec``s, for serving: a
-decoder-only LM, an encoder-decoder (the audio family) or a VLM whose text
-follows a prefix of vision patches.
+"""Language models assembled from ``LayerSpec``s: a decoder-only LM, an
+encoder-decoder (the audio family) or a VLM whose text follows a prefix of
+vision patches.
 
 Port of ``repro.models.lm`` for every mixer (attention, RG-LRU, mLSTM,
 sLSTM), the dense FFN and the MoE, the encoder stack over (stub) audio
-frames and the (stub) vision-patch prefix: all ten LM configs serve.  The
-training loss and its chunked cross-entropy wait for their slice (see
-ROADMAP.md).
+frames and the (stub) vision-patch prefix: all ten LM configs serve and
+train.
 
 API (params are nested dicts and lists of tensors, leaf for leaf the
 reference's, so ``repro_torch.weights`` carries them across):
   init_params(cfg, gen, dtype)
   forward(params, cfg, tokens, frontend=)          # full-seq logits
+  loss_fn(params, cfg, batch, remat=)              # next-token CE + MoE aux
+  chunked_ce(params, cfg, x, labels, tok_w)        # CE over token chunks
   init_cache(cfg, batch, max_len, ...)             # decode state
   prefill(params, cfg, tokens, cache, frontend=)   # build cache, last logits
   decode_step(params, cfg, token, pos, cache)      # one token
+
+``forward``, ``prefill`` and ``decode_step`` run under ``no_grad``
+(serving); ``loss_fn`` records autograd, and with ``remat`` each block runs
+under ``torch.utils.checkpoint`` (its activations recomputed in the
+backward, as the reference's ``jax.checkpoint``).
 
 ``frontend`` is (B, frames, features) for the encoder-decoder and (B,
 patches, features) for the VLM, whose logits and positions then cover the
@@ -25,9 +31,11 @@ prefix as well.  The full-sequence forward runs the MoE as ``moe_ffn``
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import (FFN_DENSE, FFN_NONE, MIX_ATTN,
                                       MIX_MLSTM, MIX_RGLRU, MIX_SLSTM,
@@ -120,14 +128,16 @@ def param_count(params) -> int:
 
 def _ffn(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor, *,
          serving: bool):
-    """The FFN's residual step; the MoE drop-free when ``serving``."""
+    """The FFN's residual step and the MoE's aux loss (None for a dense
+    FFN or none); the MoE drop-free when ``serving``."""
     if spec.ffn == FFN_NONE:
-        return x
+        return x, None
     h2 = rmsnorm(x, p["ln2"], cfg.norm_eps)
     if spec.ffn == FFN_DENSE:
-        return x + ffn_mod.mlp(p["ffn"], h2, cfg.act)
+        return x + ffn_mod.mlp(p["ffn"], h2, cfg.act), None
     moe = ffn_mod.moe_ffn_dense if serving else ffn_mod.moe_ffn
-    return x + moe(p["ffn"], h2, cfg.moe, cfg.act)[0]
+    out, aux = moe(p["ffn"], h2, cfg.moe, cfg.act)
+    return x + out, aux
 
 
 def _cross(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
@@ -143,7 +153,7 @@ def _cross(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
 
 def _block(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
            enc_out: Optional[torch.Tensor] = None):
-    """One block over the full sequence."""
+    """One block over the full sequence: (x, the MoE's aux loss or None)."""
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
     if spec.mixer == MIX_ATTN:
         mix = attn_mod.attention(p["mixer"], cfg, spec, h)
@@ -220,8 +230,119 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     enc_out = _encoder_output(params, cfg, frontend)
     x = _embed_inputs(params, cfg, tokens, frontend)
     for p, spec in zip(params["layers"], cfg.layers):
-        x = _block(p, cfg, spec, x, enc_out)
+        x = _block(p, cfg, spec, x, enc_out)[0]
     return _unembed(params, cfg, x)
+
+
+def remat_call(fn, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint``: its activations are
+    recomputed in the backward, which runs outside the caller's
+    ``moe_impl`` block, so the recompute re-enters the forward's impl."""
+    impl = ffn_mod.current_moe_impl()
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          ffn_mod.moe_impl(impl)))
+
+
+def run_block(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
+              enc_out: Optional[torch.Tensor], remat: bool):
+    """``_block`` for training, recomputed in the backward when
+    ``remat``."""
+    if not remat:
+        return _block(p, cfg, spec, x, enc_out)
+    return remat_call(_block, p, cfg, spec, x, enc_out)
+
+
+def add_aux(total: torch.Tensor, aux: Optional[torch.Tensor]):
+    """The running MoE aux loss in f32 (a block without a MoE adds 0)."""
+    return total if aux is None else total + aux.to(torch.float32)
+
+
+def token_weights(labels: torch.Tensor, weight: Optional[torch.Tensor]):
+    """(B, S) f32: 1 where the label counts (>= 0), times the sequence's
+    weight (B,) where given: FedAvg's n_k / n enters the round objective
+    here, so the gradient's reduction IS the weighted aggregation."""
+    tok_w = (labels >= 0).to(torch.float32)
+    if weight is not None:
+        tok_w = tok_w * weight[:, None].to(torch.float32)
+    return tok_w
+
+
+def text_states(x: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The hidden states of the text: a VLM's prefix is cut so that they
+    line up with the labels."""
+    if x.shape[1] != labels.shape[1]:
+        x = x[:, x.shape[1] - labels.shape[1]:]
+    return x
+
+
+def loss_fn(params, cfg: ModelConfig, batch, *, remat: bool = False):
+    """batch: {"tokens": (B, S), "labels": (B, S) with -1 = ignored,
+    optional "weight" (B,) and "frontend"}.  Returns (loss, metrics):
+    the weighted next-token CE plus the MoE aux loss, and {"ce", "aux",
+    "acc"}."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    frontend = batch.get("frontend")
+    enc_out = _encoder_output(params, cfg, frontend)
+    x = _embed_inputs(params, cfg, tokens, frontend)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for p, spec in zip(params["layers"], cfg.layers):
+        x, aux = run_block(p, cfg, spec, x, enc_out, remat)
+        aux_total = add_aux(aux_total, aux)
+    x = text_states(x, labels)
+    tok_w = token_weights(labels, batch.get("weight"))
+    ce, acc = chunked_ce(params, cfg, x, labels, tok_w)
+    return ce + aux_total, {"ce": ce, "aux": aux_total, "acc": acc}
+
+
+def _chunk_stats(xc, head, lc, wc, mc, final_cap):
+    """One chunk's (sum of w * nll, correct, sum of w, counted)."""
+    logits = softcap((xc @ head).to(torch.float32), final_cap)
+    logz = torch.logsumexp(logits, dim=-1)
+    safe = torch.clamp_min(lc, 0).long()
+    tgt = torch.gather(logits, 1, safe[:, None])[:, 0]
+    nll = logz - tgt
+    correct = mc & (logits.argmax(-1) == safe)
+    return (nll * wc).sum(), correct.sum(), wc.sum(), mc.sum()
+
+
+def chunked_ce(params, cfg: ModelConfig, x: torch.Tensor,
+               labels: torch.Tensor, tok_w: torch.Tensor, *,
+               chunk_tokens: int = 16_384):
+    """Cross-entropy without materialising all (B, S, V) f32 logits at
+    once: the B*S tokens are flattened and cut into chunks of
+    ``chunk_tokens`` (the last padded with zero-weight tokens, as the
+    reference pads), and each chunk's logits are recomputed in the
+    backward (``torch.utils.checkpoint``).  Returns (ce, acc)."""
+    b, s, d = x.shape
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    t = b * s
+    xf = x.reshape(t, d)
+    lf = labels.reshape(t)
+    wf = tok_w.reshape(t)
+    mf = (labels >= 0).reshape(t)
+    chunk = min(chunk_tokens, t)
+    pad = (-t) % chunk
+    if pad:
+        xf = torch.cat([xf, xf.new_zeros((pad, d))])
+        lf = torch.cat([lf, lf.new_zeros((pad,))])
+        wf = torch.cat([wf, wf.new_zeros((pad,))])
+        mf = torch.cat([mf, mf.new_zeros((pad,))])
+    dev = x.device
+    nll_s = torch.zeros((), dtype=torch.float32, device=dev)
+    w_s = torch.zeros((), dtype=torch.float32, device=dev)
+    cor_s = torch.zeros((), dtype=torch.int64, device=dev)
+    m_s = torch.zeros((), dtype=torch.int64, device=dev)
+    for c0 in range(0, t + pad, chunk):
+        sl = slice(c0, c0 + chunk)
+        nll, cor, w, m = checkpoint(_chunk_stats, xf[sl], head, lf[sl],
+                                    wf[sl], mf[sl], cfg.final_softcap,
+                                    use_reentrant=False)
+        nll_s, cor_s, w_s, m_s = nll_s + nll, cor_s + cor, w_s + w, m_s + m
+    ce = nll_s / torch.clamp_min(w_s, 1e-9)
+    acc = cor_s.to(torch.float32) / torch.clamp_min(m_s, 1).to(torch.float32)
+    return ce, acc
 
 
 # ---------------------------------------------------------------------------
@@ -273,7 +394,7 @@ def _prefill_block(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
     else:
         mix, st = xlstm_mod.slstm_sequence(p["mixer"], h, cfg)
     x = _cross(p, cfg, spec, x + mix, enc_out)
-    return _ffn(p, cfg, spec, x, serving=True), st
+    return _ffn(p, cfg, spec, x, serving=True)[0], st
 
 
 @torch.no_grad()
@@ -319,7 +440,7 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, pos: int,
             hc = rmsnorm(x, p["ln_cross"], cfg.norm_eps)
             x = x + attn_mod.cross_decode_attention(p["cross"], cfg, spec,
                                                     hc, int(pos), enc_out)
-        x = _ffn(p, cfg, spec, x, serving=True)
+        x = _ffn(p, cfg, spec, x, serving=True)[0]
         new_layers.append(st)
     logits = _unembed(params, cfg, x)
     return logits[:, 0], dict(cache, layers=new_layers)

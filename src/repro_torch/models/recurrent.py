@@ -4,7 +4,9 @@ Port of ``repro.models.recurrent``.  The RG-LRU recurrence
 h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t) is a diagonal linear
 recurrence; the full-sequence pass runs it through ``ops.rglru_scan`` (the
 sequential plain version on the CPU, the Hopper kernel on CUDA), where the
-reference uses ``jax.lax.associative_scan``.  Decode carries (h, conv tail).
+reference uses ``jax.lax.associative_scan``; under autograd its backward is
+the reverse scan (plain on the CPU, the kernel on CUDA), where the reference
+differentiates the associative scan.  Decode carries (h, conv tail).
 
 As in the reference, the recurrence and input gates use per-channel
 (diagonal) weights rather than Griffin's block-diagonal maps.

@@ -2,8 +2,9 @@
 
 ``build_model(cfg)`` returns a ``Model`` whose functional API the FL
 substrate and the launchers use: the paper's MLP, and every LM config for
-serving (its ``loss_fn`` is None: the LM training loss waits for its
-slice).  ResNet raises ``NotImplementedError`` until its slice lands.
+serving and training (``loss_fn`` is ``lm.loss_fn``; the layer-stacked
+training step is ``launch.steps``).  ResNet raises
+``NotImplementedError`` until its slice lands.
 """
 
 from __future__ import annotations
@@ -54,9 +55,11 @@ def _classifier_loss(forward):
 
 
 def _lm_model(cfg: ModelConfig) -> Model:
-    """Serving handle of an LM config (the training loss waits for its
-    slice, so ``loss_fn`` is None).  ``forward`` and ``prefill`` take the
-    frontend input (audio frames or vision patches) as ``frontend=``."""
+    """Handle of an LM config: ``loss_fn(params, batch, remat=False) ->
+    (loss, metrics)`` (next-token CE weighted per sequence, plus the MoE
+    aux loss) and the serving functions.  ``forward`` and ``prefill`` take
+    the frontend input (audio frames or vision patches) as ``frontend=``,
+    ``loss_fn`` as ``batch["frontend"]``."""
 
     def init(seed: int, device, dtype=torch.float32):
         gen = torch.Generator(device=torch.device(device))
@@ -70,6 +73,8 @@ def _lm_model(cfg: ModelConfig) -> Model:
     return Model(
         config=cfg,
         init=init,
+        loss_fn=lambda params, batch, **kw: lm_mod.loss_fn(params, cfg, batch,
+                                                          **kw),
         forward=lambda params, tokens, frontend=None: lm_mod.forward(
             params, cfg, tokens, frontend=frontend),
         init_cache=init_cache,

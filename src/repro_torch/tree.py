@@ -29,6 +29,8 @@ def unflatten_like(template: Any, flat: List[Any]) -> Any:
         if isinstance(node, dict):
             out = {k: build(node[k]) for k in sorted(node)}
             return {k: out[k] for k in node}      # keep the caller's key order
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            return type(node)(*[build(item) for item in node])  # NamedTuple
         if isinstance(node, (list, tuple)):
             return type(node)(build(item) for item in node)
         return next(it)

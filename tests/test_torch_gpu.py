@@ -23,8 +23,11 @@ and a reduced encoder-decoder serve on the card with every full-sequence
 attention through the kernel.  The serving tests drive a staggered sync + async + buffered
 queue through ``serve`` on the card (both kernels launch; the records keep
 the CPU drain's (M, E), costs and logs) and restore a killed drain's
-snapshot onto the card.  This file imports no JAX, so it runs where only
-torch is.
+snapshot onto the card.  The training kernels: the forward's lse, the
+attention backward within 1e-4 of each gradient's max-abs and bitwise
+equal to itself run twice, the scan's reverse scan bitwise, and a reduced
+stacked loss's gradients on the card within 1e-4 of the CPU's.  This file
+imports no JAX, so it runs where only torch is.
 """
 
 import numpy as np
@@ -444,3 +447,125 @@ def test_snapshot_restores_onto_cuda(cuda, tmp_path):
     for a, b in zip(leaves(back), leaves(tree)):
         assert a.device.type == "cuda" and a.dtype == b.dtype
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the backward kernels (training)
+# ---------------------------------------------------------------------------
+
+def _max_rel(got, want) -> float:
+    """max |got - want| over max |want|."""
+    den = float(want.abs().max())
+    return float((got - want).abs().max()) / max(den, 1e-30)
+
+
+@pytest.mark.parametrize("b,h,kh,s,t,d,causal,window,cap", [
+    (2, 16, 1, 300, 300, 256, True, 128, None),    # recurrentgemma, MQA
+    (1, 8, 4, 200, 200, 256, True, None, 50.0),    # gemma2 global
+    (1, 8, 4, 130, 130, 256, True, 64, 50.0),      # gemma2 local
+    (2, 4, 2, 77, 200, 64, True, None, None),      # S < T: aligned to T
+    (1, 6, 2, 100, 70, 32, False, None, 30.0),     # non-causal, S > T
+    (2, 16, 16, 96, 200, 64, False, None, None),   # cross-attention S < T
+    (1, 2, 2, 65, 65, 128, False, 9, None),        # non-causal window
+    (2, 4, 1, 100, 100, 32, True, None, None),     # ragged tiles at D=32
+    (1, 14, 2, 272, 272, 64, True, None, None),    # G=7
+])
+def test_flash_attention_bwd_kernel_matches_plain(cuda, b, h, kh, s, t, d,
+                                                  causal, window, cap):
+    """The forward kernel's lse against the plain one; the backward kernel
+    from the same (q, k, v, out, lse, dout) within 1e-4 of each
+    gradient's max-abs, and a second call gives the same bits."""
+    q, k, v = _qkv_cuda(b, h, kh, s, t, d, seed=s * d + t + 1, dev=cuda)
+    dout = torch.randn_like(q)
+    kw = dict(causal=causal, window=window, cap=cap)
+    out, lse = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
+    k_out, k_lse = fl_mod.flash_attention(q, k, v, return_lse=True, **kw)
+    torch.testing.assert_close(k_out, out, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(k_lse, lse, rtol=1e-5, atol=1e-5)
+    before = fl_mod.bwd_launches
+    got = fl_mod.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    again = fl_mod.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    assert fl_mod.bwd_launches == before + 2
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)
+        assert _max_rel(g, w) <= 1e-4
+
+
+def test_flash_attention_autograd_on_cuda_launches_both_kernels(cuda):
+    """``ops.flash_attention`` under autograd on a strided (B,S,H,D)
+    layout: one forward and one backward launch, gradients within 1e-4 of
+    autograd through the plain version."""
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(8)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(cuda).requires_grad_(True)
+        for shape in ((2, 150, 8, 64), (2, 150, 4, 64), (2, 150, 4, 64)))
+    dout = torch.randn(2, 150, 8, 64, device=cuda)
+    kw = dict(causal=True, window=40, cap=20.0)
+    f0, b0 = fl_mod.launches, fl_mod.bwd_launches
+    out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), **kw)
+    got = torch.autograd.grad(out.transpose(1, 2), (q, k, v), dout)
+    torch.cuda.synchronize()
+    assert (fl_mod.launches, fl_mod.bwd_launches) == (f0 + 1, b0 + 1)
+    want = torch.autograd.grad(ref.flash_attention_ref(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        **kw).transpose(1, 2), (q, k, v), dout)
+    for g, w in zip(got, want):
+        assert _max_rel(g, w) <= 1e-4
+
+
+@pytest.mark.parametrize("b,t,w", [(2, 64, 4096), (1, 37, 4099), (3, 1, 130),
+                                   (3, 75, 1000), (3, 75, 4099)])
+def test_rglru_scan_bwd_kernel_is_bitwise(cuda, b, t, w):
+    rng = np.random.default_rng(b * t + w + 1)
+    a, x, dh = (torch.from_numpy(arr.astype(np.float32)).to(cuda) for arr in (
+        rng.uniform(0.5, 0.999, (b, t, w)), rng.standard_normal((b, t, w)),
+        rng.standard_normal((b, t, w))))
+    h = ref.rglru_scan_ref(a, x)
+    before = sc_mod.bwd_launches
+    got = sc_mod.rglru_scan_bwd(a, h, dh)
+    torch.cuda.synchronize()
+    assert sc_mod.bwd_launches == before + 1
+    want = ref.rglru_scan_bwd_ref(a, h, dh)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_train_step_grads_on_cuda_match_cpu(cuda):
+    """One reduced stacked loss (gemma2-2b, 4 layers: two local/global
+    cycles, head dim 32) on the card and on the CPU from the same params:
+    the loss and every gradient leaf within 1e-4 of its max-abs; the card
+    launched each attention layer's forward twice (remat) and its backward
+    once."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import build_model, stacked
+    from repro_torch.tree import leaves, tree_map
+
+    cfg = reduced(get_config("gemma2-2b"), n_layers=4)
+    params = stacked.stack_params(build_model(cfg).init(0, "cpu"), cfg)
+    rng = np.random.default_rng(2)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                     (2, 160))),
+             "labels": torch.from_numpy(rng.integers(-1, cfg.vocab_size,
+                                                     (2, 160))),
+             "weight": torch.tensor([1.0, 2.0])}
+
+    def run(p, bt):
+        for x in leaves(p):
+            x.requires_grad_(True)
+        loss, _ = stacked.loss_fn(p, cfg, bt, remat=True)
+        loss.backward()
+        return loss.detach(), [x.grad for x in leaves(p)]
+
+    want_loss, want = run(params, batch)
+    params_c = tree_map(lambda x: x.detach().to(cuda), params)
+    f0, b0 = fl_mod.launches, fl_mod.bwd_launches
+    loss, got = run(params_c, {k: v.to(cuda) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    assert (fl_mod.launches - f0, fl_mod.bwd_launches - b0) == (8, 4)
+    assert abs(float(loss) - float(want_loss)) <= 1e-4 * abs(float(want_loss))
+    for g, w in zip(got, want):
+        assert _max_rel(g.cpu(), w) <= 1e-4

@@ -351,13 +351,33 @@ def test_decode_matches_forward(arch):
 
 
 @pytest.mark.parametrize("arch", ARCH_NAMES)
-def test_lm_configs_serve_without_a_loss(arch):
-    """Every LM config builds for serving; the training loss waits for
-    its slice (ROADMAP.md), so ``loss_fn`` is None."""
+def test_lm_configs_have_a_loss_fn(arch):
+    """Every LM config builds for serving and training: its ``loss_fn`` is
+    ``lm.loss_fn`` (held against the reference in
+    ``tests/test_torch_train.py``); on the reduced config it gives a finite
+    loss, its metrics and a gradient for every leaf."""
     model = build_model(get_config(arch))
-    assert model.loss_fn is None
-    assert None not in (model.forward, model.init_cache, model.prefill,
-                        model.decode_step)
+    assert None not in (model.loss_fn, model.forward, model.init_cache,
+                        model.prefill, model.decode_step)
+    cfg = reduced(get_config(arch), n_layers=2)
+    small = build_model(cfg)
+    params = small.init(0, "cpu")
+    for x in leaves(params):
+        x.requires_grad_(True)
+    rng = np.random.default_rng(3)
+    s = 128 if cfg.family == "ssm" else 16
+    batch = {"tokens": _t(rng.integers(0, cfg.vocab_size, (2, s))),
+             "labels": _t(rng.integers(-1, cfg.vocab_size, (2, s))),
+             "weight": _t(np.asarray([1.0, 3.0], np.float32))}
+    fe = _frontend(cfg, 2, rng)
+    if fe is not None:
+        batch["frontend"] = _t(fe)
+    loss, metrics = small.loss_fn(params, batch)
+    assert set(metrics) == {"ce", "aux", "acc"}
+    assert bool(torch.isfinite(loss))
+    loss.backward()
+    assert all(x.grad is not None and bool(torch.isfinite(x.grad).all())
+               for x in leaves(params))
 
 
 def test_serve_generate_on_cpu():
