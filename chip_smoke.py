@@ -52,8 +52,13 @@ exits non-zero on failure:
      under a cap or for the scan), the bound on the kernel's route (the
      attention backward runs its products as 3xTF32 on the tensor cores:
      3 x 10 D flops a live pair at 495 TFLOP/s; the f32 SIMT figure, 10 D
-     at 67 TFLOP/s, beside it) and ptxas's registers, shared memory and
-     spills.
+     at 67 TFLOP/s, beside it), its share of that bound, and the
+     backward's launch from its C planner (``plan``: the scratch bytes,
+     the prep pass's blocks, the kv-major and q-major blocks of the main
+     launch and which kind goes first, its dynamic shared memory, the
+     blocks an SM holds and the grid's waves) with ptxas's registers,
+     shared memory and spills of both kernels (``attn_bwd_prep``,
+     ``attn_bwd_main``).
   3. Drive the FedTune path on the card: ``FLServer`` with ``MLP_EMNIST``
      at full width (784-200-62, 169,462 params) over the full
      ``emnist_like`` federation, FedTune on, in sync (M=20, E=2, 5 rounds),
@@ -167,11 +172,15 @@ it exits 1 and prints no result.
 
     python3 chip_smoke.py --baseline OLD/src/repro_torch/kernels/csrc
 
-also builds another checkout's ``fed_reduce`` and ``fed_aggregate`` (same C
-entry points) and times them beside this checkout's on every phase-2 case,
-in turns (old, new, new, old), both through their C entry points; each
+also builds another checkout's ``fed_reduce``, ``fed_aggregate`` and
+``flash_attention_bwd`` and times them beside this checkout's on every
+phase-2 case and every phase-2c attention case, in turns (old, new, new,
+old), each through its own C entry point (the older attention backward
+takes a (B, H, S) delta buffer where this one takes its scratch); each
 case's line then carries ``old_ms`` and ``new_ms`` (two each) and whether
-the old kernel ran and agreed.
+the old kernel ran and agreed (bitwise for the FedTune kernels, within
+1e-4 of each gradient's max-abs against the plain version for the
+backward).
 """
 
 from __future__ import annotations
@@ -1308,9 +1317,42 @@ def ptxas_of(table, needle: str):
     return next(iter(hits.values())) if len(hits) == 1 else hits
 
 
-def train_kernel_cases(torch, np, card, flush, ptxas):
+def bwd_plan(torch, ptxas, b, h, kh, s_len, t_len, d, window):
+    """The backward's launch as its C planner gives it (scratch bytes,
+    blocks of the prep pass and of the main pass's kv-major and q-major
+    kinds, dynamic shared memory) with ptxas's report of both kernels and
+    the main grid's waves: its blocks over the SMs times the blocks an SM
+    holds (shared memory and registers)."""
+    import ctypes
+
+    from repro_torch.kernels import build
+
+    info = (ctypes.c_longlong * 5)()
+    scratch = build.library().flash_attention_bwd_plan_f32(
+        b, h, kh, s_len, t_len, d, 0 if window is None else int(window), info)
+    n_dkv, n_dq, n_prep, smem, dq_first = (int(x) for x in info)
+    main = ptxas_of(ptxas, f"attn_bwd_mainILi{d}E")
+    regs = main.get("registers", 255) if isinstance(main, dict) and main \
+        else 255
+    per_sm = max(1, min((228 * 1024) // (smem + 1024),
+                        65536 // (256 * (-(-regs // 8) * 8))))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return dict(scratch_bytes=int(scratch), prep_blocks=n_prep,
+                kv_major_blocks=n_dkv, q_major_blocks=n_dq,
+                q_major_first=bool(dq_first),
+                blocks_per_sm=per_sm, sms=sms,
+                waves=(n_dkv + n_dq) / (sms * per_sm),
+                dynamic_smem_bytes=smem,
+                ptxas=dict(main=main, prep=ptxas_of(
+                    ptxas, f"attn_bwd_prepILi{d}E")))
+
+
+def train_kernel_cases(torch, np, card, flush, ptxas, old_lib=None):
+    import ctypes
+
     import torch.nn.functional as F
 
+    from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fl_mod
     from repro_torch.kernels import ref
     from repro_torch.kernels import rglru_scan as sc_mod
@@ -1386,7 +1428,6 @@ def train_kernel_cases(torch, np, card, flush, ptxas):
             q, k, v, out, lse, dout, **kw), flush, iters=3, warmup=1)
         library_ms = None if lib is None else median_ms(torch, lib, flush,
                                                         iters=5)
-        smem = 4 * (6 * 32 * (d + 4) + 2 * 32 * 40 + 4 * 32)
         rec = dict(
             phase="train_kernel_check", kernel="flash_attention_bwd",
             case=name, shape=dict(B=b, H=h, Kh=kh, S=s_len, T=t_len, D=d),
@@ -1398,11 +1439,42 @@ def train_kernel_cases(torch, np, card, flush, ptxas):
             live_pairs=pairs, bytes=nbytes, flops=flops, bound_ms=bound_ms,
             bound_by=bound_by,
             bound_route="tf32x3: 3 x 10 D flops a live pair at 495 TFLOP/s",
-            bound_f32_simt_ms=simt_ms,
-            ptxas=dict(dkv=ptxas_of(ptxas, f"attn_bwd_dkvILi{d}E"),
-                       dq=ptxas_of(ptxas, f"attn_bwd_dqILi{d}E"),
-                       dynamic_smem_bytes=smem),
+            bound_f32_simt_ms=simt_ms, share_of_bound=bound_ms / ms,
+            plan=bwd_plan(torch, ptxas, b, h, kh, s_len, t_len, d, window),
             card=card)
+        if old_lib is not None and hasattr(old_lib,
+                                           "flash_attention_bwd_f32"):
+            # both through their C entry points: the older kernel takes a
+            # (B, H, S) delta buffer where this one takes its scratch
+            strides = (ctypes.c_longlong * 24)(*(
+                st for x in (q, k, v, out, dout, q, k, v)
+                for st in x.stride()[:3]))
+            outs = {}
+
+            def c_call(lib_, key, work_floats):
+                work = torch.empty(work_floats, dtype=torch.float32,
+                                   device=dev)
+                grads = tuple(torch.empty_like(x) for x in (q, k, v))
+                outs[key] = grads
+                return raw_call(
+                    torch, lib_.flash_attention_bwd_f32, q.data_ptr(),
+                    k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    dout.data_ptr(), lse.data_ptr(), work.data_ptr(),
+                    *(x.data_ptr() for x in grads), strides, b, h, kh,
+                    s_len, t_len, d, int(causal),
+                    0 if window is None else int(window), float(d ** -0.5),
+                    0.0 if cap is None else float(cap))
+
+            def old_agrees():
+                want_ = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout,
+                                                    **kw)
+                return max(max_rel(g, w) for g, w in zip(outs["old"],
+                                                         want_)) <= 1e-4
+            rec.update(old_vs_new(
+                torch, flush, c_call(old_lib, "old", b * h * s_len),
+                c_call(build.library(), "new",
+                       rec["plan"]["scratch_bytes"] // 4), old_agrees))
+            del outs
         emit(rec)
         results.append(rec)
         del q, k, v, dout, out, lse, got, lib
@@ -1928,7 +2000,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--baseline", type=Path, default=None,
                     help="another checkout's kernels/csrc: time its "
-                         "fed_reduce and fed_aggregate beside this one's")
+                         "fed_reduce, fed_aggregate and "
+                         "flash_attention_bwd beside this one's")
     args = ap.parse_args()
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"the port's sources are not beside this script ({SRC})")
@@ -1964,15 +2037,18 @@ def main():
 
     old_lib = None
     if args.baseline is not None:
-        old_lib = build.library(args.baseline.resolve(),
-                                ROOT / "build" / "kernels_baseline",
-                                ("fed_reduce.cu", "fed_aggregate.cu"))
+        # a checkout from before the training kernels has no backward
+        old_lib = build.library(
+            args.baseline.resolve(), ROOT / "build" / "kernels_baseline",
+            tuple(f for f in ("fed_reduce.cu", "fed_aggregate.cu",
+                              "flash_attention_bwd.cu")
+                  if (args.baseline / f).exists()))
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32,
                         device="cuda")
     cases, floor = kernel_cases(torch, np, card, flush, old_lib)
     cases += lm_kernel_cases(torch, np, card, flush)
     ptxas_fns = ptxas_table(log.read_text()) if log.exists() else {}
-    cases += train_kernel_cases(torch, np, card, flush, ptxas_fns)
+    cases += train_kernel_cases(torch, np, card, flush, ptxas_fns, old_lib)
     del flush
 
     from repro_torch.models import build_model

@@ -104,9 +104,11 @@ def build(csrc: Path = CSRC, build_dir: Path = BUILD_DIR,
 
 
 def _entry_points():
-    """Each source's C entry points and their argument types (pointers and
+    """Each source's C entry points, their argument types (pointers and
     the stream as ``c_void_p``, sizes as ``c_int``, strides as
-    ``c_longlong``, a host array of strides as a ``c_longlong`` pointer)."""
+    ``c_longlong``, a host array of strides or a result array as a
+    ``c_longlong`` pointer) and, where it is not ``c_int``, the result
+    type."""
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     f32 = ctypes.c_float
     return {
@@ -124,7 +126,9 @@ def _entry_points():
                                 + [f32] * 2 + [i32, ptr])],
         "flash_attention_bwd.cu": [("flash_attention_bwd_f32",
                                     [ptr] * 10 + [ctypes.POINTER(i64)]
-                                    + [i32] * 8 + [f32] * 2 + [i32, ptr])],
+                                    + [i32] * 8 + [f32] * 2 + [i32, ptr]),
+                                   ("flash_attention_bwd_plan_f32",
+                                    [i32] * 7 + [ctypes.POINTER(i64)], i64)],
     }
 
 
@@ -134,14 +138,18 @@ def library(csrc: Path = CSRC, build_dir: Path = BUILD_DIR,
     """The built kernels, loaded once per process, with every entry
     point's argument and result types declared.  The defaults are the
     port's own kernels; another ``csrc`` (an older checkout's, say)
-    builds into its own library beside them."""
+    builds into its own library beside them, and an entry point that an
+    older checkout does not have yet is left out of its library."""
     lib = ctypes.CDLL(str(build(csrc, build_dir, sources)))
+    own = Path(csrc).resolve() == CSRC
     for src, entries in _entry_points().items():
         if src in sources:
-            for name, argtypes in entries:
+            for name, argtypes, *restype in entries:
+                if not own and not hasattr(lib, name):
+                    continue
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.restype = restype[0] if restype else ctypes.c_int
     return lib
 
 

@@ -41,11 +41,14 @@ its launches do not change) and takes the gradient from
 ``flash_attention_bwd``: the Hopper kernel ``csrc/flash_attention_bwd.cu``
 (plain version ``ref.flash_attention_bwd_ref``), counted in
 ``bwd_launches``.  What bounds it is operations too (10 D flops a live
-pair: 2.08 ms as 3xTF32 at gemma2-2b's global layer); its products run on
-the tensor cores as warp-level ``mma.sync`` 3xTF32, it is deterministic (no
-atomics: a block owns a key tile of a kv head for dK/dV and walks all of
-its group's rows, another owns 32 rows for dQ), and it skips the tiles the
-mask leaves out.
+pair: 2.08 ms as 3xTF32 at gemma2-2b's global layer).  Its products run as
+``wgmma`` 3xTF32: a prep pass splits K and V once per call into operand
+planes and lays Q and dO out in 64-row tiles (with each row's lse and
+delta) in a scratch buffer this wrapper allocates; kv-major blocks (dK, dV)
+and q-major blocks (dQ, recomputing the scores) run in one launch, longest
+walks first, each streaming the other side's tiles through a ring of bulk
+copies.  It is deterministic (no atomics; tensor-core sums kept to one step
+and added in f32) and skips the tiles the mask leaves out.
 """
 
 from __future__ import annotations
@@ -187,12 +190,20 @@ def _launch_bwd(q, k, v, out, lse, dout, causal, window, cap):
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     if q.numel() == 0:
         return dq, dk, dv
-    delta = torch.empty((b, h, s), dtype=torch.float32, device=dev)
+    lib = build.library()
+    # scratch for the prep pass: split K/V planes and Q/dO row tiles
+    info = (ctypes.c_longlong * 5)()
+    nbytes = lib.flash_attention_bwd_plan_f32(
+        b, h, kh, s, t, d, 0 if window is None else int(window), info)
+    if nbytes < 0:
+        raise ValueError(f"flash_attention_bwd refuses the shape "
+                         f"{tuple(q.shape)} / {tuple(k.shape)}")
+    work = torch.empty(nbytes // 4, dtype=torch.float32, device=dev)
     strides = (ctypes.c_longlong * 24)(*(
         st for x in (q, k, v, out, dout, dq, dk, dv) for st in x.stride()[:3]))
-    err = build.library().flash_attention_bwd_f32(
+    err = lib.flash_attention_bwd_f32(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), work.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), strides, b, h, kh, s, t, d,
         int(causal), 0 if window is None else int(window), float(d ** -0.5),
         0.0 if cap is None else float(cap),

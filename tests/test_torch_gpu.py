@@ -25,8 +25,11 @@ queue through ``serve`` on the card (both kernels launch; the records keep
 the CPU drain's (M, E), costs and logs) and restore a killed drain's
 snapshot onto the card.  The training kernels: the forward's lse, the
 attention backward within 1e-4 of each gradient's max-abs and bitwise
-equal to itself run twice, the scan's reverse scan bitwise, and a reduced
-stacked loss's gradients on the card within 1e-4 of the CPU's.  This file
+equal to itself run twice (also at its tiles' edges: T not a multiple of
+the 32-key tile, S G not of the 64-row tile, a window inside one tile,
+G = 6 at D = 128, MQA walks of 150 steps, and a strided dout), the scan's
+reverse scan bitwise, and a reduced stacked loss's gradients on the card
+within 1e-4 of the CPU's.  This file
 imports no JAX, so it runs where only torch is.
 """
 
@@ -469,6 +472,11 @@ def _max_rel(got, want) -> float:
     (1, 2, 2, 65, 65, 128, False, 9, None),        # non-causal window
     (2, 4, 1, 100, 100, 32, True, None, None),     # ragged tiles at D=32
     (1, 14, 2, 272, 272, 64, True, None, None),    # G=7
+    (1, 4, 2, 100, 100, 64, True, None, None),     # T not a multiple of 32
+    (1, 6, 2, 50, 50, 128, True, None, 20.0),      # S G = 150, not of 64
+    (2, 4, 4, 90, 90, 64, True, 5, None),          # window < one key tile
+    (1, 12, 2, 120, 120, 128, True, None, None),   # D=128, G=6 (dbrx)
+    (1, 16, 1, 600, 600, 256, True, 300, None),    # MQA G=16: 150-step walks
 ])
 def test_flash_attention_bwd_kernel_matches_plain(cuda, b, h, kh, s, t, d,
                                                   causal, window, cap):
@@ -490,6 +498,21 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda, b, h, kh, s, t, d,
     want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
     for g, a, w in zip(got, again, want):
         assert torch.equal(g, a)
+        assert _max_rel(g, w) <= 1e-4
+
+
+def test_flash_attention_bwd_kernel_reads_strided_dout(cuda):
+    """A (B, S, H, D) ``dout`` viewed as (B, H, S, D), as the model's
+    layout hands it over: the kernel reads it through its strides and
+    matches the plain version on the same view."""
+    q, k, v = _qkv_cuda(2, 8, 2, 140, 140, 128, seed=21, dev=cuda)
+    dout = torch.randn(2, 140, 8, 128, device=cuda).transpose(1, 2)
+    assert not dout.is_contiguous()
+    kw = dict(causal=True, window=70, cap=None)
+    out, lse = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
+    got = fl_mod.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+    for g, w in zip(got, want):
         assert _max_rel(g, w) <= 1e-4
 
 
