@@ -162,12 +162,37 @@ pre-pass and the kernel alone timed as well) and without.
      loss within 1e-4, every gradient leaf within 1e-4 of its max-abs, and
      one ``fl_train_step``'s params and momentum likewise.
 
+  12. The paper's ResNets and its speech-command FedTune experiment.
+     12a: ResNet-10/18/26/34 (32x32x1, 35 classes) and ResNet-10/18 in
+     CIFAR-100's shape (3 channels, 100 classes), B=32, on the card and on
+     the CPU from the same params, with torch's default
+     ``cudnn.allow_tf32 = True`` in force: the tree's parameter count
+     (79,259 / 177,659 / 276,059 / 336,411); every convolution of the
+     card's forward and backward within 1e-4 of the same call in f64 on
+     the CPU (of the result's max-abs); logits and loss within 1e-4; two
+     card backward passes bitwise equal; the gradients' difference from
+     the CPU's beside the CPU's own change under a 1e-6 nudge of the
+     params (ReLU flips); forward+backward ms.  12b: ResNet-10 over the
+     full ``speech_command_like`` federation (2,112 clients) with
+     ``examples/fedtune_speech.py``'s settings, FedTune on, from one init:
+     sync 5 rounds sequential and batched, async 10 aggregations and
+     buffered K=8 2 flushes on the stragglers fleet, sync int8 3 rounds;
+     per run rounds/s, local steps/s, the (M, E) trajectory, costs and
+     both kernels' launches (each > 0 over the phase).  12c: the first 3
+     sync rounds on the CPU against the card's, and batched against
+     sequential on the card: (M, E) and cost totals equal, accuracy
+     within 0.01.  12d: ``fed_reduce`` at ResNet's shapes (N = 79,259 at
+     M = 5 and 20, N = 336,411 at M = 20, and the int8 round trip over
+     32 and 104 leaves with the plain pre-pass and the kernel timed
+     apart) and ``fed_aggregate`` at M=1, N=79,259, bitwise, with phase
+     2's columns.
+
 The last three lines are the card's name and power limit (as nvidia-smi
 gives them), the kernels' JSON summary (six entries: ``fed_reduce``,
 ``fed_aggregate``, ``flash_attention``, ``rglru_scan``,
 ``flash_attention_bwd`` and ``rglru_scan_bwd``; the launches are the main
-path's, phase 11's training steps included) and ``{"ok": true, "device":
-{...}}``.  Without a GPU, or without the port's sources beside this file,
+path's, phase 11's training steps and phase 12's trials included) and
+``{"ok": true, "device": {...}}``.  Without a GPU, or without the port's sources beside this file,
 it exits 1 and prints no result.
 
     python3 chip_smoke.py --baseline OLD/src/repro_torch/kernels/csrc
@@ -232,14 +257,16 @@ def bound(nbytes: float, flops: float, flops_per_s: float = F32_FLOPS_PER_S):
 
 def median_ms(torch, fn, flush, iters: int = 30, warmup: int = 3) -> float:
     """Median time of one ``fn()`` on the card.  Before each timed call a
-    256 MB memset evicts the 50 MB L2 and keeps the stream busy while the
-    host enqueues ``fn``, so the event pair brackets the device work (and
-    whatever host gaps ``fn`` itself leaves between its own launches)."""
+    256 MB memset (``flush``; None skips it) evicts the 50 MB L2 and keeps
+    the stream busy while the host enqueues ``fn``, so the event pair
+    brackets the device work (and whatever host gaps ``fn`` itself leaves
+    between its own launches)."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(iters):
-        flush.zero_()
+        if flush is not None:
+            flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -369,12 +396,58 @@ def fed_reduce_case(torch, card, flush, floor, name, w, rows, seg, t_seg,
     return rec
 
 
-def kernel_cases(torch, np, card, flush, old_lib=None):
+def fed_aggregate_case(torch, card, flush, floor, name, w, d, base,
+                       old_lib=None):
+    """``fed_aggregate`` on (w, d, base) held bitwise against its plain
+    version, timed beside its plain version and one ``torch.addmv``, with
+    its bound."""
     from repro_torch.kernels import build
     from repro_torch.kernels import fed_aggregate as fa_mod
-    from repro_torch.kernels import fed_reduce as fr_mod
     from repro_torch.kernels import ref
 
+    m, n = d.shape
+    got = fa_mod.fed_aggregate(w, d, base)
+    want = ref.fed_aggregate_ref(w, d, base)
+    torch.cuda.synchronize()
+    equal = bool(torch.equal(got, want))
+    err = float((got - want).abs().max())
+    check(equal, f"fed_aggregate {name}: kernel != plain version "
+                 f"(max abs err {err})")
+    nbytes = 4 * (m * n + m + 2 * n)
+    flops = 2 * m * n + n
+    bound_ms, bound_by = bound(nbytes, flops)
+    dt = d.t()
+    rec = dict(
+        phase="kernel_check", kernel="fed_aggregate", case=name,
+        shape=dict(M=m, N=n), check="bitwise", equal=equal,
+        max_abs_err=err,
+        ms=median_ms(torch, lambda: fa_mod.fed_aggregate(w, d, base),
+                     flush),
+        plain_ms=median_ms(torch, lambda: ref.fed_aggregate_ref(
+            w, d, base), flush),
+        library_ms=median_ms(torch, lambda: torch.addmv(base, dt, w),
+                             flush),
+        library_call="torch.addmv(base, deltas.T, w)",
+        bytes=nbytes, flops=flops, bound_ms=bound_ms, bound_by=bound_by,
+        launch_floor_ms=floor, card=card)
+    if old_lib is not None:
+        outs = {}
+
+        def c_call(lib, key):
+            out = torch.empty((n,), dtype=torch.float32, device=d.device)
+            outs[key] = out
+            return raw_call(torch, lib.fed_aggregate_f32, w.data_ptr(),
+                            d.data_ptr(), base.data_ptr(), out.data_ptr(),
+                            m, n)
+        rec.update(old_vs_new(
+            torch, flush, c_call(old_lib, "old"),
+            c_call(build.library(), "new"),
+            lambda: bool(torch.equal(outs["old"], want))))
+    emit(rec)
+    return rec
+
+
+def kernel_cases(torch, np, card, flush, old_lib=None):
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     n = N_PARAMS
@@ -435,48 +508,11 @@ def kernel_cases(torch, np, card, flush, old_lib=None):
         torch.cuda.empty_cache()
 
     def aggregate_case(name, m):
-        w = t(rng.uniform(0.0, 1.0, m).astype(np.float32))
-        d = t(rng.standard_normal((m, n)).astype(np.float32) * 0.05)
-        base = t(rng.standard_normal(n).astype(np.float32) * 0.05)
-        got = fa_mod.fed_aggregate(w, d, base)
-        want = ref.fed_aggregate_ref(w, d, base)
-        torch.cuda.synchronize()
-        equal = bool(torch.equal(got, want))
-        err = float((got - want).abs().max())
-        check(equal, f"fed_aggregate {name}: kernel != plain version "
-                     f"(max abs err {err})")
-        nbytes = 4 * (m * n + m + 2 * n)
-        flops = 2 * m * n + n
-        bound_ms, bound_by = bound(nbytes, flops)
-        dt = d.t()
-        rec = dict(
-            phase="kernel_check", kernel="fed_aggregate", case=name,
-            shape=dict(M=m, N=n), check="bitwise", equal=equal,
-            max_abs_err=err,
-            ms=median_ms(torch, lambda: fa_mod.fed_aggregate(w, d, base),
-                         flush),
-            plain_ms=median_ms(torch, lambda: ref.fed_aggregate_ref(
-                w, d, base), flush),
-            library_ms=median_ms(torch, lambda: torch.addmv(base, dt, w),
-                                 flush),
-            library_call="torch.addmv(base, deltas.T, w)",
-            bytes=nbytes, flops=flops, bound_ms=bound_ms, bound_by=bound_by,
-            launch_floor_ms=floor, card=card)
-        if old_lib is not None:
-            outs = {}
-
-            def c_call(lib, key):
-                out = torch.empty((n,), dtype=torch.float32, device=dev)
-                outs[key] = out
-                return raw_call(torch, lib.fed_aggregate_f32, w.data_ptr(),
-                                d.data_ptr(), base.data_ptr(), out.data_ptr(),
-                                m, n)
-            rec.update(old_vs_new(
-                torch, flush, c_call(old_lib, "old"),
-                c_call(build.library(), "new"),
-                lambda: bool(torch.equal(outs["old"], want))))
-        emit(rec)
-        results.append(rec)
+        results.append(fed_aggregate_case(
+            torch, card, flush, floor, name,
+            t(rng.uniform(0.0, 1.0, m).astype(np.float32)),
+            t(rng.standard_normal((m, n)).astype(np.float32) * 0.05),
+            t(rng.standard_normal(n).astype(np.float32) * 0.05), old_lib))
 
     aggregate_case("fedasync_mix", 1)
     aggregate_case("m16", 16)
@@ -676,6 +712,36 @@ def main_path(torch, card, init_params):
     return runs, launches
 
 
+def same_records(label, ref_hist, hist, n_rounds):
+    """The FedTune record rule over the first ``n_rounds`` rounds of two
+    histories: (M, E) per round and the cost totals (the cost model's own
+    summation) equal, accuracy within 0.01 (ROADMAP.md section 3,
+    departure 7)."""
+    ref_hist, hist = ref_hist[:n_rounds], hist[:n_rounds]
+    check(len(ref_hist) == len(hist) == n_rounds,
+          f"{label}: {len(ref_hist)} and {len(hist)} rounds, wanted "
+          f"{n_rounds}")
+    me_ref = [(h.m, h.e) for h in ref_hist]
+    me = [(h.m, h.e) for h in hist]
+    check(me_ref == me, f"{label}: (M, E) per round differ: {me_ref} "
+                        f"against {me}")
+    totals = []
+    for hs in (ref_hist, hist):
+        tot = [0.0, 0.0, 0.0, 0.0]
+        for h in hs:
+            tot = [a + b for a, b in zip(tot, h.cost.as_tuple())]
+        totals.append(tot)
+    check(totals[0] == totals[1], f"{label}: cost totals differ: "
+                                  f"{totals[0]} against {totals[1]}")
+    acc_ref = [h.accuracy for h in ref_hist]
+    acc = [h.accuracy for h in hist]
+    diff = max(abs(a - b) for a, b in zip(acc_ref, acc))
+    check(diff <= 0.01, f"{label}: accuracy differs by {diff} > 0.01: "
+                        f"{acc_ref} against {acc}")
+    return dict(rounds=n_rounds, m_e=me, costs_equal=True, acc_ref=acc_ref,
+                acc=acc, max_acc_diff=diff)
+
+
 def card_vs_cpu(sync_res, init_params):
     from repro_torch.launch.profile_trial import smoke_server
 
@@ -684,24 +750,11 @@ def card_vs_cpu(sync_res, init_params):
     t0 = time.perf_counter()
     cpu = srv.run(init_params)
     wall = time.perf_counter() - t0
-    card_hist = sync_res.history[:n_rounds]
-    me_card = [(h.m, h.e) for h in card_hist]
-    me_cpu = [(h.m, h.e) for h in cpu.history]
-    check(me_card == me_cpu, f"(M, E) per round differ: card {me_card}, "
-                             f"cpu {me_cpu}")
-    tot = [0.0, 0.0, 0.0, 0.0]
-    for h in card_hist:                  # the cost model's own summation
-        tot = [a + b for a, b in zip(tot, h.cost.as_tuple())]
-    check(tuple(tot) == cpu.total_cost.as_tuple(),
-          f"cost totals differ: card {tot}, cpu {cpu.total_cost.as_tuple()}")
-    acc_card = [h.accuracy for h in card_hist]
-    acc_cpu = [h.accuracy for h in cpu.history]
-    diff = max(abs(a - b) for a, b in zip(acc_card, acc_cpu))
-    check(diff <= 0.01, f"accuracy differs by {diff} > 0.01: card "
-                        f"{acc_card}, cpu {acc_cpu}")
-    emit(dict(phase="card_vs_cpu", rounds=n_rounds, m_e=me_cpu,
-              costs_equal=True, acc_card=acc_card, acc_cpu=acc_cpu,
-              max_acc_diff=diff, cpu_wall_s=wall))
+    rec = same_records("card vs cpu", sync_res.history, cpu.history,
+                       n_rounds)
+    emit(dict(phase="card_vs_cpu", rounds=n_rounds, m_e=rec["m_e"],
+              costs_equal=True, acc_card=rec["acc_ref"], acc_cpu=rec["acc"],
+              max_acc_diff=rec["max_acc_diff"], cpu_wall_s=wall))
 
 
 # ---------------------------------------------------------------------------
@@ -1996,6 +2049,285 @@ def zoo_card_vs_cpu(torch, np):
         ffn_mod._route = inner
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the paper's ResNets and its speech-command FedTune experiment
+# ---------------------------------------------------------------------------
+
+# name, BasicBlocks per stage, in_channels, n_classes, the reference tree's
+# parameter count (Table 2's four in the speech shape; two in CIFAR-100's)
+RESNETS = (("resnet10", (1, 1, 1, 1), 1, 35, 79_259),
+           ("resnet18", (2, 2, 2, 2), 1, 35, 177_659),
+           ("resnet26", (3, 3, 3, 3), 1, 35, 276_059),
+           ("resnet34", (3, 4, 6, 3), 1, 35, 336_411),
+           ("resnet10_cifar100", (1, 1, 1, 1), 3, 100, 83_628),
+           ("resnet18_cifar100", (2, 2, 2, 2), 3, 100, 182_028))
+
+
+def resnet_models(torch, np, card):
+    """Phase 12a: each ResNet at B=32 on the card against the CPU from the
+    same params and images, with torch's default ``cudnn.allow_tf32 =
+    True`` in force: the model's own guard must keep its convolutions in
+    f32.  Every convolution of the card's forward and backward is held
+    against the same call in f64 on the CPU, on the card's own inputs,
+    within 1e-4 of the result's max-abs (TF32 misses that by ~10x); the
+    logits and loss end to end within 1e-4 of the CPU's.  The gradients
+    end to end are reported beside the CPU's own change when the params
+    move by a relative 1e-6: a ReLU input within rounding of 0 takes the
+    other side on the other device, so a deep ReLU net's f32 gradients
+    need not agree to 1e-4 of a leaf's max-abs (ROADMAP.md section 3).
+    Two card backward passes must be bitwise equal.  Prints the card's
+    forward+backward time."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs.paper_models import resnet
+    from repro_torch.models import build_model
+    from repro_torch.models import resnet as resnet_mod
+    from repro_torch.tree import leaves, unflatten_like
+
+    conv = resnet_mod._Conv2d
+    fwd0, bwd0 = conv.forward, conv.backward
+    op_errs = None                    # a list while recording
+
+    def rel(got, want):
+        return float((got.double().cpu() - want).abs().max()
+                     / max(float(want.abs().max()), 1e-30))
+
+    def fwd(x, w, stride, padding):
+        out = fwd0(x, w, stride, padding)
+        if op_errs is not None and x.is_cuda:
+            op_errs.append(("fprop", rel(out, F.conv2d(
+                x.double().cpu(), w.double().cpu(), stride=stride,
+                padding=padding))))
+        return out
+
+    def bwd(ctx, grad):
+        gx, gw, a, b = bwd0(ctx, grad)
+        if op_errs is not None and grad.is_cuda:
+            x, w = ctx.saved_tensors
+            rx, rw, _ = torch.ops.aten.convolution_backward(
+                grad.double().cpu(), x.double().cpu(), w.double().cpu(),
+                None, list(ctx.stride), list(ctx.padding), [1, 1], False,
+                [0, 0], 1, [gx is not None, True, False])
+            if gx is not None:
+                op_errs.append(("dgrad", rel(gx, rx)))
+            op_errs.append(("wgrad", rel(gw, rw)))
+        return gx, gw, a, b
+
+    def train_step(model, template, flat, x, y, scale=None):
+        if scale is not None:
+            flat = [t * s for t, s in zip(flat, scale)]
+        p = [t.detach().requires_grad_(True) for t in flat]
+        loss, _ = model.loss_fn(unflatten_like(template, p),
+                                {"x": x, "y": y})
+        return loss.detach(), torch.autograd.grad(loss, p)
+
+    def max_rel(got, want):
+        return max(float((g.cpu() - w).abs().max())
+                   / max(float(w.abs().max()), 1e-30)
+                   for g, w in zip(got, want))
+
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    conv.forward, conv.backward = staticmethod(fwd), staticmethod(bwd)
+    try:
+        for i, (name, blocks, ch, n_cls, count) in enumerate(RESNETS):
+            model = build_model(resnet(name, blocks, n_classes=n_cls,
+                                       in_channels=ch))
+            p_cpu = model.init(i, "cpu")
+            flat = leaves(p_cpu)
+            n = sum(t.numel() for t in flat)
+            check(n == count, f"12a {name}: {n} params, the reference's "
+                              f"tree has {count}")
+            rng = np.random.default_rng(100 + i)
+            x = torch.from_numpy(rng.standard_normal(
+                (32, 32, 32, ch)).astype(np.float32))
+            y = torch.from_numpy(rng.integers(0, n_cls, 32))
+            gen = torch.Generator().manual_seed(i)
+            nudge = [1.0 + 1e-6 * torch.randn(t.shape, generator=gen)
+                     for t in flat]
+            loss_cpu, g_cpu = train_step(model, p_cpu, flat, x, y)
+            _, g_nudged = train_step(model, p_cpu, flat, x, y, nudge)
+            with torch.no_grad():
+                logits_cpu = model.forward(p_cpu, x)
+            dev_flat = [t.cuda() for t in flat]
+            xd, yd = x.cuda(), y.cuda()
+            op_errs = []
+            with torch.no_grad():
+                logits = model.forward(unflatten_like(p_cpu, dev_flat), xd)
+            loss, g_card = train_step(model, p_cpu, dev_flat, xd, yd)
+            errs, op_errs = op_errs, None
+            _, g_again = train_step(model, p_cpu, dev_flat, xd, yd)
+            torch.cuda.synchronize()
+            check(torch.backends.cudnn.allow_tf32,
+                  f"12a {name}: the model's guard did not restore the "
+                  "caller's cudnn.allow_tf32")
+            worst = {k: max(e for kind, e in errs if kind == k)
+                     for k in ("fprop", "dgrad", "wgrad")}
+            logit_err = float((logits.cpu() - logits_cpu).abs().max())
+            loss_err = abs(float(loss) - float(loss_cpu))
+            repeat = all(torch.equal(a, b) for a, b in zip(g_card, g_again))
+            check(max(worst.values()) <= 1e-4,
+                  f"12a {name}: a convolution on the card is off its f64 "
+                  f"value by {worst} of its max-abs > 1e-4")
+            check(logit_err <= 1e-4, f"12a {name}: logits differ by "
+                                     f"{logit_err} > 1e-4")
+            check(loss_err <= 1e-4, f"12a {name}: loss differs by "
+                                    f"{loss_err}")
+            check(repeat, f"12a {name}: two card backward passes differ")
+            ms = median_ms(torch, lambda: train_step(
+                model, p_cpu, dev_flat, xd, yd), None, iters=20)
+            emit(dict(phase="resnet_models", model=name, blocks=blocks,
+                      in_channels=ch, n_classes=n_cls, params=n,
+                      leaves=len(flat), batch=32, image=32,
+                      cudnn_allow_tf32_in_force=True,
+                      convolutions_checked=len(errs),
+                      max_conv_err_of_max_abs=worst,
+                      max_abs_logit_err=logit_err, loss_err=loss_err,
+                      grad_err_of_max_abs=max_rel(g_card, g_cpu),
+                      cpu_grad_change_at_1e6_nudge=max_rel(g_nudged,
+                                                           g_cpu),
+                      card_repeat_bitwise=repeat, fwd_bwd_ms=ms,
+                      card=card))
+    finally:
+        conv.forward, conv.backward = staticmethod(fwd0), staticmethod(bwd0)
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+def speech_trials(torch, card):
+    """Phase 12b: ResNet-10 over the full ``speech_command_like``
+    federation with ``examples/fedtune_speech.py``'s settings
+    (``profile_trial.smoke_server(model_cfg=RESNET10)``), FedTune on, from
+    one set of initial params.  Each kernel's launch count is set to 0
+    just before each run and read just after."""
+    from repro_torch.configs.paper_models import RESNET10
+    from repro_torch.kernels import fed_aggregate as fa_mod
+    from repro_torch.kernels import fed_reduce as fr_mod
+    from repro_torch.launch.profile_trial import smoke_server
+    from repro_torch.models import build_model
+    from repro_torch.tree import leaves, tree_map
+
+    init_params = build_model(RESNET10).init(0, "cpu")
+    plans = (("sync", "sync", dict(max_rounds=5)),
+             ("sync_batched", "sync", dict(max_rounds=5,
+                                           client_exec="batched")),
+             ("async", "async", dict(max_rounds=10,
+                                     fleet_name="stragglers")),
+             ("buffered", "buffered", dict(max_rounds=2, buffer_k=8,
+                                           fleet_name="stragglers")),
+             ("sync_int8", "sync", dict(max_rounds=3, compression="int8")))
+    runs = {}
+    launches = {"fed_reduce": 0, "fed_aggregate": 0}
+    for label, mode, kw in plans:
+        srv = smoke_server(mode, model_cfg=RESNET10, device="cuda", **kw)
+        params = tree_map(lambda p: p.to("cuda"), init_params)
+        torch.cuda.synchronize()
+        fr_mod.launches = 0
+        fa_mod.launches = 0
+        t0 = time.perf_counter()
+        res = srv.run(params)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {"fed_reduce": fr_mod.launches,
+                  "fed_aggregate": fa_mod.launches}
+        for k, v in counts.items():
+            launches[k] += v
+        check(res.rounds == kw["max_rounds"],
+              f"12b {label}: ran {res.rounds} aggregations, wanted "
+              f"{kw['max_rounds']}")
+        check(all(p.device.type == "cuda" for p in leaves(res.params)),
+              f"12b {label}: final params are not all on cuda")
+        accs = [h.accuracy for h in res.history]
+        check(all(math.isfinite(a) and 0.0 <= a <= 1.0 for a in accs),
+              f"12b {label}: accuracy not finite in [0, 1]: {accs}")
+        check(all(c > 0 for c in res.total_cost.as_tuple()),
+              f"12b {label}: cost totals not all positive")
+        check(srv.local_steps > 0, f"12b {label}: no local steps ran")
+        emit(dict(phase="speech_trial", run=label, mode=mode,
+                  model="resnet10",
+                  params=sum(p.numel() for p in leaves(init_params)),
+                  clients=srv.dataset.n_clients, rounds=res.rounds,
+                  m_e=[(h.m, h.e) for h in res.history], accuracy=accs,
+                  costs=list(res.total_cost.as_tuple()),
+                  sim_time=res.sim_time, wall_s=wall,
+                  rounds_per_s=res.rounds / wall,
+                  local_steps=srv.local_steps,
+                  local_steps_per_s=srv.local_steps / wall,
+                  launches=counts, card=card))
+        runs[label] = res
+    check(launches["fed_reduce"] > 0, "12b: fed_reduce never launched")
+    check(launches["fed_aggregate"] > 0, "12b: fed_aggregate never launched")
+    return runs, launches, init_params
+
+
+def speech_card_vs_cpu(runs, init_params):
+    """Phase 12c: the first 3 sync rounds on the CPU from the same initial
+    params against the card's, and the card's batched cohort against its
+    sequential clients, by the record rule (``same_records``)."""
+    from repro_torch.configs.paper_models import RESNET10
+    from repro_torch.launch.profile_trial import smoke_server
+
+    n_rounds = 3
+    srv = smoke_server("sync", model_cfg=RESNET10, max_rounds=n_rounds,
+                       device="cpu")
+    t0 = time.perf_counter()
+    cpu = srv.run(init_params)
+    wall = time.perf_counter() - t0
+    emit(dict(phase="speech_card_vs_cpu", cpu_wall_s=wall,
+              **same_records("12c card vs cpu", runs["sync"].history,
+                             cpu.history, n_rounds)))
+    emit(dict(phase="speech_batched_vs_sequential",
+              **same_records("12c batched vs sequential",
+                             runs["sync"].history,
+                             runs["sync_batched"].history, n_rounds)))
+
+
+def resnet_kernel_cases(torch, np, card, floor):
+    """Phase 12d: ``fed_reduce`` and ``fed_aggregate`` at ResNet's shapes
+    (N = 79,259 and 336,411; the int8 pre-pass over its 32 and 104
+    leaves), each held bitwise against its plain version."""
+    from repro_torch.configs.paper_models import RESNET10, RESNET34
+    from repro_torch.models import build_model
+    from repro_torch.tree import leaves
+
+    rng = np.random.default_rng(12)
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32,
+                        device="cuda")
+    out = []
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a)).cuda()
+
+    for tag, cfg in (("resnet10", RESNET10), ("resnet34", RESNET34)):
+        sizes = tuple(p.numel() for p in leaves(
+            build_model(cfg).init(0, "cpu")))
+        n = sum(sizes)
+        for m in ((5, 20) if tag == "resnet10" else (20,)):
+            name = f"{tag}_fedavg" + (f"_m{m}" if tag == "resnet10" else "")
+            out.append(fed_reduce_case(
+                torch, card, flush, floor, name, t(rng.integers(
+                    1, 317, m).astype(np.float32)),
+                t(rng.standard_normal((m, n)).astype(np.float32) * 0.05),
+                t(np.zeros(m, np.int32)), 1, None, True))
+        m = 20
+        g = rng.standard_normal((1, n)).astype(np.float32) * 0.05
+        rows = g + rng.standard_normal((m, n)).astype(np.float32) * 1e-2
+        rec = fed_reduce_case(
+            torch, card, flush, floor, f"{tag}_int8",
+            t(rng.integers(1, 317, m).astype(np.float32)), t(rows),
+            t(np.zeros(m, np.int32)), 1, None, True,
+            (t(g), t(np.ones(m, bool))), sizes)
+        rec["leaves"] = len(sizes)
+        out.append(rec)
+    n = 79_259
+    out.append(fed_aggregate_case(
+        torch, card, flush, floor, "resnet10_fedasync",
+        t(rng.uniform(0.0, 1.0, 1).astype(np.float32)),
+        t(rng.standard_normal((1, n)).astype(np.float32) * 0.05),
+        t(rng.standard_normal(n).astype(np.float32) * 0.05)))
+    del flush
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--baseline", type=Path, default=None,
@@ -2084,6 +2416,16 @@ def main():
     for k, v in train_full_width(torch, card).items():
         launches[k] = launches.get(k, 0) + v
     train_card_vs_cpu(torch, np)
+
+    torch.cuda.empty_cache()
+    t12 = time.perf_counter()
+    resnet_models(torch, np, card)
+    speech_runs, speech_launches, speech_init = speech_trials(torch, card)
+    for k, v in speech_launches.items():
+        launches[k] += v
+    speech_card_vs_cpu(speech_runs, speech_init)
+    cases += resnet_kernel_cases(torch, np, card, floor)
+    emit(dict(phase="resnet_phase", seconds=time.perf_counter() - t12))
 
     summary = []
     csrc = "src/repro_torch/kernels/csrc"

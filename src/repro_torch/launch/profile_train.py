@@ -24,7 +24,8 @@ import argparse
 import json
 import time
 
-from repro_torch.launch.profile_trial import card_name, device_activity
+from repro_torch.launch.profile_trial import (by_class, card_name,
+                                              device_activity)
 
 
 def kernel_class(name: str) -> str:
@@ -95,11 +96,6 @@ def main(argv=None):
                              ProfilerActivity.CUDA]) as prof:
         wall_s, loss = one_step()
     act = device_activity(torch, prof)
-    split = {}
-    for kname, n, ms in act["by_name"]:
-        k = kernel_class(kname)
-        cnt, tot = split.get(k, (0, 0.0))
-        split[k] = (cnt + n, tot + ms)
     print(json.dumps(dict(
         phase="train_step", arch=cfg.name, layers=cfg.n_layers, batch=b,
         seq_len=s, microbatches=args.microbatches, remat=True, loss=loss,
@@ -107,8 +103,7 @@ def main(argv=None):
         train_tok_per_s=b * s / wall_s, device_busy_s=act["busy_s"],
         device_idle_share=1.0 - act["busy_s"] / wall_s,
         activities=act["activities"],
-        device_ms_by_class={k: {"count": c, "ms": ms}
-                            for k, (c, ms) in sorted(split.items())},
+        device_ms_by_class=by_class(act["by_name"], kernel_class),
         peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
         top_device=act["top_device"], top_host=act["top_host"],
         card=card_name())), flush=True)

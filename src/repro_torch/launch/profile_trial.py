@@ -1,18 +1,24 @@
 """Where a trial's time goes on the card: one sync FedTune trial under
 ``torch.profiler``.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile_trial [--rounds 3]
+    PYTHONPATH=src python -m repro_torch.launch.profile_trial \
+        [--model mlp_emnist|resnet10] [--rounds 3]
 
 Configuration (``smoke_server``, which ``chip_smoke.py`` also drives):
-``MLP_EMNIST`` at full width over the full ``emnist_like`` federation,
-FedAvg, SGD lr 0.03 momentum 0.9, batch 10, M=20, E=2, FedTune preference
-(0.25, 0.25, 0.25, 0.25).  One round runs first, unprofiled, to warm up.
-Prints one JSON line: the same run's wall time unprofiled and profiled, the
-device's busy time (the union of its kernels, copies and memsets) and idle
-share in the profiled window, device activities per local step, the top
-kernels by device time and operators by host time, and the server step's
-device time per round: the ``fed_reduce`` kernel and the packing around it.  Needs a GPU; raises
-without one.
+FedAvg, E=2, FedTune preference (0.25, 0.25, 0.25, 0.25) started from
+(M, 2), over the model's full federation.  ``mlp_emnist`` (the default):
+``MLP_EMNIST`` over ``emnist_like``, SGD lr 0.03 momentum 0.9, batch 10,
+M=20.  ``resnet10``: Table 2's ResNet-10 over ``speech_command_like``
+(2,112 clients, 32x32x1, 35 classes) with ``examples/fedtune_speech.py``'s
+settings: SGD lr 0.05 momentum 0.9, batch 5, M=5.  One round runs first,
+unprofiled, to warm up.  Prints one JSON line: the same run's wall time
+unprofiled and profiled, the device's busy time (the union of its kernels,
+copies and memsets) and idle share in the profiled window, device
+activities per local step, the device time by class (convolutions,
+matrix products, ``fed_reduce``, copies, and GroupNorm, elementwise and
+the rest), the top kernels by device time and operators by host time, and
+the server step's device time per round: the ``fed_reduce`` kernel and the
+packing around it.  Needs a GPU; raises without one.
 """
 
 from __future__ import annotations
@@ -21,10 +27,13 @@ import argparse
 import json
 import subprocess
 import time
+from typing import Optional
 
+from repro_torch.configs.paper_models import MLP_EMNIST, RESNET10, MLPConfig
 from repro_torch.federated.server import FLServer
 
 N_PARAMS = 169_462
+MODELS = {"mlp_emnist": MLP_EMNIST, "resnet10": RESNET10}
 
 
 class CountingServer(FLServer):
@@ -37,42 +46,92 @@ class CountingServer(FLServer):
         return upd, n
 
 
-def smoke_server(mode: str = "sync", *, m: int = 20, max_rounds: int,
-                 device, buffer_k: int = 8, fleet_name=None
-                 ) -> CountingServer:
-    """The smoke configuration (also ``chip_smoke.py``'s): ``MLP_EMNIST``
-    over the full ``emnist_like`` federation, FedAvg, SGD lr 0.03 momentum
-    0.9, batch 10, E=2, FedTune on, in ``mode`` over ``fleet_name`` (None
-    is the homogeneous fleet)."""
-    from repro_torch.configs.paper_models import MLP_EMNIST
+class _CountingAggregator:
+    """The aggregator, adding the local steps of the updates it combines to
+    ``server.local_steps``: a batched sync round's updates come from one
+    packed cohort, not through ``_client_update``."""
+
+    def __init__(self, inner, server):
+        self.inner, self.server = inner, server
+
+    def __call__(self, params, updates):
+        self.server.local_steps += sum(u.n_steps for u in updates)
+        return self.inner(params, updates)
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+
+def smoke_server(mode: str = "sync", *, model_cfg=MLP_EMNIST,
+                 m: Optional[int] = None, max_rounds: int, device, buffer_k: int = 8,
+                 fleet_name=None, compression=None,
+                 client_exec: str = "sequential") -> CountingServer:
+    """The smoke configuration (also ``chip_smoke.py``'s) of ``model_cfg``
+    (``MLP_EMNIST`` or a ResNet in the speech shape; see the module
+    docstring), in ``mode`` over ``fleet_name`` (None is the homogeneous
+    fleet), with ``compression`` of the uploads and ``client_exec`` for
+    sync rounds.  ``m`` defaults to 20 for the MLP, 5 for a ResNet."""
     from repro_torch.core import CostModel, FedTune, FedTuneConfig, Preference
     from repro_torch.core.tuner import HyperParams
-    from repro_torch.data import emnist_like
+    from repro_torch.data import emnist_like, speech_command_like
     from repro_torch.federated import FLConfig, get_aggregator
     from repro_torch.models import build_model
     from repro_torch.optim.optimizers import get_optimizer
     from repro_torch.runtime import RuntimeConfig, sample_fleet
+    from repro_torch.tree import leaves
 
-    dataset = emnist_like(seed=0)
+    model = build_model(model_cfg)
+    if isinstance(model_cfg, MLPConfig):
+        dataset = emnist_like(seed=0)
+        m, lr, batch = m or 20, 0.03, 10
+        cost = CostModel(flops_per_example=2 * N_PARAMS, param_count=N_PARAMS)
+    else:
+        dataset = speech_command_like(seed=0)
+        m, lr, batch = m or 5, 0.05, 5
+        n = sum(t.numel() for t in leaves(model.init(0, "cpu")))
+        cost = CostModel(flops_per_example=model.flops_per_example,
+                         param_count=n)
     e = 2.0
     fleet = (None if fleet_name is None
              else sample_fleet(fleet_name, dataset.n_clients, seed=0))
-    return CountingServer(
-        build_model(MLP_EMNIST), dataset, get_aggregator("fedavg"),
-        get_optimizer("sgd", 0.03, momentum=0.9),
-        CostModel(flops_per_example=2 * N_PARAMS, param_count=N_PARAMS),
-        FLConfig(m=m, e=e, batch_size=10, target_accuracy=0.99,
-                 max_rounds=max_rounds, eval_points=1024),
+    srv = CountingServer(
+        model, dataset, get_aggregator("fedavg"),
+        get_optimizer("sgd", lr, momentum=0.9), cost,
+        FLConfig(m=m, e=e, batch_size=batch, target_accuracy=0.99,
+                 max_rounds=max_rounds, eval_points=1024,
+                 compression=compression),
         tuner=FedTune(FedTuneConfig(
             preference=Preference(0.25, 0.25, 0.25, 0.25)),
             HyperParams(m, e)),
-        fleet=fleet, runtime_config=RuntimeConfig(mode=mode,
-                                                  buffer_k=buffer_k),
+        fleet=fleet, runtime_config=RuntimeConfig(
+            mode=mode, buffer_k=buffer_k, client_exec=client_exec),
         device=device)
+    if client_exec == "batched":
+        srv.aggregator = _CountingAggregator(srv.aggregator, srv)
+    return srv
+
+
+def kernel_class(name: str) -> str:
+    """A trial's device activity by class: cuDNN's convolutions (forward,
+    data and weight gradients), cuBLAS's products (the MLP's layers, a
+    ResNet's head), ``fed_reduce``, copies, and the rest (GroupNorm's
+    reductions and elementwise passes, the optimizer, the loss)."""
+    n = name.lower()
+    if "fed_reduce_kernel" in n:
+        return "fed_reduce"
+    if "memcpy" in n or "memset" in n:
+        return "copies"
+    if any(k in n for k in ("conv", "fprop", "dgrad", "wgrad", "cudnn",
+                            "implicit", "winograd")):
+        return "convolution"
+    if any(k in n for k in ("gemm", "gemv", "cutlass", "xmma", "dot_kernel")):
+        return "matmul"
+    return "groupnorm_elementwise_and_other"
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--model", choices=sorted(MODELS), default="mlp_emnist")
     ap.add_argument("--rounds", type=int, default=3)
     args = ap.parse_args(argv)
 
@@ -83,14 +142,15 @@ def main(argv=None):
 
     device = resolve_device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
-    smoke_server(max_rounds=1, device=device).run()  # warm-up
+    cfg = MODELS[args.model]
+    smoke_server(model_cfg=cfg, max_rounds=1, device=device).run()  # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()                         # the same run, unprofiled
-    smoke_server(max_rounds=args.rounds, device=device).run()
+    smoke_server(model_cfg=cfg, max_rounds=args.rounds, device=device).run()
     torch.cuda.synchronize()
     plain_wall_s = time.perf_counter() - t0
 
-    srv = smoke_server(max_rounds=args.rounds, device=device)
+    srv = smoke_server(model_cfg=cfg, max_rounds=args.rounds, device=device)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -99,15 +159,28 @@ def main(argv=None):
         wall_s = time.perf_counter() - t0
     act = device_activity(torch, prof)
     print(json.dumps(dict(
-        rounds=res.rounds, local_steps=srv.local_steps,
+        model=args.model, rounds=res.rounds, local_steps=srv.local_steps,
+        m_e=[(h.m, h.e) for h in res.history],
         unprofiled_wall_s=plain_wall_s, wall_s=wall_s,
         device_busy_s=act["busy_s"],
         device_idle_share=1.0 - act["busy_s"] / wall_s,
         kernel_launches=act["activities"],
         launches_per_step=act["activities"] / max(srv.local_steps, 1),
+        device_ms_by_class=by_class(act["by_name"], kernel_class),
         top_device=act["top_device"], top_host=act["top_host"],
         aggregation=aggregation_split(act["by_name"], res.rounds),
         card=card_name())), flush=True)
+
+
+def by_class(by_name, classify) -> dict:
+    """``device_activity``'s (name, count, ms) summed by ``classify(name)``:
+    {class: {"count", "ms"}}."""
+    split = {}
+    for name, n, ms in by_name:
+        k = classify(name)
+        cnt, tot = split.get(k, (0, 0.0))
+        split[k] = (cnt + n, tot + ms)
+    return {k: {"count": c, "ms": ms} for k, (c, ms) in sorted(split.items())}
 
 
 def aggregation_split(by_name, rounds: int) -> dict:

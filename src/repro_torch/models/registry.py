@@ -1,10 +1,10 @@
 """Uniform model handles (counterpart of ``repro.models.registry``).
 
 ``build_model(cfg)`` returns a ``Model`` whose functional API the FL
-substrate and the launchers use: the paper's MLP, and every LM config for
-serving and training (``loss_fn`` is ``lm.loss_fn``; the layer-stacked
-training step is ``launch.steps``).  ResNet raises
-``NotImplementedError`` until its slice lands.
+substrate and the launchers use: the paper's MLP and ResNet-10/18/26/34
+(the classifier loss over ``forward``), and every LM config for serving and
+training (``loss_fn`` is ``lm.loss_fn``; the layer-stacked training step is
+``launch.steps``).
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.paper_models import MLPConfig, ResNetConfig
 from repro_torch.models import lm as lm_mod
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import resnet as resnet_mod
 
 
 @dataclass(frozen=True)
@@ -85,26 +86,30 @@ def _lm_model(cfg: ModelConfig) -> Model:
     )
 
 
+def _classifier_model(cfg, mod) -> Model:
+    """Handle of a vision classifier whose module ``mod`` gives
+    ``init_params(cfg, generator, device, dtype)``, ``forward(params, cfg,
+    x)`` and ``flops_per_example(cfg)``."""
+    loss = _classifier_loss(mod.forward)
+
+    def init(seed: int, device, dtype=torch.float32):
+        gen = torch.Generator().manual_seed(int(seed))
+        return mod.init_params(cfg, gen, torch.device(device), dtype)
+
+    return Model(
+        config=cfg,
+        init=init,
+        loss_fn=lambda params, batch: loss(params, cfg, batch),
+        forward=lambda params, x: mod.forward(params, cfg, x),
+        flops_per_example=mod.flops_per_example(cfg),
+    )
+
+
 def build_model(cfg) -> Model:
     if isinstance(cfg, ModelConfig):
         return _lm_model(cfg)
     if isinstance(cfg, MLPConfig):
-        fwd = mlp_mod.forward
-        loss = _classifier_loss(fwd)
-
-        def init(seed: int, device, dtype=torch.float32):
-            gen = torch.Generator().manual_seed(int(seed))
-            return mlp_mod.init_params(cfg, gen, torch.device(device), dtype)
-
-        return Model(
-            config=cfg,
-            init=init,
-            loss_fn=lambda params, batch: loss(params, cfg, batch),
-            forward=lambda params, x: fwd(params, cfg, x),
-            flops_per_example=mlp_mod.flops_per_example(cfg),
-        )
+        return _classifier_model(cfg, mlp_mod)
     if isinstance(cfg, ResNetConfig):
-        raise NotImplementedError(
-            "ResNet is not ported yet: it comes with the ResNet slice "
-            "(see ROADMAP.md)")
+        return _classifier_model(cfg, resnet_mod)
     raise TypeError(f"unknown config type {type(cfg).__name__}")

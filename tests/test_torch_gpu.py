@@ -592,3 +592,99 @@ def test_train_step_grads_on_cuda_match_cpu(cuda):
     assert abs(float(loss) - float(want_loss)) <= 1e-4 * abs(float(want_loss))
     for g, w in zip(got, want):
         assert _max_rel(g.cpu(), w) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# the paper's ResNets on the card
+# ---------------------------------------------------------------------------
+
+def test_resnet10_on_cuda_with_tf32_default_matches_cpu(cuda, monkeypatch):
+    """ResNet-10 (32x32x1, 35 classes, B=16) with torch's default
+    ``cudnn.allow_tf32 = True`` set here: the model's own guard keeps every
+    convolution in f32, its backward included.  The logits and loss agree
+    with the CPU within 1e-4, each backward convolution's data and weight
+    gradients with the same call in f64 within 1e-4 of their max-abs
+    (TF32 misses that by ~10x), two card backward passes are bitwise
+    equal, and the caller's flag is left as it was."""
+    from repro_torch.configs.paper_models import RESNET10
+    from repro_torch.models import build_model
+    from repro_torch.models import resnet as resnet_mod
+    from repro_torch.tree import leaves, unflatten_like
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    errs = []
+    bwd0 = resnet_mod._Conv2d.backward
+
+    def bwd(ctx, grad):
+        gx, gw, a, b = bwd0(ctx, grad)
+        if grad.is_cuda:
+            x, w = ctx.saved_tensors
+            want = torch.ops.aten.convolution_backward(
+                grad.double().cpu(), x.double().cpu(), w.double().cpu(),
+                None, list(ctx.stride), list(ctx.padding), [1, 1], False,
+                [0, 0], 1, [gx is not None, True, False])
+            errs.extend(_max_rel(g.double().cpu(), r) for g, r in
+                        zip((gx, gw), want[:2]) if g is not None)
+        return gx, gw, a, b
+
+    monkeypatch.setattr(resnet_mod._Conv2d, "backward", staticmethod(bwd))
+    model = build_model(RESNET10)
+    params = model.init(0, "cpu")
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((16, 32, 32, 1))
+                         .astype(np.float32))
+    y = torch.from_numpy(rng.integers(0, 35, 16))
+
+    def run(dev):
+        flat = [t.to(dev).requires_grad_(True) for t in leaves(params)]
+        p = unflatten_like(params, flat)
+        logits = model.forward(p, x.to(dev))
+        loss, _ = model.loss_fn(p, {"x": x.to(dev), "y": y.to(dev)})
+        return (logits.detach().cpu(), float(loss),
+                [g.cpu() for g in torch.autograd.grad(loss, flat)])
+
+    want_logits, want_loss, _ = run("cpu")
+    logits, loss, got = run(cuda)
+    assert len(errs) == 2 * 12 - 1         # the stem has no data gradient
+    assert max(errs) <= 1e-4
+    _, _, again = run(cuda)
+    assert torch.backends.cudnn.allow_tf32
+    torch.testing.assert_close(logits, want_logits, rtol=0, atol=1e-4)
+    assert abs(loss - want_loss) <= 1e-4
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+
+
+def test_resnet_trial_on_cuda_launches_both_kernels(cuda):
+    """A 2-round ResNet-10 FedTune trial over the reduced speech federation
+    on the card: sync rounds through ``fed_reduce``, async aggregations
+    through ``fed_aggregate``; final params on the card."""
+    from repro_torch.configs.paper_models import ResNetConfig
+    from repro_torch.core import CostModel
+    from repro_torch.data import speech_command_like
+    from repro_torch.federated import FLConfig, FLServer, get_aggregator
+    from repro_torch.models import build_model
+    from repro_torch.optim.optimizers import get_optimizer
+    from repro_torch.runtime import RuntimeConfig, sample_fleet
+    from repro_torch.tree import leaves
+
+    ds = speech_command_like(reduced=True)
+    model = build_model(ResNetConfig(
+        name="resnet10", stage_blocks=(1, 1, 1, 1), width=8, n_classes=10,
+        image_size=16))
+    for mode, fleet, counter in (("sync", None, fr_mod),
+                                 ("async", "stragglers", fa_mod)):
+        srv = FLServer(
+            model, ds, get_aggregator("fedavg"),
+            get_optimizer("sgd", 0.05, momentum=0.9),
+            CostModel(flops_per_example=model.flops_per_example,
+                      param_count=79_259),
+            FLConfig(m=3, e=1.0, batch_size=5, target_accuracy=0.99,
+                     max_rounds=2, eval_points=128),
+            fleet=None if fleet is None else sample_fleet(fleet, 128),
+            runtime_config=RuntimeConfig(mode=mode), device=cuda)
+        before = counter.launches
+        res = srv.run()
+        torch.cuda.synchronize()
+        assert res.rounds == 2
+        assert counter.launches - before >= 2
+        assert all(p.device.type == "cuda" for p in leaves(res.params))

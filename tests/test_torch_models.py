@@ -19,8 +19,7 @@ from repro.configs.paper_models import MLP_EMNIST as J_MLP_EMNIST  # noqa: E402
 from repro.configs.paper_models import MLPConfig as JMLPConfig  # noqa: E402
 from repro.federated.aggregation import _flatten as j_flatten  # noqa: E402
 from repro.models import build_model as j_build_model  # noqa: E402
-from repro_torch.configs.paper_models import (MLP_EMNIST, MLPConfig,  # noqa: E402
-                                              RESNET10)
+from repro_torch.configs.paper_models import MLP_EMNIST, MLPConfig  # noqa: E402
 from repro_torch.federated.aggregation import _flatten  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.tree import leaves  # noqa: E402
@@ -97,8 +96,3 @@ def test_init_is_seeded_and_device_independent():
     assert sum(t.numel() for t in leaves(a)) == 169_462
     c = tm.init(4, "cpu")
     assert not torch.equal(leaves(a)[1], leaves(c)[1])
-
-
-def test_unported_configs_raise():
-    with pytest.raises(NotImplementedError, match="ResNet"):
-        build_model(RESNET10)
