@@ -187,11 +187,32 @@ pre-pass and the kernel alone timed as well) and without.
      apart) and ``fed_aggregate`` at M=1, N=79,259, bitwise, with phase
      2's columns.
 
+  13. The sharded FedTune path on the card: two ranks spawned by
+     ``launch.mesh.run_ranks`` (after the build, so they load the built
+     library), both on ``cuda:0`` over gloo with CUDA tensors, each
+     reporting its device, its ``fed_reduce`` launches and its sharded
+     rounds per case (each > 0: the sharded route ran, not its batched
+     fallback) and a hash of its final params (the two must be equal).
+     13a: ``sharded_fedavg_train`` with ``MLP_EMNIST`` over the full
+     ``emnist_like`` federation, a fixed cohort of 64 clients, E=2, batch
+     10, SGD lr 0.03 momentum 0.9: within 1e-4 of ``batched_local_train``
+     + FedAvg run here on the card, and the same call once more in a
+     1-rank NCCL group here.  13b: phase 3's sync trial with
+     ``client_exec="sharded"``: phase 3's (M, E) and costs, accuracy within
+     0.01; rounds/s beside phase 3's.  13c: the ResNet-10 speech trial,
+     int8 uploads, 2 rounds, sharded, against a batched run here; every
+     first-round ``fed_reduce`` partial of each rank (32 int8 leaves)
+     bitwise the plain version's.  13d: phase 7's 48-trial grid with
+     ``pack="sharded"``, 5 rounds, against phase 7's records.  Then
+     ``fed_reduce`` at a rank's shape from 13a (``sharded_rank_fedavg``:
+     T=1, M=32, N=169,462) with phase 2's columns.
+
 The last three lines are the card's name and power limit (as nvidia-smi
 gives them), the kernels' JSON summary (six entries: ``fed_reduce``,
 ``fed_aggregate``, ``flash_attention``, ``rglru_scan``,
 ``flash_attention_bwd`` and ``rglru_scan_bwd``; the launches are the main
-path's, phase 11's training steps and phase 12's trials included) and
+path's, phase 11's training steps and phase 12's and 13's trials (both
+ranks) included) and
 ``{"ok": true, "device": {...}}``.  Without a GPU, or without the port's sources beside this file,
 it exits 1 and prints no result.
 
@@ -663,7 +684,7 @@ def main_path(torch, card, init_params):
     from repro_torch.launch.profile_trial import smoke_server
     from repro_torch.tree import leaves, tree_map
 
-    runs = {}
+    runs, walls = {}, {}
     launches = {"fed_reduce": 0, "fed_aggregate": 0}
     plans = [("sync", dict(m=20, max_rounds=5)),
              ("async", dict(m=10, max_rounds=10, fleet_name="stragglers")),
@@ -695,6 +716,7 @@ def main_path(torch, card, init_params):
               f"{mode}: cost totals not all positive: "
               f"{res.total_cost.as_tuple()}")
         check(srv.local_steps > 0, f"{mode}: no local steps ran")
+        walls[mode] = wall
         rec = dict(phase="main_path", mode=mode, rounds=res.rounds,
                    m_e=[(h.m, h.e) for h in res.history], accuracy=accs,
                    costs=list(res.total_cost.as_tuple()),
@@ -709,7 +731,7 @@ def main_path(torch, card, init_params):
                                       "main path")
     check(launches["fed_aggregate"] > 0, "fed_aggregate never launched on "
                                          "the main path")
-    return runs, launches
+    return runs, launches, walls
 
 
 def same_records(label, ref_hist, hist, n_rounds):
@@ -2328,6 +2350,307 @@ def resnet_kernel_cases(torch, np, card, floor):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the sharded FedTune path, two ranks on the card
+# ---------------------------------------------------------------------------
+
+COHORT_M = 64                       # 13a's fixed cohort
+
+
+def params_hash(params) -> str:
+    import hashlib
+    from repro_torch.tree import leaves
+    h = hashlib.sha256()
+    for p in leaves(params):
+        h.update(p.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def cohort_fedavg(np, params, mesh=None):
+    """13a's round over the full ``emnist_like`` federation: a fixed
+    cohort of 64 of its 2,520 clients, ``MLP_EMNIST``, E=2, batch 10, SGD
+    lr 0.03 momentum 0.9, from ``params``.  With ``mesh``, through
+    ``sharded_fedavg_train``; without, ``batched_local_train`` + FedAvg in
+    this process."""
+    from repro_torch.configs.paper_models import MLP_EMNIST
+    from repro_torch.data import emnist_like
+    from repro_torch.federated import get_aggregator
+    from repro_torch.models import build_model
+    from repro_torch.optim.optimizers import get_optimizer
+    from repro_torch.runtime import batched_local_train, sharded_fedavg_train
+
+    ds = emnist_like(seed=0)
+    cids = [int(c) for c in np.random.default_rng(13).choice(
+        ds.n_clients, COHORT_M, replace=False)]
+    data = [ds.client_data(c) for c in cids]
+    kw = dict(passes=2.0, batch_size=10,
+              optimizer=get_optimizer("sgd", 0.03, momentum=0.9),
+              rng=np.random.default_rng(21), client_ids=cids)
+    model = build_model(MLP_EMNIST)
+    if mesh is not None:
+        return sharded_fedavg_train(model, params, data, mesh=mesh,
+                                    **kw).params
+    return get_aggregator("fedavg")(params, batched_local_train(
+        model, params, data, **kw))
+
+
+def sharded_rank(mesh, init_np, speech_np):
+    """Phase 13's four cases on one rank (a process ``run_ranks``
+    spawned).  Each case sets the rank's ``fed_reduce`` launch count and
+    sharded-round count to 0 just before and reads them just after."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.paper_models import RESNET10
+    from repro_torch.experiments import run_sweep
+    from repro_torch.kernels import fed_reduce as fr_mod
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.profile_sweep import full_width_grid
+    from repro_torch.launch.profile_trial import smoke_server
+    from repro_torch.runtime import sharded
+    from repro_torch.tree import leaves
+    from repro_torch.weights import params_from_numpy
+
+    torch.backends.cuda.matmul.allow_tf32 = False    # as in main()
+    torch.backends.cudnn.allow_tf32 = False
+    dev = mesh.device
+    out = dict(rank=mesh.rank, size=mesh.size, backend=mesh.backend,
+               device=str(dev))
+
+    def run(case, fn):
+        torch.cuda.synchronize()
+        fr_mod.launches = 0
+        sharded.rounds = 0
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out[case] = dict(wall_s=time.perf_counter() - t0,
+                         fed_reduce_launches=fr_mod.launches,
+                         sharded_rounds=sharded.rounds)
+        return res
+
+    agg = run("13a", lambda: cohort_fedavg(
+        np, params_from_numpy(init_np, dev), mesh))
+    out["13a"].update(params=leaves(agg), hash=params_hash(agg))
+
+    srv = smoke_server("sync", m=20, max_rounds=5, client_exec="sharded",
+                       device=dev)
+    res = run("13b", lambda: srv.run(params_from_numpy(init_np, dev)))
+    out["13b"].update(history=res.history, rounds=res.rounds,
+                      hash=params_hash(res.params))
+
+    # 13c: every fed_reduce call of the first round, kept for the check
+    first, inner = [], ops.fed_reduce
+
+    def spy(w, rows, seg, t, base=None, **kw):
+        got = inner(w, rows, seg, t, base, **kw)
+        if sharded.rounds == 1:
+            first.append((w, rows, seg, t, kw, got))
+        return got
+
+    ops.fed_reduce = spy
+    try:
+        srv = smoke_server("sync", model_cfg=RESNET10, max_rounds=2,
+                           compression="int8", client_exec="sharded",
+                           device=dev)
+        res = run("13c", lambda: srv.run(params_from_numpy(speech_np, dev)))
+    finally:
+        ops.fed_reduce = inner
+    partials = []
+    for w, rows, seg, t, kw, got in first:
+        want = ref.fed_reduce_ref(w, rows, seg, t, **kw)
+        partials.append(dict(
+            M=rows.shape[0], N=rows.shape[1], T=t,
+            leaves=len(kw["leaf_sizes"] or ()),
+            int8=kw.get("quant_ref") is not None,
+            equal=bool(torch.equal(got, want)),
+            max_abs_err=float((got - want).abs().max())))
+    out["13c"].update(history=res.history, rounds=res.rounds,
+                      hash=params_hash(res.params),
+                      first_round_partials=partials)
+
+    specs = full_width_grid(rounds=5).expand()
+    res = run("13d", lambda: run_sweep(specs, pack="sharded", device=dev))
+    out["13d"].update(
+        trial_rounds=sum(r.rounds for r in res),
+        engines=sorted({r.engine for r in res}),
+        trials={r.spec.key(): dict(
+            m_e=list(zip(r.history_m, r.history_e)), acc=r.history_acc,
+            cost=list(r.cost), hash=params_hash(r.params)) for r in res})
+    return out
+
+
+def sharded_phase(torch, np, card, init_params, sync_res, sync_wall,
+                  speech_init, sweep_records):
+    """Phase 13: the sharded FedTune path on the card.  Two ranks spawned
+    by ``launch.mesh.run_ranks``, both on ``cuda:0`` over gloo with CUDA
+    tensors (the kernels built once, here, before the spawn), run
+    ``sharded_rank``'s cases; this process checks them against phase 3's
+    and phase 7's records, a batched speech trial and a batched
+    ``cohort_fedavg`` on the card, and runs 13a once more in a 1-rank NCCL
+    group.  Returns phase 13's ``fed_reduce`` launches."""
+    import os
+    import tempfile
+
+    from repro_torch.configs.paper_models import RESNET10
+    from repro_torch.kernels import fed_reduce as fr_mod
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch.profile_trial import smoke_server
+    from repro_torch.tree import leaves, tree_map
+
+    def to_np(tree):
+        return tree_map(lambda p: p.detach().cpu().numpy(), tree)
+
+    def on_card(tree):
+        return tree_map(lambda p: p.to("cuda"), tree)
+
+    t13 = time.perf_counter()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    ranks = mesh_mod.run_ranks(
+        sharded_rank, 2, device="cuda",
+        init_file=os.path.join(tmp, "rendezvous"),
+        args=(to_np(init_params), to_np(speech_init)), threads=4,
+        timeout_s=600.0)
+    ranks_s = time.perf_counter() - t13
+    launches = 0
+    for r in ranks:
+        check((r["device"], r["backend"], r["size"]) == ("cuda:0", "gloo", 2),
+              f"13: rank {r['rank']} ran on {r['device']} over "
+              f"{r['backend']} in a group of {r['size']}")
+        for case in ("13a", "13b", "13c", "13d"):
+            check(r[case]["fed_reduce_launches"] > 0,
+                  f"{case}: rank {r['rank']} never launched fed_reduce")
+            check(r[case]["sharded_rounds"] > 0,
+                  f"{case}: rank {r['rank']} ran no sharded round (the "
+                  "batched fallback ran)")
+            launches += r[case]["fed_reduce_launches"]
+    r0, r1 = ranks
+
+    # 13a: the ranks against each other and a batched round on the card
+    want = cohort_fedavg(np, on_card(init_params))
+    diff = max(float((a.cuda() - b).abs().max())
+               for a, b in zip(r0["13a"]["params"], leaves(want)))
+    check(r0["13a"]["hash"] == r1["13a"]["hash"],
+          "13a: the two ranks' aggregates differ")
+    check(diff <= 1e-4, f"13a: sharded aggregate {diff} from the batched "
+                        "one (> 1e-4)")
+    # ... and once more in a 1-rank NCCL group, in this process
+    mesh = mesh_mod.join(0, 1, device="cuda",
+                         init_method="file://" + os.path.join(tmp, "nccl"))
+    try:
+        check(mesh.backend == "nccl", f"13a: 1-rank group on {mesh.backend}")
+        torch.cuda.synchronize()
+        fr_mod.launches = 0
+        one = cohort_fedavg(np, on_card(init_params), mesh)
+        torch.cuda.synchronize()
+        nccl_launches = fr_mod.launches
+    finally:
+        mesh_mod.leave()
+    diff1 = max(float((a - b).abs().max())
+                for a, b in zip(leaves(one), leaves(want)))
+    check(nccl_launches > 0, "13a: the NCCL run never launched fed_reduce")
+    check(diff1 <= 1e-4, f"13a: the 1-rank NCCL aggregate {diff1} from the "
+                         "batched one (> 1e-4)")
+    launches += nccl_launches
+    emit(dict(phase="sharded", case="13a", model="mlp_emnist",
+              params=N_PARAMS, cohort=COHORT_M, ranks=2,
+              max_abs_diff_vs_batched=diff, ranks_bitwise_equal=True,
+              rank_wall_s=[r["13a"]["wall_s"] for r in ranks],
+              launches=[r["13a"]["fed_reduce_launches"] for r in ranks],
+              sharded_rounds=[r["13a"]["sharded_rounds"] for r in ranks],
+              nccl_1rank=dict(max_abs_diff_vs_batched=diff1,
+                              launches=nccl_launches), card=card))
+
+    # 13b: the FedTune trial against phase 3's records
+    rec = same_records("13b sharded vs phase 3", sync_res.history,
+                       r0["13b"]["history"], 5)
+    check(r0["13b"]["hash"] == r1["13b"]["hash"],
+          "13b: the two ranks' final params differ")
+    check([h.accuracy for h in r0["13b"]["history"]]
+          == [h.accuracy for h in r1["13b"]["history"]],
+          "13b: the two ranks' accuracies differ")
+    emit(dict(phase="sharded", case="13b", ranks=2, **rec,
+              ranks_bitwise_equal=True,
+              rounds_per_s=[r["13b"]["rounds"] / r["13b"]["wall_s"]
+                            for r in ranks],
+              phase3_rounds_per_s=sync_res.rounds / sync_wall,
+              launches=[r["13b"]["fed_reduce_launches"] for r in ranks],
+              sharded_rounds=[r["13b"]["sharded_rounds"] for r in ranks],
+              card=card))
+
+    # 13c: the int8 speech trial against a batched run on the card
+    t0 = time.perf_counter()
+    bat = smoke_server("sync", model_cfg=RESNET10, max_rounds=2,
+                       compression="int8", client_exec="batched",
+                       device="cuda").run(on_card(speech_init))
+    bat_wall = time.perf_counter() - t0
+    rec = same_records("13c sharded vs batched", bat.history,
+                       r0["13c"]["history"], 2)
+    check(r0["13c"]["hash"] == r1["13c"]["hash"],
+          "13c: the two ranks' final params differ")
+    for r in ranks:
+        parts = r["13c"]["first_round_partials"]
+        check(parts and all(c["equal"] and c["int8"] and c["leaves"] == 32
+                            for c in parts),
+              f"13c: rank {r['rank']}'s first-round fed_reduce partials are "
+              f"not bitwise the plain version's at 32 int8 leaves: {parts}")
+    emit(dict(phase="sharded", case="13c", model="resnet10", ranks=2,
+              **rec, ranks_bitwise_equal=True,
+              first_round_partials=[r["13c"]["first_round_partials"]
+                                    for r in ranks],
+              rounds_per_s=[r["13c"]["rounds"] / r["13c"]["wall_s"]
+                            for r in ranks],
+              batched_rounds_per_s=bat.rounds / bat_wall,
+              launches=[r["13c"]["fed_reduce_launches"] for r in ranks],
+              sharded_rounds=[r["13c"]["sharded_rounds"] for r in ranks],
+              card=card))
+
+    # 13d: the 48-trial sweep against phase 7's records
+    t0, t1 = r0["13d"]["trials"], r1["13d"]["trials"]
+    check(set(t0) == set(t1) == set(sweep_records),
+          "13d: the sharded sweep's trials are not phase 7's")
+    diffs = []
+    for key, (m_e, acc, cost) in sweep_records.items():
+        got = t0[key]
+        check(got["m_e"] == m_e, f"13d {key}: (M, E) differ")
+        check(got["cost"] == cost, f"13d {key}: costs differ")
+        diffs.append(max(abs(a - b) for a, b in zip(acc, got["acc"])))
+        check(got["hash"] == t1[key]["hash"] and got["acc"]
+              == t1[key]["acc"], f"13d {key}: the two ranks differ")
+    check(max(diffs) <= 0.01, f"13d: accuracy differs by {max(diffs)}")
+    emit(dict(phase="sharded", case="13d", ranks=2, trials=len(t0),
+              engines=r0["13d"]["engines"], m_e_equal=True, costs_equal=True,
+              max_acc_diff=max(diffs), ranks_bitwise_equal=True,
+              trial_rounds_per_s=[r["13d"]["trial_rounds"]
+                                  / r["13d"]["wall_s"] for r in ranks],
+              launches=[r["13d"]["fed_reduce_launches"] for r in ranks],
+              sharded_rounds=[r["13d"]["sharded_rounds"] for r in ranks],
+              card=card))
+    emit(dict(phase="sharded", ranks_s=ranks_s,
+              seconds=time.perf_counter() - t13, fed_reduce_launches=launches))
+    return launches
+
+
+def sharded_reduce_case(torch, np, card, floor):
+    """``fed_reduce`` at a rank's shape from 13a: T=1, M_loc=32 (64 clients
+    over 2 ranks), N=169,462, FedAvg weights n_k / n_total (normalised on
+    the host, as ``sharded_fedavg_train`` passes them)."""
+    rng = np.random.default_rng(13)
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32,
+                        device="cuda")
+    m = COHORT_M // 2
+    sizes = rng.integers(1, 317, COHORT_M).astype(np.float64)
+    w = (sizes / sizes.sum())[:m].astype(np.float32)
+    rec = fed_reduce_case(
+        torch, card, flush, floor, "sharded_rank_fedavg",
+        torch.from_numpy(w).cuda(),
+        torch.from_numpy(rng.standard_normal((m, N_PARAMS)).astype(
+            np.float32) * 0.05).cuda(),
+        torch.zeros(m, dtype=torch.int32, device="cuda"), 1, None, False)
+    del flush
+    return rec
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--baseline", type=Path, default=None,
@@ -2386,7 +2709,7 @@ def main():
     from repro_torch.models import build_model
     from repro_torch.configs.paper_models import MLP_EMNIST
     init_params = build_model(MLP_EMNIST).init(0, "cpu")
-    runs, launches = main_path(torch, card, init_params)
+    runs, launches, walls = main_path(torch, card, init_params)
     card_vs_cpu(runs["sync"], init_params)
 
     torch.cuda.empty_cache()
@@ -2405,6 +2728,9 @@ def main():
     alone_by_key = sweep_vs_standalone(torch, card, res, ev_res, sweep_wall)
     eval_routes(torch, card, res, alone_by_key)
     sweep_card_vs_cpu(torch)
+    sweep_records = {r.spec.key(): (list(zip(r.history_m, r.history_e)),
+                                    r.history_acc, list(r.cost))
+                     for r in res}
     del res, ev_res
     cases += sweep_reduce_cases(torch, card, floor, reduce_inputs)
 
@@ -2426,6 +2752,12 @@ def main():
     speech_card_vs_cpu(speech_runs, speech_init)
     cases += resnet_kernel_cases(torch, np, card, floor)
     emit(dict(phase="resnet_phase", seconds=time.perf_counter() - t12))
+
+    torch.cuda.empty_cache()
+    launches["fed_reduce"] += sharded_phase(
+        torch, np, card, init_params, runs["sync"], walls["sync"],
+        speech_init, sweep_records)
+    cases.append(sharded_reduce_case(torch, np, card, floor))
 
     summary = []
     csrc = "src/repro_torch/kernels/csrc"

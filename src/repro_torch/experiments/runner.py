@@ -25,7 +25,16 @@ them per virtual round:
               kernel, the int8 upload round trip of compressed trials
               against each trial's dispatch-time globals).  Non-FedAvg
               trials hand their per-client trees to their own aggregator,
-              which reduces through a T=1 ``fed_reduce``.
+              which reduces through a T=1 ``fed_reduce``.  The ``sharded``
+              pack lays a model group's FedAvg trials over the ``clients``
+              ranks of a ``torch.distributed`` group instead: each rank
+              trains its block of the flat cohort (padded to a pow2, then
+              to a multiple of the ranks), one T-segment ``fed_reduce`` per
+              block forms its partial of every trial's mean, and the
+              rank-order fold of the gathered partials completes them on
+              every rank (``runtime/sharded.py``).  Every rank runs the
+              whole host side and evaluates its block of the stacked
+              lanes; on one rank the pack falls back to batched.
   4. STEP   — every due trial's evaluation runs as one stacked evaluation
               per (model, dataset) group (``evaluate_stacked``), then each
               trial's FedTune controller steps its (M, E); finished trials
@@ -59,7 +68,11 @@ seeded ``model.init(seed, device)``.  Every entry point runs on ``device``
 (default ``cuda``).  Spans and metrics (``repro_torch.obs``) sit at the
 reference's sites: PLAN/PACK/TRAIN/APPLY/EVAL per packed round,
 COLLECT/PACK/APPLY/EVAL per event macro-step, and the fused reduce's
-counters.  The sharded pack is not ported (ROADMAP.md queue 1, item 15).
+counters.  Where the reference packs a model group's trials together and
+shards the pack only when every one is FedAvg, the sharded pack here
+splits a mixed group: its FedAvg trials shard, the rest train batched on
+every rank (ROADMAP.md section 3 lists it among the port's departures).
+Under a process group only rank 0 writes the result store.
 """
 
 from __future__ import annotations
@@ -85,6 +98,7 @@ from repro_torch.federated.compression import compress_delta_lanes, lane_mask
 from repro_torch.federated.evaluation import eval_due, evaluate_stacked
 from repro_torch.federated.server import FLResult, RoundRecord
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import build_model
 from repro_torch.optim.optimizers import get_optimizer
 from repro_torch.runtime.batched import (_pow2, _stack_streams,
@@ -96,6 +110,7 @@ from repro_torch.runtime.engine import EventDrivenRuntime, RuntimeConfig
 from repro_torch.runtime.events import (FAILURE, MergedEventQueue,
                                         TrialQueueView)
 from repro_torch.runtime.profiles import ChurnSchedule, sample_fleet
+from repro_torch.runtime.sharded import flatten_cohort
 from repro_torch.tree import leaves, tree_map, tree_stack
 from repro_torch.weights import params_from_numpy
 
@@ -192,10 +207,25 @@ def _check_pack(pack: str):
     if pack not in PACKS:
         raise ValueError(f"unknown pack {pack!r}; valid packs: "
                          + ", ".join(PACKS))
+
+
+def _resolve_sync_pack(pack: str):
+    """Resolve the requested pack against the process group: the sharded
+    pack needs more than one rank; a single process falls back to batched
+    packing, printing why (the reference's rule for one device).  Returns
+    ``(pack, mesh)``."""
+    _check_pack(pack)
+    mesh = None
     if pack == "sharded":
-        raise NotImplementedError(
-            "pack 'sharded' is not ported yet: it comes with the multi-GPU "
-            "slice (ROADMAP.md queue 1, item 15); use pack='batched'")
+        if mesh_mod.world_size() == 1:
+            print("experiments: sharded packing needs a process group of "
+                  "more than one rank (torch.distributed has none or one "
+                  "rank); falling back to batched packing", flush=True)
+            pack = "batched"
+        else:
+            from repro_torch.runtime.sharded import default_clients_mesh
+            mesh = default_clients_mesh()
+    return pack, mesh
 
 
 # ---------------------------------------------------------------------------
@@ -290,14 +320,6 @@ def _multi_cohort_fn(model, optimizer, prox_mu: float):
     return run
 
 
-def _flatten_cohort(params_b):
-    """(M, N) rows in ``jax.tree.flatten`` leaf order (``b`` before ``w``),
-    the layout of ``aggregation._flatten`` and of the int8 leaf scales."""
-    ls = leaves(params_b)
-    m = ls[0].shape[0]
-    return torch.cat([l.reshape(m, -1) for l in ls], dim=1)
-
-
 @dataclass
 class _Cohort:
     cids: List[int]
@@ -345,6 +367,18 @@ def _group_key(tr) -> tuple:
             tr.srv.config.batch_size)
 
 
+def _trial_slots(ents: List[Tuple[_LiveTrial, int]]):
+    """The distinct trials of packed entries in first-seen order, and each
+    one's slot (its index there) by ``id``."""
+    trials: List[_LiveTrial] = []
+    slot: Dict[int, int] = {}
+    for tr, _ in ents:
+        if id(tr) not in slot:
+            slot[id(tr)] = len(trials)
+            trials.append(tr)
+    return trials, slot
+
+
 def _run_group_batched(ents: List[Tuple[_LiveTrial, int]]):
     """Train one model-group's packed entries; results land back in each
     trial's cohort.  FedAvg trials keep their clients as rows of the
@@ -362,12 +396,7 @@ def _run_group_batched(ents: List[Tuple[_LiveTrial, int]]):
     dev = tr0.srv.device
     run = _multi_cohort_fn(model, opt, tr0.srv.config.prox_mu)
 
-    trials: List[_LiveTrial] = []
-    slot: Dict[int, int] = {}
-    for tr, _ in ents:
-        if id(tr) not in slot:
-            slot[id(tr)] = len(trials)
-            trials.append(tr)
+    trials, slot = _trial_slots(ents)
     stacked = tree_stack([tr.params for tr in trials])
 
     n_steps = [tr.cohort.n_steps[j] for tr, j in ents]
@@ -390,7 +419,7 @@ def _run_group_batched(ents: List[Tuple[_LiveTrial, int]]):
                          + [None] * (m_pad - len(sel)))
         if mask is not None:
             params_b = compress_delta_lanes(global_b, params_b, mask)
-        flat = _flatten_cohort(params_b)
+        flat = flatten_cohort(params_b)
         ll = last_loss.cpu().numpy()
         for k, (tr, j) in enumerate(sel):
             if tr.srv.aggregator.name == "fedavg":
@@ -399,6 +428,96 @@ def _run_group_batched(ents: List[Tuple[_LiveTrial, int]]):
                 tr.cohort.trained[j] = tree_map(lambda p, k=k: p[k],
                                                 params_b)
             tr.cohort.losses[j] = float(ll[k])
+
+
+def _run_group_sharded(ents: List[Tuple[_LiveTrial, int]], mesh):
+    """Train one model group's packed FedAvg entries over the ``clients``
+    ranks of ``mesh``: each rank trains its block of every bucket (the
+    flat cohort padded to a pow2, then to a multiple of the ranks), ONE
+    ``fed_reduce`` call per block forms its (T, N) partial of every
+    trial's weighted mean (weights n_j / n_total within each trial, the
+    int8 round trip of compressed lanes against their trial's globals
+    inside the call), and the rank-order fold of the gathered partials
+    completes every trial's FedAvg aggregate on every rank.  Per-client
+    params never leave the rank that trained them."""
+    from repro_torch.runtime import sharded
+    sharded.rounds += 1
+    tr0 = ents[0][0]
+    model, opt = tr0.srv.model, tr0.srv.optimizer
+    bs = tr0.srv.config.batch_size
+    dev = tr0.srv.device
+    run = _multi_cohort_fn(model, opt, tr0.srv.config.prox_mu)
+    compressed = any(tr.srv.config.compression not in (None, "none")
+                     for tr, _ in ents)
+
+    trials, slot = _trial_slots(ents)
+    n_t = len(trials)
+    totals = [float(sum(tr.cohort.sizes)) for tr in trials]
+    stacked = tree_stack([tr.params for tr in trials])
+    flats = [_flatten(tr.params)[0] for tr in trials]
+    meta = _flatten(trials[0].params)[1]
+    n = flats[0].shape[0]
+    t_seg = _pow2(n_t)     # segment count padded pow2: bounded shape set
+    # each lane's quant reference = its trial's dispatch-time globals
+    qref = (torch.stack(flats + [torch.zeros_like(flats[0])]
+                        * (t_seg - n_t)) if compressed else None)
+    agg = torch.zeros((n_t, n), dtype=flats[0].dtype, device=dev)
+    n_steps = [tr.cohort.n_steps[j] for tr, j in ents]
+    for t_pad, idx in sorted(bucket_by_steps(n_steps).items()):
+        sel = [ents[i] for i in idx]
+        m_pad = -(-_pow2(len(sel)) // mesh.size) * mesh.size
+        if obs.enabled():
+            note_pack_metrics(t_pad, m_pad, len(sel),
+                              sum(n_steps[i] for i in idx))
+            obs.registry.inc("reduce_fused_dispatches")
+            obs.registry.sample("reduce_rows", m_pad)
+            obs.registry.sample("reduce_lanes", n_t)
+        # this rank's block; padding lanes: trial of sel[0], weight 0,
+        # segment 0, no int8
+        lanes = (sel + [None] * (m_pad - len(sel)))[mesh.block(m_pad)]
+        m_loc = len(lanes)
+        xs, ys, masks, active = to_device(dev, *_stack_streams(
+            [e[0].cohort.streams[e[1]] if e is not None else []
+             for e in lanes], bs, t_pad,
+            like=sel[0][0].cohort.streams[sel[0][1]]))
+        w = np.zeros(m_loc, np.float32)
+        seg = np.zeros(m_loc, np.int32)
+        enabled = np.zeros(m_loc, np.bool_)
+        slots = [slot[id(sel[0][0])]] * m_loc
+        for k, e in enumerate(lanes):
+            if e is None:
+                continue
+            tr, j = e
+            s = slots[k] = slot[id(tr)]
+            w[k] = tr.cohort.sizes[j] / totals[s]
+            seg[k] = s
+            enabled[k] = tr.srv.config.compression not in (None, "none")
+        gather = torch.tensor(slots, device=dev)
+        global_b = tree_map(lambda p: p[gather], stacked)
+        params_b, last_loss = run(global_b, xs, ys, masks, active)
+        with obs.span("REDUCE", phase="apply", n_lanes=n_t, n_rows=m_loc):
+            partial = kernel_ops.fed_reduce(              # (T, N)
+                torch.from_numpy(w).to(dev), flatten_cohort(params_b),
+                torch.from_numpy(seg).to(dev), t_seg,
+                leaf_sizes=tuple(meta[2]) if compressed else None,
+                quant_ref=qref,
+                quant_enabled=(torch.from_numpy(enabled).to(dev)
+                               if compressed else None))
+            # one gather a bucket: every rank's partials and lane losses
+            both = mesh.gather(torch.cat([partial.reshape(-1), last_loss]))
+            agg = agg + mesh_mod.fold(
+                both[:, :t_seg * n]).reshape(t_seg, n)[:n_t]
+        ll = both[:, t_seg * n:].reshape(-1).cpu().numpy()
+        for k, (tr, j) in enumerate(sel):
+            tr.cohort.losses[j] = float(ll[k])
+    # zero-step clients never trained: their weight enters at the trial's
+    # own global params, as in every other execution path
+    for tr, j in ents:
+        if tr.cohort.n_steps[j] == 0:
+            s = slot[id(tr)]
+            agg[s] = agg[s] + tr.cohort.sizes[j] / totals[s] * flats[s]
+    for tr in trials:
+        tr.cohort.agg_params = _unflatten(agg[slot[id(tr)]], meta)
 
 
 def _fedavg_from_rows(tr: _LiveTrial) -> Any:
@@ -558,15 +677,18 @@ def _to_result(tr: _LiveTrial, engine: str) -> TrialResult:
                                      tr.local_steps)
 
 
-def _sync_round_step(live: List[_LiveTrial], step_idx: int = 0) -> int:
+def _sync_round_step(live: List[_LiveTrial], *, pack: str = "batched",
+                     mesh=None, step_idx: int = 0) -> int:
     """Advance the given live sync trials by ONE packed virtual round
     (plan -> pack -> train -> reduce -> eval -> finish).  The live set is
     whatever the caller says it is (the fixed-set sweep passes every
     unfinished trial, the continuous-batching scheduler its admitted
-    lanes), and every pack/eval shape is keyed off that set.  Trials that
-    end this round come back with ``done`` set; retiring them is the
-    caller's job.  ``step_idx`` only labels the round's metrics.  Returns
-    the number of packed client entries."""
+    lanes), and every pack/eval shape is keyed off that set.  ``pack``
+    and ``mesh`` come from ``_resolve_sync_pack``: the sharded pack trains
+    each model group's FedAvg trials over the mesh's ranks and evaluates
+    over them too.  Trials that end this round come back with ``done``
+    set; retiring them is the caller's job.  ``step_idx`` only labels the
+    round's metrics.  Returns the number of packed client entries."""
     t0 = time.perf_counter()
     if obs.enabled():
         obs.registry.sample("lanes_live", len(live), step=step_idx,
@@ -602,14 +724,21 @@ def _sync_round_step(live: List[_LiveTrial], step_idx: int = 0) -> int:
                                 losses=[0.0] * len(cids))
             entries.extend((tr, j) for j in range(len(cids)))
     # 3. group by model and train each group's packed cohort
+    #    (the sharded pack gives a group's FedAvg trials a pack of their own)
     groups: Dict[tuple, List[Tuple[_LiveTrial, int]]] = {}
     for ent in entries:
-        groups.setdefault(_group_key(ent[0]), []).append(ent)
+        key = _group_key(ent[0])
+        if pack == "sharded":
+            key += (ent[0].srv.aggregator.name == "fedavg",)
+        groups.setdefault(key, []).append(ent)
     with perf.timed("train"), obs.span("TRAIN", phase="train",
                                        n_entries=len(entries),
                                        n_groups=len(groups)):
-        for ents in groups.values():
-            _run_group_batched(ents)
+        for key, ents in groups.items():
+            if pack == "sharded" and key[-1]:
+                _run_group_sharded(ents, mesh)
+            else:
+                _run_group_batched(ents)
     # 4. per-trial aggregation + accounting, then ONE stacked eval of every
     #    due trial, then per-trial record + controller step
     with obs.span("APPLY", phase="apply", n_trials=len(live)):
@@ -622,7 +751,7 @@ def _sync_round_step(live: List[_LiveTrial], step_idx: int = 0) -> int:
     with obs.span("EVAL", phase="eval", n_due=len(due)):
         accs = evaluate_stacked(
             [(tr.srv.model, tr.srv.dataset, tr.srv.config.eval_points,
-              tr.params) for tr in due], pad_pow2=True)
+              tr.params) for tr in due], mesh=mesh, pad_pow2=True)
     acc_of = {id(tr): a for tr, a in zip(due, accs)}
     wall = time.perf_counter() - t0
     if obs.enabled():
@@ -634,22 +763,25 @@ def _sync_round_step(live: List[_LiveTrial], step_idx: int = 0) -> int:
 
 
 def _run_vectorized_sync(specs: Sequence[TrialSpec], *,
+                         pack: str = "batched",
                          on_result: Optional[Callable] = None,
                          verbose: bool = False, device=None,
                          init_params: InitFn = None) -> List[TrialResult]:
     """Run every sync-mode trial concurrently, one packed cohort per
     virtual round (``_sync_round_step``) over the set of unfinished
     trials until all are done."""
+    pack, mesh = _resolve_sync_pack(pack)
     dev = resolve_device(device)
     trials = [_make_live(s, dev, init_params) for s in specs]
     results: List[TrialResult] = [None] * len(trials)
-    engine = "vectorized/batched"
+    engine = f"vectorized/{pack}"
     n_rounds = 0
     while True:
         live = [tr for tr in trials if not tr.done]
         if not live:
             break
-        n_entries = _sync_round_step(live, step_idx=n_rounds)
+        n_entries = _sync_round_step(live, pack=pack, mesh=mesh,
+                                     step_idx=n_rounds)
         for tr in live:
             if tr.done:
                 res = _to_result(tr, engine)
@@ -950,6 +1082,14 @@ def run_vectorized_events(specs: Sequence[TrialSpec], *,
                 "(run_vectorized_events covers the async/buffered modes; "
                 "sync trials pack per round via run_vectorized)")
     _check_pack(pack)
+    if pack == "sharded":
+        # an event pack is one arrival per trial wide and FedAsync/FedBuff
+        # mixing is per-trial host state: there is no cross-client
+        # aggregation to complete across ranks
+        print("experiments: sharded packing does not apply to event-driven "
+              "(async/buffered) trials — per-trial mixing is host-side; "
+              "using the batched pack", flush=True)
+        pack = "batched"
     ev = _EventEngine(device, init_params)
     # trial ordinals from sorted keys: the merged queue's cross-trial tie
     # order is then independent of the caller's spec order
@@ -1006,7 +1146,7 @@ def run_vectorized(specs: Sequence[TrialSpec], *, pack: str = "batched",
     kw = dict(on_result=keep, verbose=verbose, device=device,
               init_params=init_params)
     if sync_specs:
-        _run_vectorized_sync(sync_specs, **kw)
+        _run_vectorized_sync(sync_specs, pack=pack, **kw)
     if event_specs:
         run_vectorized_events(event_specs, pack=pack, **kw)
     return [out[s.key()] for s in specs]
@@ -1023,7 +1163,9 @@ def run_sweep(specs: Sequence[TrialSpec], *, store=None,
     ``engine='vectorized'`` packs every trial (sync trials per virtual
     round, async/buffered trials off the merged event queue);
     ``engine='sequential'`` runs everything one ``FLServer.run()`` at a
-    time.  Engines give the same records, so stores can mix them."""
+    time.  Engines give the same records, so stores can mix them.  Under
+    a process group every rank runs the sweep and only rank 0 writes the
+    store."""
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; valid engines: "
                          + ", ".join(ENGINES))
@@ -1031,7 +1173,7 @@ def run_sweep(specs: Sequence[TrialSpec], *, store=None,
 
     def emit(res: TrialResult):
         results.append(res)
-        if store is not None:
+        if store is not None and mesh_mod.is_writer():
             store.append(res.to_record())
 
     if engine == "sequential":

@@ -47,7 +47,11 @@ a kill and a restore from the last snapshot it is the uninterrupted
 drain's, row for row (``wall`` aside).
 
 Every entry point runs on ``device`` (default ``cuda``) and takes an
-optional ``init_params(spec) -> numpy tree``, as the runner does.
+optional ``init_params(spec) -> numpy tree``, as the runner does.  With
+``pack="sharded"`` under a process group of more than one rank, every rank
+runs the scheduler (sync trials sharded as in the runner), reads the
+watched submissions through rank 0's bytes, and only rank 0 writes the
+store and the snapshots; every rank restores from the same snapshot.
 
 Observability: ``admit``/``retire`` instant spans (wall clock, per-trial
 track), a ``pool_occupancy`` gauge sampled every scheduler step, plus
@@ -67,9 +71,10 @@ from repro_torch import obs
 from repro_torch.device import resolve_device
 from repro_torch.experiments.grid import TrialSpec, spec_from_dict
 from repro_torch.experiments.runner import (InitFn, TrialResult,
-                                            _check_pack, _EventEngine,
-                                            _make_live, _sync_round_step,
-                                            _to_result)
+                                            _EventEngine, _make_live,
+                                            _resolve_sync_pack,
+                                            _sync_round_step, _to_result)
+from repro_torch.launch.mesh import is_writer
 
 
 class LanePool:
@@ -194,16 +199,23 @@ class TrialQueue:
     def mark_done(self, key: str):
         self._done.add(key)
 
-    def poll(self) -> int:
+    def poll(self, share: Optional[Callable[[bytes], bytes]] = None) -> int:
         """Read new complete lines from the watched submissions file and
         submit them; returns how many were accepted.  Byte-positional:
         only ever reads forward, so a writer appending concurrently is
-        safe and a torn final line is retried next poll."""
-        if self.watch_path is None or not os.path.exists(self.watch_path):
+        safe and a torn final line is retried next poll.  ``share`` maps
+        this process's new bytes to the ones to use (the sharded
+        scheduler's: rank 0's, so that every rank queues the same
+        lines)."""
+        if self.watch_path is None:
             return 0
-        with open(self.watch_path, "rb") as f:
-            f.seek(self._watch_pos)
-            chunk = f.read()
+        chunk = b""
+        if os.path.exists(self.watch_path):
+            with open(self.watch_path, "rb") as f:
+                f.seek(self._watch_pos)
+                chunk = f.read()
+        if share is not None:
+            chunk = share(chunk)
         n = 0
         consumed = 0
         for raw in chunk.split(b"\n")[:-1]:   # complete lines only
@@ -268,7 +280,7 @@ class TrialScheduler:
                  snapshot_path: Optional[str] = None,
                  snapshot_every: int = 1, device=None,
                  init_params: InitFn = None):
-        _check_pack(pack)
+        self._pack, self._mesh = _resolve_sync_pack(pack)
         self.device = resolve_device(device)
         self.init_params = init_params
         self.queue = queue
@@ -278,7 +290,6 @@ class TrialScheduler:
         self.verbose = verbose
         self.snapshot_path = snapshot_path
         self.snapshot_every = max(1, int(snapshot_every))
-        self._pack = pack
         self._ev = _EventEngine(self.device, init_params)
         self._sync_live: List = []
         self._event_live: List = []
@@ -293,7 +304,8 @@ class TrialScheduler:
     def admit_pending(self) -> int:
         """Poll the watched submissions file, then admit queued trials
         into free lanes (queue order, lowest free lane first)."""
-        self.queue.poll()
+        self.queue.poll(None if self._mesh is None
+                        else self._mesh.broadcast_object)
         n = 0
         while self.queue and self.pool.n_free:
             spec = self.queue.pop()
@@ -333,7 +345,7 @@ class TrialScheduler:
                 # during the replayed step BEFORE the kill, so its row is
                 # already in the store — appending again would duplicate it
                 self.duplicates_suppressed += 1
-            else:
+            elif is_writer():
                 self.store.append(result.to_record())
         self.results.append(result)
         if self.on_result is not None:
@@ -358,7 +370,8 @@ class TrialScheduler:
             obs.registry.sample("queue_depth", len(self.queue),
                                 step=self.stats.steps)
         if self._sync_live:
-            _sync_round_step(self._sync_live, step_idx=self._sync_steps)
+            _sync_round_step(self._sync_live, pack=self._pack,
+                             mesh=self._mesh, step_idx=self._sync_steps)
             self._sync_steps += 1
             for tr in [t for t in self._sync_live if t.done]:
                 self._sync_live.remove(tr)
@@ -381,7 +394,7 @@ class TrialScheduler:
         only between steps — mid-step state (packed cohorts) is not
         serialized.  Returns the written npz path."""
         path = path or self.snapshot_path
-        if path is None:
+        if path is None or not is_writer():
             return None
         from repro_torch.experiments.snapshot import snapshot_scheduler
         with obs.span("snapshot", phase="snapshot", step=self.stats.steps,

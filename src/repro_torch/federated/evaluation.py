@@ -107,12 +107,12 @@ class StackedEvaluator:
         """Per-trial accuracies for a list of params trees.  ``pad_to``
         pads the lane axis up to a caller-chosen width first (extra lanes
         repeat lane 0 and are discarded), as the sweep engines ask for a
-        pow2 of the due count.  ``mesh`` (the trial axis over a device
-        mesh) is not ported."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "a mesh-sharded stacked evaluation is not ported yet: it "
-                "comes with the multi-GPU slice (ROADMAP.md queue 1, item 15)")
+        pow2 of the due count.  With ``mesh`` (a ``launch.mesh.
+        ClientsMesh``) the lanes are padded to a multiple of its ranks,
+        each rank evaluates its contiguous block of them, and the
+        per-batch accuracies are all-gathered, so every rank folds the
+        same numbers and returns the same list; every rank must pass the
+        same params."""
         t = len(params_list)
         if t == 0:
             return []
@@ -124,6 +124,10 @@ class StackedEvaluator:
         stacked_list = list(params_list)
         if pad_to is not None and pad_to > t:
             stacked_list = stacked_list + [stacked_list[0]] * (pad_to - t)
+        if mesh is not None:
+            stacked_list += [stacked_list[0]] * (
+                (-len(stacked_list)) % mesh.size)
+            stacked_list = stacked_list[mesh.block(len(stacked_list))]
         stacked = tree_stack(stacked_list)
         forward = self.model.forward
 
@@ -135,7 +139,11 @@ class StackedEvaluator:
         with torch.no_grad(), perf.timed("eval"), obs.span(
                 "eval_stacked", phase="eval", n_lanes=t):
             accs = torch.stack([lanes(stacked, bx, by)
-                                for bx, by, _ in batches]).cpu().numpy()
+                                for bx, by, _ in batches])
+            if mesh is not None:      # (ranks, batches, block) -> lanes
+                accs = mesh.gather(accs).permute(1, 0, 2).reshape(
+                    len(batches), -1)
+            accs = accs.cpu().numpy()
         correct = [0.0] * t
         total = 0
         for row, (_, _, n) in zip(accs, batches):
@@ -155,7 +163,8 @@ def evaluate_stacked(items: Sequence[Tuple[Any, Any, int, Any]],
     eval_points, params)`` per trial; trials sharing a (model, dataset,
     eval_points) group run as one stacked evaluation on the device of the
     group's params.  Returns accuracies in item order.  ``pad_pow2`` pads
-    each group's lane axis to a pow2 of its size."""
+    each group's lane axis to a pow2 of its size; ``mesh`` lays each
+    group's lanes over its ranks (``StackedEvaluator.evaluate``)."""
     groups: Dict[tuple, List[int]] = {}
     for i, (model, dataset, eval_points, _params) in enumerate(items):
         groups.setdefault((id(model), id(dataset), eval_points),

@@ -2,8 +2,8 @@
 ``examples/distributed_fl.py``).
 
 The reference runs its reduced architecture on a host mesh of 8 devices;
-the port runs the same step on one device (the multi-GPU mesh is
-ROADMAP.md item 15).  By default it takes the example's shape:
+the port runs the same step on one device (the ``("data", "model")`` mesh
+is ROADMAP.md item 15b).  By default it takes the example's shape:
 ``reduced(cfg, n_layers=4)``, 8 participant slots of one 64-token sequence
 each with FedAvg weights [1, 2, 1, 4, 1, 2, 3, 2], lr 1e-2, on ``cuda``
 (``--device cpu`` for the CPU).  ``--full-width`` takes the full config

@@ -13,8 +13,13 @@ an independent ``FLServer.run()`` (see the scheduler's parity contract)
 and streams to the JSONL result store as it retires, so a killed daemon
 resumes past completed keys.  Trials run on ``--device`` (default
 ``cuda``; a machine without a GPU needs ``--device cpu``).  The flags are
-the reference's, plus ``--device``; ``--pack sharded`` raises until the
-multi-GPU slice (ROADMAP.md queue 1, item 15).
+the reference's, plus ``--device``.  ``--pack sharded`` lays each step's
+sync FedAvg trials over the ranks that ``torchrun --nproc-per-node D``
+starts (``nccl`` when every rank has a card, ``gloo`` when ranks share one
+or run on the CPU; ``launch/mesh.py``): every rank drains the same queue
+(the watched file read through rank 0's bytes), and only rank 0 prints
+and writes the store and the snapshots.  A single process falls back to
+the batched pack.
 
 Usage:
   # write the 12-trial smoke queue into a submissions file (the submit side)
@@ -44,6 +49,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 
@@ -89,7 +95,7 @@ def main(argv=None):
     ap.add_argument("--pack", default="batched",
                     choices=("batched", "sharded"),
                     help="sync cohort packing (event trials pack batched; "
-                         "sharded is not ported)")
+                         "sharded: over the ranks torchrun starts)")
     ap.add_argument("--out", default="runs/serve.jsonl",
                     help="JSONL result store (resume key source)")
     ap.add_argument("--no-resume", action="store_true",
@@ -147,7 +153,11 @@ def main(argv=None):
         ap.error("nothing to serve: give --preset and/or --watch "
                  "(or --submit to produce a submissions file)")
 
+    from repro_torch.launch import mesh as mesh_mod
+
     if args.submit:
+        if int(os.environ.get("RANK", "0")) != 0:
+            return             # under torchrun, rank 0 alone submits
         with open(args.submit, "a") as f:
             for s in specs:
                 f.write(json.dumps({"spec": s.to_dict()}) + "\n")
@@ -157,15 +167,22 @@ def main(argv=None):
 
     _check_pack(args.pack)
     device = resolve_device(args.device)
+    mesh = mesh_mod.init_from_env(device) if args.pack == "sharded" else None
+    if mesh is not None:
+        device = mesh.device
+    writer = mesh_mod.is_writer()
+    say = print if writer else (lambda *a, **k: None)
     store = ResultStore(args.out)
-    if args.no_resume:
+    if args.no_resume and writer:
         store.clear()
+    if mesh is not None:
+        mesh.barrier()         # every rank reads what rank 0 left
     snap_path = None
     if args.snapshot is not None:
         snap_path = (args.out + ".snap" if args.snapshot == "auto"
                      else args.snapshot)
 
-    if args.trace is not None:
+    if args.trace is not None and writer:
         from repro_torch import obs
         obs.enable()
 
@@ -186,20 +203,22 @@ def main(argv=None):
             sched.queue.mark_done(k)
         for s in specs:
             sched.queue.submit(s)
-        print(f"serve: resumed from {snap_path} at macro-step "
-              f"{sched.stats.steps} ({sched.pool.n_live} live trial(s), "
-              f"{len(sched.queue)} queued)", flush=True)
+        say(f"serve: resumed from {snap_path} at macro-step "
+            f"{sched.stats.steps} ({sched.pool.n_live} live trial(s), "
+            f"{len(sched.queue)} queued)", flush=True)
     else:
         queue = TrialQueue(specs=specs, watch_path=args.watch,
                            completed=store.completed_keys())
         queue.poll()
-        print(f"serve: {queue.n_submitted} trial(s) queued; resume: "
-              f"skipping {queue.n_skipped} completed/duplicate", flush=True)
+        say(f"serve: {queue.n_submitted} trial(s) queued; resume: "
+            f"skipping {queue.n_skipped} completed/duplicate", flush=True)
         sched = TrialScheduler(queue, max_lanes=args.max_lanes, store=store,
                                pack=args.pack, verbose=args.verbose,
                                snapshot_path=snap_path,
                                snapshot_every=args.snapshot_every,
                                device=device)
+    if mesh is not None:
+        mesh.barrier()         # every rank has read the store and snapshot
     t0 = time.perf_counter()
     try:
         while True:
@@ -208,18 +227,22 @@ def main(argv=None):
                         max_steps=args.kill_after_steps or None)
             if (args.kill_after_steps and sched.stats.steps - steps_before
                     >= args.kill_after_steps):
-                print(f"serve: simulated crash after "
-                      f"{args.kill_after_steps} macro-step(s); re-invoke "
-                      f"with --snapshot to resume from the last boundary",
-                      flush=True)
+                say(f"serve: simulated crash after "
+                    f"{args.kill_after_steps} macro-step(s); re-invoke "
+                    f"with --snapshot to resume from the last boundary",
+                    flush=True)
                 raise SystemExit(3)
             if not args.daemon or (args.limit
                                    and sched.stats.retired >= args.limit):
                 break
             time.sleep(args.poll_seconds)
     except KeyboardInterrupt:
-        print("serve: interrupted; store is resumable", flush=True)
+        say("serve: interrupted; store is resumable", flush=True)
     wall = time.perf_counter() - t0
+    if mesh is not None:
+        mesh_mod.leave()       # the collectives are over
+    if not writer:
+        return sched
 
     for res in sched.results:
         print(f"  done {res.spec.key()}  acc={res.final_accuracy:.3f} "

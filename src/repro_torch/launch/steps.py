@@ -10,8 +10,8 @@ half).
     to bound activation memory (flops unchanged).
 
 The reference's step runs on a device mesh and lowers under GSPMD; this one
-runs on the one device that holds the params (the multi-GPU mesh is
-ROADMAP.md item 15).  It keeps the reference's arguments.  Two
+runs on the one device that holds the params (the ``("data", "model")``
+mesh is ROADMAP.md item 15b).  It keeps the reference's arguments.  Two
 departures of form:
 
   * the reference donates params and momentum (``donate_argnums``); here
@@ -22,7 +22,7 @@ departures of form:
     order, so the sums are the same.
 
 f32 only: the kernels take f32 (bf16 is ROADMAP.md queue 2).  The
-prefill and serve steps and the quantised serve step wait for item 15.
+prefill and serve steps and the quantised serve step wait for item 15b.
 """
 
 from __future__ import annotations
@@ -106,7 +106,7 @@ def make_fl_train_step(cfg: ModelConfig, shape: InputShape, *,
     if moe_mode == "hierarchical":
         raise NotImplementedError(
             "moe_mode='hierarchical' is the sharded MoE: it comes with the "
-            "multi-GPU slice (ROADMAP.md item 15)")
+            "LM half of the multi-GPU slice (ROADMAP.md item 15b)")
     if moe_mode not in ("dense", "dispatch"):
         raise ValueError(f"unknown moe_mode {moe_mode!r}")
     b, s = shape.global_batch, shape.seq_len
@@ -173,11 +173,11 @@ def make_fl_train_step(cfg: ModelConfig, shape: InputShape, *,
 
 def step_for_shape(cfg: ModelConfig, shape: InputShape, **kw):
     """Dispatch on the shape kind -> (step, example structs).  Only the
-    train step is ported; prefill and decode steps raise (item 15)."""
+    train step is ported; prefill and decode steps raise (item 15b)."""
     if shape.kind == "train":
         return make_fl_train_step(cfg, shape, **kw)
     if shape.kind in ("prefill", "decode"):
         raise NotImplementedError(
             f"the {shape.kind} step runs on the device mesh: it comes with "
-            "the multi-GPU slice (ROADMAP.md item 15)")
+            "the LM half of the multi-GPU slice (ROADMAP.md item 15b)")
     raise ValueError(shape.kind)

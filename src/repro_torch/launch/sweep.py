@@ -25,9 +25,15 @@ Usage:
 
 The flags are the reference's, plus ``--device``.  ``--trace`` writes a
 dual-clock Chrome trace and a metrics JSONL beside the store
-(``--trace-jax`` adds an NVTX range per span).  ``--pack sharded`` raises
-``NotImplementedError`` until the multi-GPU slice lands (ROADMAP.md queue
-1, item 15).
+(``--trace-jax`` adds an NVTX range per span).  ``--pack sharded`` lays
+each packed round's FedAvg trials over the ranks that ``torchrun``
+starts, each on its own device (``nccl`` when every rank has a card,
+``gloo`` when ranks share one or run on the CPU; ``launch/mesh.py``);
+only rank 0 prints and writes the store, and a single process falls back
+to the batched pack:
+
+  torchrun --nproc-per-node 2 -m repro_torch.launch.sweep --preset smoke \
+      --pack sharded --out runs/s.jsonl
 """
 
 from __future__ import annotations
@@ -101,8 +107,8 @@ def main(argv=None):
                     choices=("vectorized", "sequential"))
     ap.add_argument("--pack", default="batched",
                     choices=("batched", "sharded"),
-                    help="vectorized cohort packing (sharded is not "
-                         "ported)")
+                    help="vectorized cohort packing (sharded: over the "
+                         "ranks torchrun starts)")
     ap.add_argument("--out", default="runs/sweep.jsonl",
                     help="JSONL result store (resume key source)")
     ap.add_argument("--no-resume", action="store_true",
@@ -134,7 +140,14 @@ def main(argv=None):
                                          paper_table, parse_preferences,
                                          run_sweep)
 
+    from repro_torch.launch import mesh as mesh_mod
+
     device = resolve_device(args.device)
+    mesh = mesh_mod.init_from_env(device) if args.pack == "sharded" else None
+    if mesh is not None:
+        device = mesh.device
+    writer = mesh_mod.is_writer()
+    say = print if writer else (lambda *a, **k: None)
     if args.preset == "smoke":
         sweep = smoke_grid()
     elif args.preset == "smoke-async":
@@ -163,19 +176,23 @@ def main(argv=None):
     specs = sweep.expand()     # validates every axis value eagerly
 
     store = ResultStore(args.out)
-    if args.no_resume:
+    if args.no_resume and writer:
         store.clear()
+    if mesh is not None:
+        mesh.barrier()         # every rank reads the store rank 0 left...
     done = store.completed_keys()
     pending = [s for s in specs if s.key() not in done]
+    if mesh is not None:
+        mesh.barrier()         # ...before rank 0 appends to it
     skipped = len(specs) - len(pending)
-    print(f"sweep: {len(specs)} trials in grid; resume: skipping {skipped} "
-          f"completed, {len(pending)} pending", flush=True)
+    say(f"sweep: {len(specs)} trials in grid; resume: skipping {skipped} "
+        f"completed, {len(pending)} pending", flush=True)
     if args.limit > 0:
         pending = pending[:args.limit]
-        print(f"sweep: --limit {args.limit} -> running {len(pending)} "
-              "trial(s) this invocation", flush=True)
+        say(f"sweep: --limit {args.limit} -> running {len(pending)} "
+            "trial(s) this invocation", flush=True)
 
-    if args.trace is not None:
+    if args.trace is not None and writer:
         from repro_torch import obs
         obs.enable(nvtx=args.trace_jax)
 
@@ -183,6 +200,10 @@ def main(argv=None):
     results = run_sweep(pending, store=store, engine=args.engine,
                         pack=args.pack, verbose=args.verbose, device=device)
     wall = time.perf_counter() - t0
+    if mesh is not None:
+        mesh_mod.leave()       # the collectives are over
+    if not writer:
+        return results
     for res in results:
         print(f"  done {res.spec.key()}  acc={res.final_accuracy:.3f} "
               f"rounds={res.rounds} M={res.final_m} E={res.final_e:g}",

@@ -16,10 +16,18 @@ saves the final params (``repro_torch.checkpoint.save_checkpoint``: a file
 the reference's ``load_checkpoint`` reads too); ``--trace`` writes a
 dual-clock Chrome trace and a metrics JSONL, and ``--trace-jax`` adds an
 NVTX range per span (the reference's flag, whose JAX trace annotations
-become NVTX ranges here).  ``--mode mesh`` and the ``sharded``
-client-execution backend raise ``NotImplementedError`` until the
-multi-GPU slice lands (see ROADMAP.md); ``--client-exec batched`` trains
-a sync round's clients as one packed cohort.
+become NVTX ranges here).  ``--client-exec batched`` trains a sync round's
+clients as one packed cohort; ``--client-exec sharded`` shards it over the
+ranks that ``torchrun`` starts, each on its own device (``nccl`` when
+every rank has a card, ``gloo`` when ranks share one or run on the CPU;
+``launch/mesh.py``), and only rank 0 prints and writes:
+
+  torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+      --client-exec sharded --fedtune
+
+A single process falls back to ``batched``, as the reference does on one
+device.  ``--mode mesh`` (the LM half of the multi-GPU slice, ROADMAP.md
+queue 1, item 15b) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -59,8 +67,8 @@ def main(argv=None):
                     help="deprecated alias for --client-exec batched")
     ap.add_argument("--client-exec", default=None,
                     choices=("sequential", "batched", "sharded"),
-                    help="sync-mode client execution backend (sharded "
-                         "is not ported)")
+                    help="sync-mode client execution backend (sharded: "
+                         "over the ranks torchrun starts)")
     ap.add_argument("--trace", nargs="?", const="runs/train.trace.json",
                     default=None, metavar="PATH",
                     help="record a dual-clock trace of the run: Chrome "
@@ -75,8 +83,8 @@ def main(argv=None):
 
     if args.mode == "mesh":
         raise NotImplementedError(
-            "--mode mesh is not ported yet: it comes with the multi-GPU "
-            "slice (see ROADMAP.md)")
+            "--mode mesh is not ported yet: it comes with the LM half of the "
+            "multi-GPU slice (ROADMAP.md queue 1, item 15b)")
 
     import numpy as np
 
@@ -92,7 +100,14 @@ def main(argv=None):
     from repro_torch.runtime import RuntimeConfig, sample_fleet
     from repro_torch.tree import leaves
 
+    from repro_torch.launch import mesh as mesh_mod
+
     device = resolve_device(args.device)
+    mesh = (mesh_mod.init_from_env(device)
+            if args.client_exec == "sharded" else None)
+    if mesh is not None:
+        device = mesh.device
+    writer = mesh_mod.is_writer()
     ds_fns = {"speech_command": speech_command_like, "emnist": emnist_like,
               "cifar100": cifar100_like}
     dataset = ds_fns[args.dataset](reduced=not args.full)
@@ -118,13 +133,17 @@ def main(argv=None):
         CostModel(flops_per_example=2 * n_params, param_count=n_params),
         FLConfig(m=args.m, e=args.e, batch_size=10,
                  target_accuracy=args.target, max_rounds=args.rounds,
-                 log_every=max(args.rounds // 20, 1),
+                 log_every=max(args.rounds // 20, 1) if writer else 0,
                  selection=args.selection),
         tuner=tuner, fleet=fleet, runtime_config=rtcfg, device=device)
-    if args.trace is not None:
+    if args.trace is not None and writer:
         from repro_torch import obs
         obs.enable(nvtx=args.trace_jax)
     res = server.run()
+    if mesh is not None:
+        mesh_mod.leave()         # the collectives are over
+    if not writer:
+        return res
     if args.trace is not None:
         from repro_torch import obs
         from repro_torch.obs.export import (trace_paths_for,

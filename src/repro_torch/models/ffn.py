@@ -19,7 +19,7 @@ reference:
 ``moe_impl("dense")`` switches ``moe_ffn`` to the dense path for the
 enclosed calls (a context variable, so concurrent callers do not see each
 other's choice).  The reference's sharded "hierarchical" impl raises (see
-ROADMAP.md, item 15).
+ROADMAP.md, item 15b).
 
 Top-k order: ``jax.lax.top_k`` puts the lower expert index first among
 equal probabilities; the port sorts with a stable descending sort, which
@@ -58,7 +58,7 @@ def moe_impl(kind: str):
     if kind == "hierarchical":
         raise NotImplementedError(
             "the hierarchical MoE is the sharded variant: it comes with the "
-            "multi-GPU slice (see ROADMAP.md, item 15)")
+            "LM half of the multi-GPU slice (see ROADMAP.md, item 15b)")
     if kind not in ("dispatch", "dense"):
         raise ValueError(f"unknown MoE impl {kind!r}")
     token = _MOE_IMPL.set(kind)

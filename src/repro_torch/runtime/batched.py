@@ -110,10 +110,13 @@ def cohort_scan(cohort_step, params_b, opt_b, xs, ys, masks, active,
     return params_b, last_loss
 
 
-def _stack_streams(streams, batch_size: int, t_pad: int):
-    """Pad a bucket's batch streams into (T, M, B, ...) host arrays."""
+def _stack_streams(streams, batch_size: int, t_pad: int, like=None):
+    """Pad a bucket's batch streams into (T, M, B, ...) host arrays.  Empty
+    streams are padding slots; the shapes come from the first real stream,
+    or from the stream ``like`` when every slot is padding (a sharded
+    rank's block can be)."""
     m = len(streams)
-    bx0, by0, _ = streams[0][0]
+    bx0, by0, _ = next((s for s in streams if s), like)[0]
     feat_shape = bx0.shape[1:]
     xs = np.zeros((t_pad, m, batch_size) + feat_shape, np.float32)
     ys = np.zeros((t_pad, m, batch_size), by0.dtype)

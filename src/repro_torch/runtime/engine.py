@@ -21,9 +21,12 @@ All stochasticity flows from two seeded generators — the server rng
 (selection + batch order, shared with the legacy loop) and a system rng
 (availability/dropout) — consumed in the reference's order, so a run's
 decisions, clocks and logs equal the reference's.  Sync mode trains a
-round's clients one at a time (``sequential``) or as one packed cohort
-(``batched``, ``runtime/batched.py``); the ``sharded`` backend comes with
-the multi-GPU slice.  Spans and metrics (``repro_torch.obs``) sit at the
+round's clients one at a time (``sequential``), as one packed cohort
+(``batched``, ``runtime/batched.py``), or as a cohort sharded over the
+ranks of a ``torch.distributed`` group with FedAvg completed across them
+(``sharded``, ``runtime/sharded.py``); ``sharded`` falls back to
+``batched`` on one rank or for a non-FedAvg aggregator, printing why, as
+the reference does.  Spans and metrics (``repro_torch.obs``) sit at the
 reference's sites and only read clocks and counts.
 
 The event loop is factored into plan/apply/account/finish methods over an
@@ -48,6 +51,7 @@ from repro_torch.federated.aggregation import (FedBuffAggregator,
 from repro_torch.federated.compression import upload_factor
 from repro_torch.federated.evaluation import eval_due
 from repro_torch.federated.server import FLResult, FLServer, RoundRecord
+from repro_torch.launch.mesh import world_size
 from repro_torch.runtime.events import (ARRIVAL, DROPOUT, FAILURE,
                                         EventQueue, VirtualClock)
 from repro_torch.runtime.profiles import Fleet, homogeneous_fleet
@@ -175,23 +179,34 @@ class EventDrivenRuntime:
         self._down, self._up = cm.traffic_halves(self._uf)
 
     def _resolve_client_exec(self) -> str:
-        """The sync-mode client-execution backend: ``batched=True`` is the
+        """The sync-mode client-execution backend, falling back along
+        sharded -> batched -> sequential where a precondition is missing
+        (the reference's order and messages): ``batched=True`` is the
         legacy spelling of ``batched``; async/buffered train one arrival at
-        a time, so they use the sequential loop; ``sharded`` is not
-        ported."""
+        a time; ``sharded`` needs a process group of more than one rank
+        and FedAvg, whose mean it completes across the ranks."""
         mode = self.rt.client_exec
-        if mode == "sharded":
-            raise NotImplementedError(
-                "client_exec 'sharded' is not ported yet: it comes with the "
-                "multi-GPU slice (ROADMAP.md queue 1, item 15); use "
-                "'sequential' or 'batched'")
         if self.rt.batched and mode == "sequential":
             mode = "batched"    # legacy flag
-        if mode == "batched" and self.rt.mode != "sync":
-            print("runtime: batched execution applies to the sync mode "
+        if mode == "sequential":
+            return mode
+        if self.rt.mode != "sync":
+            print(f"runtime: {mode} execution applies to the sync mode "
                   "(async/buffered train one arrival at a time); using "
                   "the sequential client loop", flush=True)
             return "sequential"
+        if mode == "sharded" and world_size() == 1:
+            print("runtime: sharded execution needs a process group of "
+                  "more than one rank (torch.distributed has none or one "
+                  "rank; try torchrun --nproc-per-node D); falling back to "
+                  "batched", flush=True)
+            return "batched"
+        if mode == "sharded" and self.srv.aggregator.name != "fedavg":
+            print("runtime: sharded execution completes FedAvg across the "
+                  f"ranks; aggregator {self.srv.aggregator.name!r} needs "
+                  "per-client updates — falling back to batched",
+                  flush=True)
+            return "batched"
         return mode
 
     # ------------------------------------------------------------------
@@ -396,13 +411,19 @@ class EventDrivenRuntime:
             included, active = plan.included, plan.active
 
             if included:
-                if self.client_exec == "batched":
-                    updates = self._batched_cohort(params, plan.train_cids,
-                                                   hp.e)
+                if self.client_exec == "sharded":
+                    # the FedAvg mean is already complete on every rank:
+                    # no per-client updates exist
+                    params = self._sharded_round(params, plan.train_cids,
+                                                 hp.e)
                 else:
-                    updates = [srv._client_update(params, cid, hp.e)[0]
-                               for cid in plan.train_cids]
-                params = srv.aggregator(params, updates)
+                    if self.client_exec == "batched":
+                        updates = self._batched_cohort(
+                            params, plan.train_cids, hp.e)
+                    else:
+                        updates = [srv._client_update(params, cid, hp.e)[0]
+                                   for cid in plan.train_cids]
+                    params = srv.aggregator(params, updates)
             round_cost = self.account_sync_round(plan, hp)
 
             if eval_due(r, cfg.eval_every, cfg.max_rounds):
@@ -450,6 +471,22 @@ class EventDrivenRuntime:
         for upd, (_, y) in zip(updates, data):
             srv.selector.update(upd.client_id, upd.last_loss, len(y))
         return updates
+
+    def _sharded_round(self, params, active: List[int], e: float):
+        """One round's clients sharded over the ranks
+        (``sharded_fedavg_train``): the FedAvg aggregate, with the
+        selector fed from every client's loss and size."""
+        from repro_torch.runtime.sharded import sharded_fedavg_train
+        srv = self.srv
+        data = [srv.dataset.client_data(c) for c in active]
+        res = sharded_fedavg_train(
+            srv.model, params, data, passes=e,
+            batch_size=srv.config.batch_size, optimizer=srv.optimizer,
+            rng=srv.rng, prox_mu=srv.config.prox_mu, client_ids=active,
+            compression=srv.config.compression)
+        for cid, loss, n in zip(active, res.last_losses, res.n_examples):
+            srv.selector.update(int(cid), float(loss), n)
+        return res.params
 
     # ------------------------------------------------------------------
     # async / buffered: an event loop over the virtual clock

@@ -328,15 +328,34 @@ def test_restore_keeps_local_steps_and_device(tmp_path):
             assert a.device.type == "cpu" and torch.equal(a, b)
 
 
-def test_sharded_pack_raises():
-    for call in (lambda: serve([tiny_spec()], pack="sharded", device="cpu"),
-                 lambda: TrialScheduler(TrialQueue(), pack="sharded",
-                                        device="cpu"),
-                 lambda: t_serve_cli.main(["--preset", "serve-smoke",
-                                           "--pack", "sharded",
-                                           "--device", "cpu"])):
-        with pytest.raises(NotImplementedError, match="item 15"):
-            call()
+def test_sharded_pack_raises(tmp_path, capsys):
+    """The sharded pack in one process (no process group): ``serve``,
+    ``TrialScheduler`` and the CLI print the reference's fallback and
+    serve with the batched pack, giving the batched drain's records."""
+    fallback = "falling back to batched packing"
+    want = serve([tiny_spec()], pack="batched", device="cpu")
+    capsys.readouterr()
+    got = serve([tiny_spec()], pack="sharded", device="cpu")
+    assert fallback in capsys.readouterr().out
+    assert [r.engine for r in got] == ["serve-sync/batched"]
+    assert_trial_parity(want[0], got[0])
+    sched = TrialScheduler(TrialQueue(), pack="sharded", device="cpu")
+    assert fallback in capsys.readouterr().out
+    assert sched._pack == "batched" and sched._mesh is None
+
+    def cli(pack):
+        out = str(tmp_path / f"{pack}.jsonl")
+        t_serve_cli.main(["--preset", "serve-smoke", "--pack", pack,
+                          "--device", "cpu", "--out", out])
+        return {r["key"]: r for r in ResultStore(out).load()}
+
+    rows, rows_sharded = cli("batched"), cli("sharded")
+    assert fallback in capsys.readouterr().out
+    assert rows.keys() == rows_sharded.keys() and len(rows) == 12
+    for key, r in rows.items():
+        for field in ("history_m", "history_e", "history_acc", "cost",
+                      "rounds", "engine"):
+            assert rows_sharded[key][field] == r[field], (key, field)
 
 
 # ---------------------------------------------------------------------------

@@ -59,6 +59,7 @@ from repro_torch.federated.evaluation import (Evaluator,  # noqa: E402
                                               StackedEvaluator,
                                               evaluate_stacked)
 from repro_torch.launch import sweep as t_sweep  # noqa: E402
+from repro_torch.launch.mesh import make_clients_mesh  # noqa: E402
 from repro_torch.runtime import RuntimeConfig  # noqa: E402
 from repro_torch.runtime.batched import batched_local_train  # noqa: E402
 from repro_torch.tree import leaves  # noqa: E402
@@ -173,8 +174,10 @@ def test_stacked_evaluator_lane_equals_evaluator():
     assert stacked.evaluate(params[:1]) == expect[:1]
     items = [(srv.model, srv.dataset, 128, p) for p in params]
     assert evaluate_stacked(items, pad_pow2=True) == expect
-    with pytest.raises(NotImplementedError, match="item 15"):
-        stacked.evaluate(params, mesh=object())
+    # one process: the mesh has one rank, which evaluates every lane
+    one_rank = make_clients_mesh()
+    assert one_rank.size == 1
+    assert stacked.evaluate(params, mesh=one_rank) == expect
 
 
 def test_batched_local_train_matches_reference_and_sequential():
@@ -357,17 +360,29 @@ def test_store_written_by_the_reference_resumes_in_the_port(tmp_path,
     assert ran[0].spec.key() == t_sweep.smoke_grid().expand()[1].key()
 
 
-def test_unported_paths_raise(tmp_path, monkeypatch):
+def test_unported_paths_raise(tmp_path, monkeypatch, capsys):
+    """The sharded pack in one process (no process group): it prints the
+    reference's fallback and gives the batched pack's records, through
+    ``run_vectorized``, ``run_sweep`` and the CLI."""
     out = str(tmp_path / "s.jsonl")
-    for call in (lambda: run_vectorized([tiny_spec()], pack="sharded",
-                                        device="cpu"),
-                 lambda: run_sweep([tiny_spec()], pack="sharded",
-                                   device="cpu"),
-                 lambda: t_sweep.main(["--pack", "sharded", "--device",
-                                       "cpu", "--rounds", "1",
-                                       "--out", out])):
-        with pytest.raises(NotImplementedError, match="item 15"):
-            call()
+    batched = run_vectorized([tiny_spec()], pack="batched", device="cpu")
+
+    def cli(pack):
+        return t_sweep.main(["--pack", pack, "--device", "cpu", "--rounds",
+                             "1", "--tuners", "fedtune", "--no-resume",
+                             "--out", out])
+
+    cli_batched = cli("batched")
+    capsys.readouterr()
+    for call, want in ((lambda: run_vectorized([tiny_spec()], pack="sharded",
+                                               device="cpu"), batched),
+                       (lambda: run_sweep([tiny_spec()], pack="sharded",
+                                          device="cpu"), batched),
+                       (lambda: cli("sharded"), cli_batched)):
+        got = call()
+        assert "falling back to batched packing" in capsys.readouterr().out
+        assert [r.engine for r in got] == ["vectorized/batched"]
+        assert_trial_parity(want[0], got[0])
     # --trace (with --trace-jax's NVTX ranges, absent from a CPU build)
     # writes a schema-valid trace and a metrics JSONL beside the store
     from repro_torch.obs.export import validate_chrome_trace
@@ -382,8 +397,11 @@ def test_unported_paths_raise(tmp_path, monkeypatch):
         assert (tmp_path / f"{base}.metrics.jsonl").exists()
     with pytest.raises(ValueError, match="batched"):
         run_vectorized([tiny_spec()], pack="origami", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        run_trial(tiny_spec(client_exec="sharded"), device="cpu")
+    alone = run_trial(tiny_spec(client_exec="sharded"), device="cpu")
+    assert "sharded execution needs a process group" in \
+        capsys.readouterr().out
+    assert_trial_parity(run_trial(tiny_spec(client_exec="batched"),
+                                  device="cpu"), alone)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         run_sweep([tiny_spec()])

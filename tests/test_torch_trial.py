@@ -154,11 +154,23 @@ def test_params_on_another_device_are_refused():
         srv.run(p)
 
 
-def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="sharded"):
-        srv = t_server("sync", None, 1)
-        srv.runtime_config = RuntimeConfig(client_exec="sharded")
-        srv.run()
+def test_unported_paths_raise(capsys):
+    """``client_exec="sharded"`` in one process (no process group) prints
+    the reference's fallback and gives the batched run's records; the
+    LM half's ``--mode mesh`` still raises."""
+    runs = {}
+    for exec_ in ("batched", "sharded"):
+        srv = t_server("sync", None, 3)
+        srv.runtime_config = RuntimeConfig(client_exec=exec_)
+        runs[exec_] = srv.run(params_from_numpy(_initial_params(), "cpu"))
+    assert "sharded execution needs a process group" in \
+        capsys.readouterr().out
+    want, got = runs["batched"], runs["sharded"]
+    assert [(h.m, h.e, h.accuracy) for h in got.history] == \
+        [(h.m, h.e, h.accuracy) for h in want.history]
+    assert got.total_cost.as_tuple() == want.total_cost.as_tuple()
+    for a, b in zip(leaves(got.params), leaves(want.params)):
+        assert torch.equal(a, b)
     with pytest.raises(NotImplementedError, match="not ported"):
         t_train.main(["--mode", "mesh", "--device", "cpu"])
 
