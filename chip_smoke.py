@@ -8,9 +8,10 @@ toolkit (``nvcc``) and a CUDA build of PyTorch.  Phases, each of which
 exits non-zero on failure:
 
   1. Build the hand-written kernels from ``src/repro_torch/kernels/csrc``
-     with nvcc (six entry points: the four TPU kernels' ports and the two
-     training backwards; printing the build seconds and ptxas's register
-     report) and print the card's name and power limit.
+     with nvcc (the four TPU kernels' ports and the two training
+     backwards, each in f32 and, but the reverse scan, in bf16; printing
+     the build seconds and ptxas's register report) and print the card's
+     name and power limit.
   2. Hold each FedTune kernel against its plain PyTorch version on the card
      at the main path's shapes: ``fed_reduce`` bitwise (FedAvg, FedBuff
      flush, a packed T=8 cohort with the int8 round trip, and two packed
@@ -206,13 +207,53 @@ pre-pass and the kernel alone timed as well) and without.
      ``pack="sharded"``, 5 rounds, against phase 7's records.  Then
      ``fed_reduce`` at a rank's shape from 13a (``sharded_rank_fedavg``:
      T=1, M=32, N=169,462) with phase 2's columns.
+  2e. (Run after 2c.)  The bf16 kernels against their plain versions on
+     the same bf16 inputs: ``flash_attention`` within 8e-3 of the plain
+     output's max-abs and, element by element, within 2 bf16 ulps plus
+     1e-3 of its row's max-abs, at gemma2-2b's global layer (B=2, H=8,
+     Kh=4, S=T=4096, D=256, cap 50) and local one (window 4096),
+     recurrentgemma-9b's local layer (16/1, window 2048), a ragged S=4000
+     and a 32k prefill (B=1, gemma2 global, S=T=32,768; checked on its
+     first and last 512 rows, the plain version run in 512-row blocks);
+     ``flash_attention_bwd`` within 2e-2 of each gradient's max-abs and
+     of each row's (a query's dq, a key's dk and dv), and bitwise equal to
+     itself (gemma2's two layers, recurrentgemma's local layer,
+     seamless-m4t's non-causal cross-attention 16/16, S=512, T=1024,
+     D=64); ``rglru_scan`` bitwise (B=2, T=4096, W=4096 and 4099; T=1).
+     Each attention case also plants faults in the plain result and fails
+     unless these limits reject them: the second half of the rows computed
+     with one 64-key V tile read as zeros (the forward and dq), and dv's
+     last quarter of keys written as zeros.  Each case: card, plain and library ms (SDPA in bf16 with the
+     mask explicit; none under a cap or for the scan) and the bf16 bound
+     (bytes at 3.35 TB/s, 4 D or 10 D flops a live pair at 989 TFLOP/s)
+     with its share.
+  14. The production steps at bf16 (``launch/steps.py``'s default dtype).
+     14a: phase 11's two training cells with bf16 params and f32 momentum,
+     the same exact launch counts on the bf16 kernels (52 + 26 for
+     gemma2-2b, every attention launch bf16; the scans stay f32), finite
+     loss, params and momentum; step seconds, tokens/s and peak memory
+     beside phase 11's from this run.  14b: the reduced step (3 layers,
+     B=2 x S=256) at bf16 card vs CPU from the same params: loss within
+     1e-2 relative, every gradient leaf within 3e-2 of its max-abs (each
+     side's distance from the f32 gradient printed); then one step with
+     microbatches=2, local_passes=2: momentum within 3e-2, params within
+     2 bf16 ulps plus lr x 3e-2 x max |m|.  14c: ``make_prefill_step`` and
+     ``make_serve_step`` for gemma2-2b and recurrentgemma-9b at full width
+     and depth: a 4,096-token prompt at B=2 into a 32,768-position cache
+     (exact bf16 launch counts), 32 serve steps at B=8 with bf16 weights,
+     the last within 5e-2 of a re-prefill over prompt + tokens, and the
+     same 32 steps from int8 weights within 5e-2 of the bf16 ones; prefill
+     tokens/s from the median of three calls after one to warm up, decode
+     tokens/s from the median step, and peak memory.
 
 The last three lines are the card's name and power limit (as nvidia-smi
 gives them), the kernels' JSON summary (six entries: ``fed_reduce``,
 ``fed_aggregate``, ``flash_attention``, ``rglru_scan``,
 ``flash_attention_bwd`` and ``rglru_scan_bwd``; the launches are the main
 path's, phase 11's training steps and phase 12's and 13's trials (both
-ranks) included) and
+ranks) included; each entry's ``launches_bf16`` counts its bf16 kernel's
+launches in phase 14, and ``bf16`` holds that kernel's source, phase-2e
+numbers and parity) and
 ``{"ok": true, "device": {...}}``.  Without a GPU, or without the port's sources beside this file,
 it exits 1 and prints no result.
 
@@ -245,6 +286,7 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12             # H100 SXM f32 outside the tensor cores
 TF32_FLOPS_PER_S = 495e12           # H100 SXM TF32 tensor cores, dense
+BF16_FLOPS_PER_S = 989e12           # H100 SXM bf16 tensor cores, dense
 N_PARAMS = 169_462                  # MLP_EMNIST: 784 -> 200 -> 62
 
 
@@ -671,6 +713,294 @@ def lm_kernel_cases(torch, np, card, flush):
     attn_case("seamless_cross", 2, 16, 16, 512, 1024, 64, False, None, None)
     attn_case("internvl2_prefix", 2, 14, 2, 2304, 2304, 64, True, None,
               None)
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phase 2e: the bf16 kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def chunked_attention_ref(ref, q, k, v, rows, **kw):
+    """The plain attention of causal self-attention (S == T) for query rows
+    ``rows`` (a slice): the queries against the keys they can see, so that
+    a 32k prefill is checked without its (S, T) score matrix."""
+    return ref.flash_attention_ref(q[:, :, rows], k[:, :, :rows.stop],
+                                   v[:, :, :rows.stop], **kw)
+
+
+def bf16_kernel_cases(torch, np, card, flush):
+    """Phase 2e: the bf16 kernels at the bf16 production steps' shapes, each
+    held against its plain version on the same bf16 inputs (attention within
+    8e-3 of the plain output's max-abs and within 2 bf16 ulps plus 1e-3 of
+    its row's max-abs element by element; the backward within 2e-2 of each
+    gradient's max-abs and of each row's, and bitwise equal to itself run
+    twice; the scan bitwise), with card, plain and library ms and the bound
+    at bf16: the larger of the bytes at 3.35 TB/s and the bf16 operations
+    at 989 TFLOP/s (4 D flops a live pair forward, 10 D backward).  The
+    whole-tensor measure alone is too coarse: a causal output's largest
+    value is v[0] in row 0, about as large as a late row's whole spread.
+    Every attention case plants faults in the plain result (a 64-key V
+    tile read as zeros on the second half of the rows; dv's last quarter
+    of keys zeroed) and fails unless the element and row limits reject
+    them."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fl_mod
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rglru_scan as sc_mod
+    from repro_torch.kernels.parity import (BF16_ROW_FLOOR, bf16_ulps,
+                                            rel_err, row_floor, row_rel_err)
+
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    g_rng = torch.Generator(device="cuda").manual_seed(22)
+    results = []
+    t_phase = time.perf_counter()
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g_rng, device=dev).to(bf)
+
+    def mask_of(causal, window, s_len, t_len):
+        qk = torch.arange(s_len, device=dev)[:, None] + (t_len - s_len)
+        kp = torch.arange(t_len, device=dev)[None, :]
+        mask = torch.ones((s_len, t_len), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= kp <= qk
+        if window is not None:
+            mask &= kp > qk - window
+        return mask
+
+    def late_tile_zeroed(q, k, v, want, kw):
+        """The plain output with the second half of its rows computed from
+        a V whose 64 keys before the middle are zeros: a kernel that read
+        one stale tile on late rows."""
+        t0 = max(k.shape[2] // 2 - 64, 0)
+        vz = v.clone()
+        vz[:, :, t0:t0 + 64] = 0
+        bad = want.clone()
+        half = q.shape[2] // 2
+        bad[:, :, half:] = ref.flash_attention_ref(q, k, vz, **kw)[
+            :, :, half:]
+        return bad, vz
+
+    def attn_case(name, b, h, kh, s_len, t_len, d, causal, window, cap,
+                  check_rows=None):
+        q, k, v = randn(b, h, s_len, d), randn(b, kh, t_len, d), \
+            randn(b, kh, t_len, d)
+        kw = dict(causal=causal, window=window, cap=cap)
+        got = fl_mod.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        fault = None
+        if check_rows is None:
+            plain = lambda: ref.flash_attention_ref(q, k, v, **kw)  # noqa
+            want = plain()
+            err = rel_err(got, want)
+            ulps = bf16_ulps(got, want, row_floor(want, BF16_ROW_FLOOR))
+            bad, _ = late_tile_zeroed(q, k, v, want, kw)
+            fault = dict(what="late rows with one 64-key V tile read as 0",
+                         rel_err=rel_err(bad, want),
+                         bf16_ulps=bf16_ulps(bad, want, row_floor(
+                             want, BF16_ROW_FLOOR)))
+            check(fault["bf16_ulps"] > 2.0,
+                  f"flash_attention bf16 {name}: the element check misses "
+                  f"a planted fault ({fault})")
+            del want, bad
+        else:           # the plain version on row blocks (no S x T matrix)
+            def plain():
+                for r0 in range(0, s_len, check_rows):
+                    chunked_attention_ref(ref, q, k, v,
+                                          slice(r0, r0 + check_rows), **kw)
+            err = ulps = 0.0
+            for rows in (slice(0, check_rows),
+                         slice(s_len - check_rows, s_len)):
+                want = chunked_attention_ref(ref, q, k, v, rows, **kw)
+                err = max(err, rel_err(got[:, :, rows], want))
+                ulps = max(ulps, bf16_ulps(got[:, :, rows], want, row_floor(
+                    want, BF16_ROW_FLOOR)))
+        check(err <= 8e-3, f"flash_attention bf16 {name}: kernel vs plain "
+                           f"version {err} > 8e-3 of max-abs")
+        check(ulps <= 2.0, f"flash_attention bf16 {name}: kernel vs plain "
+                           f"version {ulps} bf16 ulps beyond "
+                           f"{BF16_ROW_FLOOR} of the row's max-abs")
+        pairs = live_pairs(s_len, t_len, causal, window) * b * h
+        flops = 4 * d * pairs
+        nbytes = 2 * d * (2 * b * h * s_len + 2 * b * kh * t_len)
+        bound_ms, bound_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+        lib = None
+        if cap is None:
+            mask = mask_of(causal, window, s_len, t_len)
+            g = h // kh
+            kk, vv = k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, kk, vv, attn_mask=mask)
+        ms = median_ms(torch, lambda: fl_mod.flash_attention(q, k, v, **kw),
+                       flush, iters=10)
+        rec = dict(
+            phase="bf16_kernel_check", kernel="flash_attention", case=name,
+            dtype="bfloat16", shape=dict(B=b, H=h, Kh=kh, S=s_len, T=t_len,
+                                         D=d),
+            causal=causal, window=window, cap=cap,
+            check="8e-3 of the plain output's max-abs; element by element "
+                  f"2 bf16 ulps plus {BF16_ROW_FLOOR} of the row's max-abs" + (
+                "" if check_rows is None else
+                f" (first and last {check_rows} rows)"),
+            max_abs_err=err, bf16_ulps=ulps, planted_fault=fault, ms=ms,
+            plain_ms=median_ms(torch, plain, flush, iters=3, warmup=1),
+            plain_call="ref.flash_attention_ref" + (
+                "" if check_rows is None else
+                f" in blocks of {check_rows} query rows"),
+            library_ms=None if lib is None else median_ms(
+                torch, lib, flush, iters=10),
+            library_call="none: scaled_dot_product_attention has no "
+                         "soft-cap" if lib is None else
+            "F.scaled_dot_product_attention(q, k, v, attn_mask=mask) in "
+            "bf16 (k, v repeated to H heads outside the timing)",
+            live_pairs=pairs, bytes=nbytes, flops=flops, bound_ms=bound_ms,
+            bound_by=bound_by, bound_share=bound_ms / ms,
+            bound_route="4 D flops a live pair at 989 TFLOP/s (bf16); the "
+                        "kernel runs P V twice (P = hi + lo): 6 D",
+            card=card)
+        emit(rec)
+        results.append(rec)
+        del q, k, v, got
+        torch.cuda.empty_cache()
+
+    attn_case("gemma2_global", 2, 8, 4, 4096, 4096, 256, True, None, 50.0)
+    attn_case("gemma2_local", 2, 8, 4, 4096, 4096, 256, True, 4096, 50.0)
+    attn_case("recurrentgemma_local", 2, 16, 1, 4096, 4096, 256, True, 2048,
+              None)
+    attn_case("ragged_s4000", 2, 16, 1, 4000, 4000, 256, True, 2048, None)
+    attn_case("prefill_32k", 1, 8, 4, 32768, 32768, 256, True, None, 50.0,
+              check_rows=512)
+
+    def bwd_case(name, b, h, kh, s_len, t_len, d, causal, window, cap):
+        q, k, v = randn(b, h, s_len, d), randn(b, kh, t_len, d), \
+            randn(b, kh, t_len, d)
+        dout = randn(b, h, s_len, d)
+        kw = dict(causal=causal, window=window, cap=cap)
+        out, lse = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
+        k_out, k_lse = fl_mod.flash_attention(q, k, v, return_lse=True, **kw)
+        lse_err = float((k_lse - lse).abs().max())
+        check(lse_err <= 1e-3, f"flash_attention bf16 {name}: lse off by "
+                               f"{lse_err}")
+        got = fl_mod.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+        again = fl_mod.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+        want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+        torch.cuda.synchronize()
+        errs = [rel_err(g, w) for g, w in zip(got, want)]
+        row_errs = [row_rel_err(g, w) for g, w in zip(got, want)]
+        same = all(bool(torch.equal(g, a)) for g, a in zip(got, again))
+        check(max(errs) <= 2e-2, f"flash_attention_bwd bf16 {name}: "
+                                 f"(dq, dk, dv) off by {errs} > 2e-2")
+        check(max(row_errs) <= 2e-2, f"flash_attention_bwd bf16 {name}: "
+                                     f"(dq, dk, dv) rows off by {row_errs} "
+                                     f"> 2e-2 of the row's max-abs")
+        check(same, f"flash_attention_bwd bf16 {name}: two calls differ")
+        # planted faults: dv's last quarter of keys zeroed; dq's late rows
+        # from a V with one 64-key tile read as zeros
+        dv_bad = want[2].clone()
+        dv_bad[:, :, 3 * t_len // 4:] = 0
+        _, vz = late_tile_zeroed(q, k, v, out, kw)
+        dq_bad = want[0].clone()
+        dq_bad[:, :, s_len // 2:] = ref.flash_attention_bwd_ref(
+            q, k, vz, out, lse, dout, **kw)[0][:, :, s_len // 2:]
+        faults = {
+            "dv_last_quarter_zero": dict(rel_err=rel_err(dv_bad, want[2]),
+                                         row_rel_err=row_rel_err(dv_bad,
+                                                                 want[2])),
+            "dq_late_rows_v_tile_zero": dict(
+                rel_err=rel_err(dq_bad, want[0]),
+                row_rel_err=row_rel_err(dq_bad, want[0]))}
+        check(all(f["row_rel_err"] > 2e-2 for f in faults.values()),
+              f"flash_attention_bwd bf16 {name}: the row check misses a "
+              f"planted fault ({faults})")
+        del dv_bad, dq_bad, vz
+        pairs = live_pairs(s_len, t_len, causal, window) * b * h
+        flops = 10 * d * pairs
+        nbytes = 2 * d * (4 * b * h * s_len + 4 * b * kh * t_len) \
+            + 4 * b * h * s_len
+        bound_ms, bound_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+        lib = None
+        if cap is None:
+            mask = mask_of(causal, window, s_len, t_len)
+            g = h // kh
+            qq = q.detach().requires_grad_(True)
+            kk = k.repeat_interleave(g, 1).detach().requires_grad_(True)
+            vv = v.repeat_interleave(g, 1).detach().requires_grad_(True)
+            o_lib = F.scaled_dot_product_attention(qq, kk, vv,
+                                                   attn_mask=mask)
+            lib = lambda: torch.autograd.grad(  # noqa: E731
+                o_lib, (qq, kk, vv), dout, retain_graph=True)
+        ms = median_ms(torch, lambda: fl_mod.flash_attention_bwd(
+            q, k, v, out, lse, dout, **kw), flush, iters=10)
+        rec = dict(
+            phase="bf16_kernel_check", kernel="flash_attention_bwd",
+            case=name, dtype="bfloat16",
+            shape=dict(B=b, H=h, Kh=kh, S=s_len, T=t_len, D=d),
+            causal=causal, window=window, cap=cap,
+            check="2e-2 of each gradient's max-abs and of each row's "
+                  "(a query's dq, a key's dk and dv); bitwise run twice",
+            max_abs_err=max(errs), rel_err_dq_dk_dv=errs,
+            row_rel_err_dq_dk_dv=row_errs, planted_faults=faults,
+            bitwise_twice=same,
+            lse_max_abs_err=lse_err, ms=ms,
+            plain_ms=median_ms(torch, lambda: ref.flash_attention_bwd_ref(
+                q, k, v, out, lse, dout, **kw), flush, iters=3, warmup=1),
+            library_ms=None if lib is None else median_ms(
+                torch, lib, flush, iters=10),
+            library_call="none: scaled_dot_product_attention has no "
+                         "soft-cap" if lib is None else
+            "the backward of F.scaled_dot_product_attention with the mask "
+            "explicit, bf16 (autograd.grad, K/V repeated to H heads)",
+            live_pairs=pairs, bytes=nbytes, flops=flops, bound_ms=bound_ms,
+            bound_by=bound_by, bound_share=bound_ms / ms,
+            bound_route="10 D flops a live pair at 989 TFLOP/s (bf16); the "
+                        "kernel recomputes S and dP for dQ: 14 D",
+            card=card)
+        emit(rec)
+        results.append(rec)
+        del q, k, v, dout, out, lse, got, again, want
+        torch.cuda.empty_cache()
+
+    bwd_case("gemma2_global", 2, 8, 4, 4096, 4096, 256, True, None, 50.0)
+    bwd_case("gemma2_local", 2, 8, 4, 4096, 4096, 256, True, 4096, 50.0)
+    bwd_case("recurrentgemma_local", 2, 16, 1, 4096, 4096, 256, True, 2048,
+             None)
+    bwd_case("seamless_cross_noncausal", 2, 16, 16, 512, 1024, 64, False,
+             None, None)
+
+    def scan_case(name, b, t_len, w):
+        a = (torch.rand(b, t_len, w, generator=g_rng, device=dev) * 0.099
+             + 0.9).to(bf)
+        x = (torch.randn(b, t_len, w, generator=g_rng, device=dev)
+             * 0.1).to(bf)
+        got = sc_mod.rglru_scan(a, x)
+        want = ref.rglru_scan_ref(a, x)
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(got, want))
+        check(equal, f"rglru_scan bf16 {name}: kernel != plain version "
+                     f"(max abs err {rel_err(got, want)} of max-abs)")
+        n = b * t_len * w
+        nbytes, flops = 6 * n, 2 * n
+        bound_ms, bound_by = bound(nbytes, flops)
+        ms = median_ms(torch, lambda: sc_mod.rglru_scan(a, x), flush)
+        rec = dict(
+            phase="bf16_kernel_check", kernel="rglru_scan", case=name,
+            dtype="bfloat16", shape=dict(B=b, T=t_len, W=w),
+            check="bitwise", equal=equal, max_abs_err=0.0, ms=ms,
+            plain_ms=median_ms(torch, lambda: ref.rglru_scan_ref(a, x),
+                               flush, iters=3, warmup=1),
+            library_ms=None,
+            library_call="none: PyTorch has no one-call linear recurrence",
+            bytes=nbytes, flops=flops, bound_ms=bound_ms, bound_by=bound_by,
+            bound_share=bound_ms / ms, card=card)
+        emit(rec)
+        results.append(rec)
+
+    scan_case("recurrentgemma_prefill", 2, 4096, 4096)
+    scan_case("ragged_w4099", 2, 4096, 4099)
+    scan_case("t1", 2, 1, 4096)
+    emit(dict(phase="bf16_kernel_check", seconds=time.perf_counter() - t_phase))
     return results
 
 
@@ -1431,6 +1761,7 @@ def train_kernel_cases(torch, np, card, flush, ptxas, old_lib=None):
     from repro_torch.kernels import flash_attention as fl_mod
     from repro_torch.kernels import ref
     from repro_torch.kernels import rglru_scan as sc_mod
+    from repro_torch.kernels.parity import rel_err
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(3)
@@ -1438,10 +1769,6 @@ def train_kernel_cases(torch, np, card, flush, ptxas, old_lib=None):
 
     def t(a):
         return torch.from_numpy(np.asarray(a)).to(dev)
-
-    def max_rel(got, want):
-        return float((got - want).abs().max()) / max(
-            float(want.abs().max()), 1e-30)
 
     def sdpa_bwd(q, k, v, dout, causal, window, s_len, t_len):
         """The library yardstick: the backward of one SDPA call with the
@@ -1478,7 +1805,7 @@ def train_kernel_cases(torch, np, card, flush, ptxas, old_lib=None):
         torch.cuda.synchronize()
         same = all(bool(torch.equal(a, c)) for a, c in zip(got, again))
         check(same, f"flash_attention_bwd {name}: two calls differ")
-        rel = [max_rel(g, w) for g, w in zip(got, want)]
+        rel = [rel_err(g, w) for g, w in zip(got, want)]
         err = max(float((g - w).abs().max()) for g, w in zip(got, want))
         check(max(rel) <= 1e-4, f"flash_attention_bwd {name}: (dq, dk, dv) "
                                 f"off by {rel} of their max-abs (> 1e-4)")
@@ -1543,7 +1870,7 @@ def train_kernel_cases(torch, np, card, flush, ptxas, old_lib=None):
             def old_agrees():
                 want_ = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout,
                                                     **kw)
-                return max(max_rel(g, w) for g, w in zip(outs["old"],
+                return max(rel_err(g, w) for g, w in zip(outs["old"],
                                                          want_)) <= 1e-4
             rec.update(old_vs_new(
                 torch, flush, c_call(old_lib, "old", b * h * s_len),
@@ -1616,26 +1943,34 @@ TRAIN = (
     ("recurrentgemma-9b", 6, 2, 4096, 1, 2_227_392_512),
 )
 TRAIN_ROUNDS = 3
-TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "rglru_scan",
-                 "rglru_scan_bwd")
 
 
 def train_counts(fl_mod, sc_mod, reset: bool = False):
-    """The four LM kernels' launch counts (set to 0 first when asked)."""
+    """The four LM kernels' launch counts (set to 0 first when asked), the
+    bf16 kernels' under ``<name>_bf16``."""
     if reset:
         fl_mod.launches = fl_mod.bwd_launches = 0
         sc_mod.launches = sc_mod.bwd_launches = 0
+        fl_mod.launches_bf16 = fl_mod.bwd_launches_bf16 = 0
+        sc_mod.launches_bf16 = 0
     return {"flash_attention": fl_mod.launches,
             "flash_attention_bwd": fl_mod.bwd_launches,
             "rglru_scan": sc_mod.launches,
-            "rglru_scan_bwd": sc_mod.bwd_launches}
+            "rglru_scan_bwd": sc_mod.bwd_launches,
+            "flash_attention_bf16": fl_mod.launches_bf16,
+            "flash_attention_bwd_bf16": fl_mod.bwd_launches_bf16,
+            "rglru_scan_bf16": sc_mod.launches_bf16}
 
 
 def all_finite(torch, tensors) -> bool:
     return all(bool(torch.isfinite(x).all()) for x in tensors)
 
 
-def train_full_width(torch, card):
+def train_full_width(torch, card, dtype=None, beside=None):
+    """Phase 11 (f32) or 14a (``dtype`` bf16: bf16 params, f32 momentum,
+    every attention launch the bf16 kernels', the scan f32 as the model
+    casts it; ``beside`` phase 11's records, printed with each arch).
+    Returns (launch totals, records by arch)."""
     from repro_torch.configs import get_config
     from repro_torch.configs.shapes import InputShape
     from repro_torch.kernels import flash_attention as fl_mod
@@ -1646,7 +1981,9 @@ def train_full_width(torch, card):
     from repro_torch.models import stacked
     from repro_torch.tree import leaves, tree_map
 
-    totals = dict.fromkeys(TRAIN_KERNELS, 0)
+    dtype = torch.float32 if dtype is None else dtype
+    bf16 = dtype == torch.bfloat16
+    totals, recs = {}, {}
     for arch, keep, b, s_len, mb, n_want in TRAIN:
         cfg = get_config(arch)
         if keep is not None:
@@ -1655,22 +1992,25 @@ def train_full_width(torch, card):
         n_rglru = sum(sp.mixer == "rglru" for sp in cfg.layers)
         # remat: every layer's forward runs twice (the pass and its
         # recompute in the backward), its backward once, per microbatch
-        want = {"flash_attention": 2 * n_attn * mb,
-                "flash_attention_bwd": n_attn * mb,
-                "rglru_scan": 2 * n_rglru * mb,
-                "rglru_scan_bwd": n_rglru * mb}
+        sfx = "_bf16" if bf16 else ""
+        want = dict.fromkeys(train_counts(fl_mod, sc_mod), 0)
+        want.update({"flash_attention" + sfx: 2 * n_attn * mb,
+                     "flash_attention_bwd" + sfx: n_attn * mb,
+                     "rglru_scan": 2 * n_rglru * mb,
+                     "rglru_scan_bwd": n_rglru * mb})
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         gen = torch.Generator(device="cuda").manual_seed(0)
-        params = stacked.init_params_stacked(cfg, gen)
-        momentum = tree_map(torch.zeros_like, params)
+        params = stacked.init_params_stacked(cfg, gen, dtype)
+        momentum = tree_map(lambda x: torch.zeros(
+            x.shape, dtype=torch.float32, device=x.device), params)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         n_params = sum(x.numel() for x in leaves(params))
         check(n_params == n_want, f"{arch}: {n_params} params, want {n_want}")
         step, _ = make_fl_train_step(
             cfg, InputShape("train_4k_cut", seq_len=s_len, global_batch=b,
-                            kind="train"), microbatches=mb)
+                            kind="train"), microbatches=mb, dtype=dtype)
         bgen = torch.Generator(device="cuda").manual_seed(7)
         torch.cuda.reset_peak_memory_stats()
         secs, losses, accs = [], [], []
@@ -1685,8 +2025,8 @@ def train_full_width(torch, card):
             counts = train_counts(fl_mod, sc_mod)
             check(counts == want, f"{arch} round {r}: launches {counts}, "
                                   f"wanted {want}")
-            for k in TRAIN_KERNELS:
-                totals[k] += counts[k]
+            for k, v in counts.items():
+                totals[k] = totals.get(k, 0) + v
             losses.append(float(loss))
             accs.append(float(metrics["acc"]))
             check(math.isfinite(losses[-1]), f"{arch}: loss {losses[-1]}")
@@ -1696,17 +2036,29 @@ def train_full_width(torch, card):
             check(all_finite(torch, leaves(params)),
                   f"{arch} round {r}: a parameter is not finite")
         peak = torch.cuda.max_memory_allocated()
-        emit(dict(phase="train_full_width", arch=arch, layers=cfg.n_layers,
-                  params=n_params, dtype="float32", batch=b, seq_len=s_len,
-                  weights=[WEIGHTS[i % len(WEIGHTS)] for i in range(b)],
-                  microbatches=mb, local_passes=1, remat=True, lr=DEFAULT_LR,
-                  rounds=TRAIN_ROUNDS, init_s=init_s, step_s=secs,
-                  train_tok_per_s=[b * s_len / dt for dt in secs],
-                  loss=losses, acc=accs, launches_per_step=want,
-                  peak_mem_bytes=peak, peak_mem_gib=peak / 2**30, card=card))
+        rec = dict(phase="train_full_width_bf16" if bf16 else
+                   "train_full_width", arch=arch, layers=cfg.n_layers,
+                   params=n_params, dtype=str(dtype).split(".")[-1],
+                   batch=b, seq_len=s_len,
+                   weights=[WEIGHTS[i % len(WEIGHTS)] for i in range(b)],
+                   microbatches=mb, local_passes=1, remat=True,
+                   lr=DEFAULT_LR, rounds=TRAIN_ROUNDS, init_s=init_s,
+                   step_s=secs, train_tok_per_s=[b * s_len / dt
+                                                 for dt in secs],
+                   loss=losses, acc=accs,
+                   launches_per_step={k: v for k, v in want.items() if v},
+                   peak_mem_bytes=peak, peak_mem_gib=peak / 2**30,
+                   card=card)
+        if beside is not None and arch in beside:
+            f32 = beside[arch]
+            rec["f32_same_run"] = {k: f32[k] for k in (
+                "step_s", "train_tok_per_s", "peak_mem_gib")}
+            rec["speedup_vs_f32"] = min(f32["step_s"]) / min(secs)
+        emit(rec)
+        recs[arch] = rec
         del params, momentum, step, batch, loss, metrics
         torch.cuda.empty_cache()
-    return totals
+    return totals, recs
 
 
 def train_card_vs_cpu(torch, np):
@@ -1715,14 +2067,10 @@ def train_card_vs_cpu(torch, np):
     of its max-abs, then one ``fl_train_step``'s params and momentum."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.configs.shapes import InputShape
+    from repro_torch.kernels.parity import rel_err
     from repro_torch.launch.steps import make_fl_train_step
     from repro_torch.models import build_model, stacked
     from repro_torch.tree import leaves, tree_map
-
-    def max_rel(got, want):
-        num = float((got.cpu() - want).abs().max())
-        return 0.0 if num == 0.0 else num / max(float(want.abs().max()),
-                                                1e-30)
 
     def loss_and_grads(p, batch, cfg):
         for x in leaves(p):
@@ -1750,17 +2098,17 @@ def train_card_vs_cpu(torch, np):
         l_cpu, g_cpu = loss_and_grads(p_cpu, batch, cfg)
         l_card, g_card = loss_and_grads(p_card, batch_c, cfg)
         loss_err = abs(l_card - l_cpu) / abs(l_cpu)
-        grad_err = max(max_rel(g, w) for g, w in zip(g_card, g_cpu))
+        grad_err = max(rel_err(g, w) for g, w in zip(g_card, g_cpu))
         check(loss_err <= 1e-4, f"{arch}: card vs CPU loss {loss_err}")
         check(grad_err <= 1e-4, f"{arch}: card vs CPU grads {grad_err}")
         step, _ = make_fl_train_step(
             cfg, InputShape("t", seq_len=s_len, global_batch=b,
-                            kind="train"), lr=1e-2)
+                            kind="train"), lr=1e-2, dtype=torch.float32)
         m_cpu = tree_map(torch.zeros_like, p_cpu)
         m_card = tree_map(torch.zeros_like, p_card)
         p_cpu, m_cpu, _, _ = step(p_cpu, m_cpu, batch)
         p_card, m_card, _, _ = step(p_card, m_card, batch_c)
-        step_err = max(max_rel(g, w) for g, w in zip(
+        step_err = max(rel_err(g, w) for g, w in zip(
             leaves(p_card) + leaves(m_card), leaves(p_cpu) + leaves(m_cpu)))
         check(step_err <= 1e-4, f"{arch}: card vs CPU step {step_err}")
         emit(dict(phase="train_card_vs_cpu", arch=cfg.name,
@@ -2102,6 +2450,7 @@ def resnet_models(torch, np, card):
     import torch.nn.functional as F
 
     from repro_torch.configs.paper_models import resnet
+    from repro_torch.kernels.parity import rel_err
     from repro_torch.models import build_model
     from repro_torch.models import resnet as resnet_mod
     from repro_torch.tree import leaves, unflatten_like
@@ -2110,14 +2459,10 @@ def resnet_models(torch, np, card):
     fwd0, bwd0 = conv.forward, conv.backward
     op_errs = None                    # a list while recording
 
-    def rel(got, want):
-        return float((got.double().cpu() - want).abs().max()
-                     / max(float(want.abs().max()), 1e-30))
-
     def fwd(x, w, stride, padding):
         out = fwd0(x, w, stride, padding)
         if op_errs is not None and x.is_cuda:
-            op_errs.append(("fprop", rel(out, F.conv2d(
+            op_errs.append(("fprop", rel_err(out, F.conv2d(
                 x.double().cpu(), w.double().cpu(), stride=stride,
                 padding=padding))))
         return out
@@ -2131,8 +2476,8 @@ def resnet_models(torch, np, card):
                 None, list(ctx.stride), list(ctx.padding), [1, 1], False,
                 [0, 0], 1, [gx is not None, True, False])
             if gx is not None:
-                op_errs.append(("dgrad", rel(gx, rx)))
-            op_errs.append(("wgrad", rel(gw, rw)))
+                op_errs.append(("dgrad", rel_err(gx, rx)))
+            op_errs.append(("wgrad", rel_err(gw, rw)))
         return gx, gw, a, b
 
     def train_step(model, template, flat, x, y, scale=None):
@@ -2144,9 +2489,7 @@ def resnet_models(torch, np, card):
         return loss.detach(), torch.autograd.grad(loss, p)
 
     def max_rel(got, want):
-        return max(float((g.cpu() - w).abs().max())
-                   / max(float(w.abs().max()), 1e-30)
-                   for g, w in zip(got, want))
+        return max(rel_err(g, w) for g, w in zip(got, want))
 
     prev = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = True
@@ -2651,6 +2994,315 @@ def sharded_reduce_case(torch, np, card, floor):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the bf16 production steps (make_fl_train_step, make_prefill_step,
+# make_serve_step at dtype=torch.bfloat16)
+# ---------------------------------------------------------------------------
+
+def bf16_train_card_vs_cpu(torch, np):
+    """Phase 14b: a reduced bf16 step (3 layers, B=2 x S=256) from the same
+    bf16 init params on the card and on the CPU: the loss within 1e-2
+    relative and every gradient leaf within 3e-2 of its max-abs (each
+    side's distance from the f32 gradient of the same params printed
+    beside); then one ``fl_train_step`` with microbatches=2 and
+    local_passes=2 on both: momentum within 3e-2 of each leaf's max-abs,
+    params within 2 bf16 ulps plus what that moves them by (lr x 3e-2 x
+    max |m|)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.kernels.parity import bf16_ulps, rel_err
+    from repro_torch.launch.steps import make_fl_train_step
+    from repro_torch.models import build_model, stacked
+    from repro_torch.tree import leaves, tree_map
+
+    tol, lr = 3e-2, 1e-2
+    bf = torch.bfloat16
+
+    def loss_and_grads(p, batch, cfg):
+        for x in leaves(p):
+            x.requires_grad_(True)
+        loss, _ = stacked.loss_fn(p, cfg, batch, remat=True)
+        loss.backward()
+        grads = [x.grad for x in leaves(p)]
+        for x in leaves(p):
+            x.grad = None
+            x.requires_grad_(False)
+        return loss.item(), grads
+
+    for arch in ("gemma2-2b", "recurrentgemma-9b"):
+        cfg = reduced(get_config(arch), n_layers=3)
+        b, s_len = 2, 256
+        p_cpu = tree_map(lambda x: x.to(bf), stacked.stack_params(
+            build_model(cfg).init(0, "cpu"), cfg))
+        p_card = tree_map(lambda x: x.to("cuda"), p_cpu)
+        p_f32 = tree_map(lambda x: x.float(), p_cpu)
+        rng = np.random.default_rng(14)
+        batch = {"tokens": torch.from_numpy(
+                     rng.integers(0, cfg.vocab_size, (b, s_len))),
+                 "labels": torch.from_numpy(
+                     rng.integers(-1, cfg.vocab_size, (b, s_len))),
+                 "weight": torch.tensor([1.0, 2.0])}
+        batch_c = {k: v.to("cuda") for k, v in batch.items()}
+        l_cpu, g_cpu = loss_and_grads(p_cpu, batch, cfg)
+        l_card, g_card = loss_and_grads(p_card, batch_c, cfg)
+        l_f32, g_f32 = loss_and_grads(p_f32, batch, cfg)
+        loss_err = abs(l_card - l_cpu) / abs(l_cpu)
+        grad_errs = [rel_err(g.cpu(), w) for g, w in zip(g_card, g_cpu)]
+        card_f32 = max(rel_err(g.cpu(), w) for g, w in zip(g_card, g_f32))
+        cpu_f32 = max(rel_err(g, w) for g, w in zip(g_cpu, g_f32))
+        check(all(g.dtype == bf for g in g_card), f"{arch}: grads not bf16")
+        check(loss_err <= 1e-2, f"{arch}: bf16 card vs CPU loss {loss_err}")
+        check(max(grad_errs) <= tol, f"{arch}: bf16 card vs CPU grads "
+                                     f"{max(grad_errs)} > {tol} (card vs "
+                                     f"f32 {card_f32}, CPU vs f32 {cpu_f32})")
+        shape = InputShape("t", seq_len=s_len, global_batch=b, kind="train")
+        step, _ = make_fl_train_step(cfg, shape, lr=lr, microbatches=2,
+                                     local_passes=2)
+        m_cpu = tree_map(lambda x: torch.zeros(x.shape, dtype=torch.float32),
+                         p_cpu)
+        m_card = tree_map(lambda x: x.to("cuda"), m_cpu)
+        p_cpu, m_cpu, _, _ = step(p_cpu, m_cpu, batch)
+        p_card, m_card, _, _ = step(p_card, m_card, batch_c)
+        m_err = max(rel_err(g.cpu(), w) for g, w in zip(leaves(m_card),
+                                                         leaves(m_cpu)))
+        p_ulps = max(bf16_ulps(g, w, lr * tol * float(m.abs().max()))
+                     for g, w, m in zip(leaves(p_card), leaves(p_cpu),
+                                        leaves(m_cpu)))
+        check(m_err <= tol, f"{arch}: bf16 step momentum card vs CPU {m_err}")
+        check(p_ulps <= 2.0, f"{arch}: bf16 step params card vs CPU "
+                             f"{p_ulps} ulps")
+        emit(dict(phase="train_card_vs_cpu_bf16", arch=cfg.name,
+                  layers=cfg.n_layers, batch=b, seq_len=s_len,
+                  loss_cpu=l_cpu, loss_card=l_card, loss_f32=l_f32,
+                  loss_rel_err=loss_err, grad_max_rel_err=max(grad_errs),
+                  grad_card_vs_f32=card_f32, grad_cpu_vs_f32=cpu_f32,
+                  step_micro2_passes2=dict(momentum_max_rel_err=m_err,
+                                           params_max_bf16_ulps=p_ulps),
+                  tolerance=tol))
+
+
+SERVE_BF16 = (
+    # arch, the reference tree's parameter count
+    ("gemma2-2b", 2_614_222_080),
+    ("recurrentgemma-9b", None),
+)
+
+
+def bf16_serve(torch, np, card):
+    """Phase 14c: ``make_prefill_step`` and ``make_serve_step`` at bf16,
+    full width and depth, bf16 params drawn on the card: a 4,096-token
+    prompt at B=2 into a 32,768-position cache (cut from ``prefill_32k``'s
+    B=32, S=32,768), then 32 serve steps at B=8 (cut from ``decode_32k``'s
+    B=128) after a B=8 prefill, with bf16 weights and then int8 weights
+    (``quantize_params``, dequantised in every step) fed the bf16 run's
+    tokens.  Checks: finite logits; the last decode step within 5e-2 of a
+    re-prefill over prompt + tokens (of its max-abs); every int8 step
+    within 5e-2 of the bf16 step's max-abs.  Timing: the prefill is called
+    once to warm up and then three times, and the median call is kept; each
+    serve step is timed alone and the median step kept (the first is the
+    step's first call).  Returns the launch counts of the B=2 prefill calls
+    (set to 0 just before them)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.kernels import flash_attention as fl_mod
+    from repro_torch.kernels import rglru_scan as sc_mod
+    from repro_torch.kernels.parity import rel_err
+    from repro_torch.launch.steps import (make_prefill_step, make_serve_step,
+                                          quantize_params)
+    from repro_torch.models import stacked
+    from repro_torch.tree import leaves
+
+    bf = torch.bfloat16
+    max_len, prompt_len, b_pre, b_dec, steps = 32768, 4096, 2, 8, 32
+    prefill_calls = 3
+    totals = {}
+    for arch, n_want in SERVE_BF16:
+        cfg = get_config(arch)
+        n_attn = sum(sp.mixer == "attn" for sp in cfg.layers)
+        n_rglru = sum(sp.mixer == "rglru" for sp in cfg.layers)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        params = stacked.init_params_stacked(cfg, gen, bf)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(x.numel() for x in leaves(params))
+        if n_want is not None:
+            check(n_params == n_want, f"{arch}: {n_params} params")
+        pre, _ = make_prefill_step(cfg, InputShape(
+            "prefill_32k_cut", seq_len=max_len, global_batch=b_pre,
+            kind="prefill"))
+        serve, _ = make_serve_step(cfg, InputShape(
+            "decode_32k_cut", seq_len=max_len, global_batch=b_dec,
+            kind="decode"))
+        tgen = torch.Generator(device="cuda").manual_seed(4)
+        prompt = torch.randint(0, cfg.vocab_size, (b_dec, prompt_len),
+                               generator=tgen, device="cuda")
+        # prefill at B=2, counted: one warm-up call at the timed shape,
+        # then the median of prefill_calls timed calls
+        torch.cuda.synchronize()
+        train_counts(fl_mod, sc_mod, reset=True)
+        prefill_times = []
+        for i in range(1 + prefill_calls):
+            t0 = time.perf_counter()
+            logits, cache = pre(params, prompt[:b_pre])
+            torch.cuda.synchronize()
+            if i:
+                prefill_times.append(time.perf_counter() - t0)
+            if i < prefill_calls:
+                del logits, cache
+        prefill_s = sorted(prefill_times)[len(prefill_times) // 2]
+        counts = {k: v for k, v in train_counts(fl_mod, sc_mod).items() if v}
+        want = {k: v * (1 + prefill_calls) for k, v in (
+            ("flash_attention_bf16", n_attn), ("rglru_scan", n_rglru)) if v}
+        check(counts == want, f"{arch}: bf16 prefill launches {counts}, "
+                              f"wanted {want}")
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        check(logits.dtype == torch.float32 and
+              bool(torch.isfinite(logits).all()), f"{arch}: prefill logits")
+        del cache, logits
+        prefill_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.empty_cache()
+        # the serve steps at B=8: a prefill into the cache, then 32 tokens
+        pre8, _ = make_prefill_step(cfg, InputShape(
+            "prefill_32k_cut", seq_len=max_len, global_batch=b_dec,
+            kind="prefill"))
+
+        def decode(step, p, scales, feed=None):
+            """The serve steps after a prefill; each step timed alone (the
+            first one is the step's first call) and the median kept."""
+            logits, cache = pre8(params, prompt)
+            tok = logits.argmax(-1)
+            outs, toks, times = [], [], []
+            torch.cuda.synchronize()
+            for i in range(steps):
+                if feed is not None:
+                    tok = feed[i]
+                toks.append(tok)
+                t0 = time.perf_counter()
+                logits, cache = step(p, cache, tok, prompt_len + i, scales)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                outs.append(logits)
+                tok = logits.argmax(-1)
+            del cache
+            return outs, toks, sorted(times)[len(times) // 2]
+
+        torch.cuda.reset_peak_memory_stats()
+        outs, toks, dec_s = decode(serve, params, None)
+        dec_peak = torch.cuda.max_memory_allocated()
+        check(all(bool(torch.isfinite(o).all()) for o in outs),
+              f"{arch}: decode logits not finite")
+        # the last step against a re-prefill over prompt + fed tokens
+        torch.cuda.empty_cache()
+        again, _ = make_prefill_step(cfg, InputShape(
+            "reprefill", seq_len=prompt_len + steps, global_batch=b_dec,
+            kind="prefill"))
+        full = torch.cat([prompt, torch.stack(toks, 1)], 1)
+        re_logits, re_cache = again(params, full)
+        del re_cache
+        re_err = rel_err(outs[-1], re_logits)
+        check(re_err <= 5e-2, f"{arch}: bf16 decode vs re-prefill {re_err}")
+        # int8 weights, fed the bf16 run's tokens
+        serve_q, _ = make_serve_step(cfg, InputShape(
+            "decode_32k_cut", seq_len=max_len, global_batch=b_dec,
+            kind="decode"), quantize_weights=True)
+        qp, qs = quantize_params(params)
+        n_q = sum(x is not None for x in leaves(qs))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        q_outs, _, q_s = decode(serve_q, qp, qs, feed=toks)
+        q_peak = torch.cuda.max_memory_allocated()
+        q_err = max(rel_err(a, w) for a, w in zip(q_outs, outs))
+        check(q_err <= 5e-2, f"{arch}: int8 serve vs bf16 serve {q_err}")
+        emit(dict(phase="serve_bf16", arch=arch, layers=cfg.n_layers,
+                  params=n_params, dtype="bfloat16", init_s=init_s,
+                  cache_len=max_len, prompt_len=prompt_len,
+                  prefill_batch=b_pre, prefill_s=prefill_s,
+                  prefill_calls=dict(warmup=1, timed=prefill_calls,
+                                     seconds=prefill_times),
+                  prefill_tok_per_s=b_pre * prompt_len / prefill_s,
+                  prefill_launches=counts,
+                  prefill_peak_mem_gib=prefill_peak / 2**30,
+                  decode_batch=b_dec, decode_steps=steps,
+                  decode_ms_per_step=dec_s * 1e3,
+                  decode_tok_per_s=b_dec / dec_s,
+                  decode_peak_mem_gib=dec_peak / 2**30,
+                  decode_vs_reprefill_rel_err=re_err,
+                  int8_leaves=n_q, int8_decode_ms_per_step=q_s * 1e3,
+                  int8_decode_tok_per_s=b_dec / q_s,
+                  int8_peak_mem_gib=q_peak / 2**30,
+                  int8_vs_bf16_rel_err=q_err, tolerance=5e-2, card=card))
+        del params, qp, qs, outs, q_outs, re_logits
+        torch.cuda.empty_cache()
+    return totals
+
+
+# the bf16 kernels' sources and the case each summary entry quotes: the
+# attention's at recurrentgemma's local layer, where SDPA can compute the
+# same function (gemma2's soft cap it cannot), so ``library_ms`` is filled
+BF16_SOURCE = {"flash_attention": "flash_attention_bf16.cu",
+               "flash_attention_bwd": "flash_attention_bwd_bf16.cu",
+               "rglru_scan": "rglru_scan.cu"}
+BF16_MAIN = {"flash_attention": "recurrentgemma_local",
+             "flash_attention_bwd": "recurrentgemma_local",
+             "rglru_scan": "recurrentgemma_prefill"}
+
+
+def kernel_summary(cases, launches):
+    """The kernels' JSON summary: one entry per TPU kernel or gradient (six)
+    with its f32 kernel's numbers, and under ``bf16`` its bf16 kernel's
+    (None where it has none), each with the same keys."""
+    summary = []
+    csrc = "src/repro_torch/kernels/csrc"
+    for name, source, replaces, main_case in (
+            ("fed_reduce", "fed_reduce.cu",
+             "src/repro/kernels/fed_reduce.py:45", "fedavg"),
+            ("fed_aggregate", "fed_aggregate.cu",
+             "src/repro/kernels/fed_aggregate.py:23", "fedasync_mix"),
+            ("flash_attention", "flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:32",
+             "recurrentgemma_local"),
+            ("rglru_scan", "rglru_scan.cu",
+             "src/repro/kernels/rglru_scan.py:26", "recurrentgemma_prefill"),
+            # the gradients around those kernels: no Pallas kernel has a
+            # backward; the reference takes them in jnp
+            ("flash_attention_bwd", "flash_attention_bwd.cu",
+             "src/repro/models/attention.py:229", "gemma2_global"),
+            ("rglru_scan_bwd", "rglru_scan.cu",
+             "src/repro/models/recurrent.py:71", "recurrentgemma_train")):
+        def entry(kname, src, mine, head, n):
+            return dict(
+                name=kname, route="cuda", source=f"{csrc}/{src}",
+                replaces=replaces, launches=n,
+                max_abs_err=max(c["max_abs_err"] for c in mine),
+                ms=head["ms"], plain_ms=head["plain_ms"],
+                bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+                library_ms=head["library_ms"], shape=head["shape"],
+                parity={c["case"]: c["check"] for c in mine})
+
+        mine = [c for c in cases if c.get("kernel") == name
+                and c.get("dtype") != "bfloat16"]
+        head = next(c for c in mine if c["case"] == main_case)
+        b16 = [c for c in cases if c.get("kernel") == name
+               and c.get("dtype") == "bfloat16"]
+        b16_head = next((c for c in b16 if c["case"] == BF16_MAIN.get(name)),
+                        None)
+        launches_bf16 = launches.get(name + "_bf16", 0)
+        summary.append(dict(
+            entry(name, source, mine, head, launches[name]),
+            launches_bf16=launches_bf16,
+            bf16=None if b16_head is None else entry(
+                name + "_bf16", BF16_SOURCE[name], b16, b16_head,
+                launches_bf16),
+            **{k: head[k] for k in ("bound_route", "bound_f32_simt_ms",
+                                    "bound_tf32x3_ms", "launch_floor_ms")
+               if k in head}))
+    return summary
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--baseline", type=Path, default=None,
@@ -2704,6 +3356,7 @@ def main():
     cases += lm_kernel_cases(torch, np, card, flush)
     ptxas_fns = ptxas_table(log.read_text()) if log.exists() else {}
     cases += train_kernel_cases(torch, np, card, flush, ptxas_fns, old_lib)
+    cases += bf16_kernel_cases(torch, np, card, flush)
     del flush
 
     from repro_torch.models import build_model
@@ -2739,9 +3392,22 @@ def main():
         launches[k] += v
 
     torch.cuda.empty_cache()
-    for k, v in train_full_width(torch, card).items():
+    train_totals, train_recs = train_full_width(torch, card)
+    for k, v in train_totals.items():
         launches[k] = launches.get(k, 0) + v
     train_card_vs_cpu(torch, np)
+
+    # phase 14: the bf16 production steps
+    torch.cuda.empty_cache()
+    t14 = time.perf_counter()
+    bf16_totals, _ = train_full_width(torch, card, torch.bfloat16,
+                                      beside=train_recs)
+    bf16_train_card_vs_cpu(torch, np)
+    for k, v in bf16_serve(torch, np, card).items():
+        bf16_totals[k] = bf16_totals.get(k, 0) + v
+    for k, v in bf16_totals.items():
+        launches[k] = launches.get(k, 0) + v
+    emit(dict(phase="bf16_steps", seconds=time.perf_counter() - t14))
 
     torch.cuda.empty_cache()
     t12 = time.perf_counter()
@@ -2759,37 +3425,9 @@ def main():
         speech_init, sweep_records)
     cases.append(sharded_reduce_case(torch, np, card, floor))
 
-    summary = []
-    csrc = "src/repro_torch/kernels/csrc"
-    for name, source, replaces, main_case in (
-            ("fed_reduce", "fed_reduce.cu",
-             "src/repro/kernels/fed_reduce.py:45", "fedavg"),
-            ("fed_aggregate", "fed_aggregate.cu",
-             "src/repro/kernels/fed_aggregate.py:23", "fedasync_mix"),
-            ("flash_attention", "flash_attention.cu",
-             "src/repro/kernels/flash_attention.py:32",
-             "recurrentgemma_local"),
-            ("rglru_scan", "rglru_scan.cu",
-             "src/repro/kernels/rglru_scan.py:26", "recurrentgemma_prefill"),
-            # the gradients around those kernels: no Pallas kernel has a
-            # backward; the reference takes them in jnp
-            ("flash_attention_bwd", "flash_attention_bwd.cu",
-             "src/repro/models/attention.py:229", "gemma2_global"),
-            ("rglru_scan_bwd", "rglru_scan.cu",
-             "src/repro/models/recurrent.py:71", "recurrentgemma_train")):
-        mine = [c for c in cases if c.get("kernel") == name]
-        head = next(c for c in mine if c["case"] == main_case)
-        summary.append(dict(
-            name=name, route="cuda", source=f"{csrc}/{source}",
-            replaces=replaces, launches=launches[name],
-            max_abs_err=max(c["max_abs_err"] for c in mine),
-            ms=head["ms"], plain_ms=head["plain_ms"],
-            bound_ms=head["bound_ms"], bound_by=head["bound_by"],
-            library_ms=head["library_ms"], shape=head["shape"],
-            parity={c["case"]: c["check"] for c in mine},
-            **{k: head[k] for k in ("bound_route", "bound_f32_simt_ms",
-                                    "bound_tf32x3_ms", "launch_floor_ms")
-               if k in head}))
+    for k in ("flash_attention_bf16", "flash_attention_bwd_bf16"):
+        check(launches.get(k, 0) > 0, f"{k}: no launch on the bf16 path")
+    summary = kernel_summary(cases, launches)
     print(card, flush=True)
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -27,8 +27,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("fed_reduce.cu", "fed_aggregate.cu", "rglru_scan.cu",
-           "flash_attention.cu", "flash_attention_bwd.cu")
-HEADERS = ("common.cuh",)
+           "flash_attention.cu", "flash_attention_bwd.cu",
+           "flash_attention_bf16.cu", "flash_attention_bwd_bf16.cu")
+HEADERS = ("common.cuh", "attn_bf16.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -48,7 +49,9 @@ def _nvcc() -> str:
 
 def source_hash(csrc: Path = CSRC, sources=SOURCES) -> str:
     h = hashlib.sha256()
-    for name in tuple(sources) + HEADERS:
+    # an older checkout may lack a header this one has
+    for name in tuple(sources) + tuple(
+            x for x in HEADERS if (Path(csrc) / x).exists()):
         h.update(name.encode())
         h.update((Path(csrc) / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -120,7 +123,9 @@ def _entry_points():
         "rglru_scan.cu": [("rglru_scan_f32",
                            [ptr, ptr, ptr, i32, i32, i32, i32, ptr]),
                           ("rglru_scan_bwd_f32",
-                           [ptr] * 5 + [i32] * 4 + [ptr])],
+                           [ptr] * 5 + [i32] * 4 + [ptr]),
+                          ("rglru_scan_bf16",
+                           [ptr, ptr, ptr, i32, i32, i32, i32, ptr])],
         "flash_attention.cu": [("flash_attention_f32",
                                 [ptr] * 6 + [i64] * 12 + [i32] * 8
                                 + [f32] * 2 + [i32, ptr])],
@@ -129,6 +134,13 @@ def _entry_points():
                                     + [i32] * 8 + [f32] * 2 + [i32, ptr]),
                                    ("flash_attention_bwd_plan_f32",
                                     [i32] * 7 + [ctypes.POINTER(i64)], i64)],
+        "flash_attention_bf16.cu": [("flash_attention_bf16",
+                                     [ptr] * 5 + [i64] * 12 + [i32] * 8
+                                     + [f32] * 2 + [i32, ptr])],
+        "flash_attention_bwd_bf16.cu": [("flash_attention_bwd_bf16",
+                                         [ptr] * 10 + [ctypes.POINTER(i64)]
+                                         + [i32] * 8 + [f32] * 2
+                                         + [i32, ptr])],
     }
 
 

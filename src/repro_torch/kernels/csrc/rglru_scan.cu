@@ -58,6 +58,7 @@
 // 4 stages x 3 arrays x 32 x 32 f32 = 48 KB (static).
 
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace fedk {
@@ -142,6 +143,83 @@ rglru_scan_kernel(const float* __restrict__ a, const float* __restrict__ x,
         h = __fadd_rn(__fmul_rn(sa[st][r][lane], h), sx[st][r][lane]);
         dst[static_cast<long long>(r) * W] = h;
       }
+    }
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// The bf16 forward (rglru_scan_bf16_kernel, entry point rglru_scan_bf16):
+// the same recurrence on bf16 a and x, as the Pallas kernel runs it at
+// bf16 (src/repro/kernels/rglru_scan.py:34-36, :63): each step casts a_t
+// and x_t to f32, the state h stays f32, and each h_t is rounded to bf16
+// (to nearest even) at its store only.  Bound by bytes: 6 bytes an element
+// (0.060 ms at B=2, T=4096, W=4096).  The same ring, of bf16 stages: a
+// 16-byte cp.async carries 8 channels when W % 8 == 0 and both inputs are
+// 16-byte aligned; otherwise (W = 4099: rows 2 bytes apart from 16-byte
+// alignment) the lanes copy their own 2-byte values with plain loads.
+// __fmul_rn then __fadd_rn in time order, so it equals the plain version
+// (kernels/ref.py::rglru_scan_ref on bf16 inputs) bit for bit.
+template <bool kVec16>
+__global__ void __launch_bounds__(kScanCh)
+rglru_scan_bf16_kernel(const __nv_bfloat16* __restrict__ a,
+                       const __nv_bfloat16* __restrict__ x,
+                       __nv_bfloat16* __restrict__ h_out, int T, int W) {
+  __shared__ __align__(16) __nv_bfloat16 sa[kScanStages][kChunk][kScanCh];
+  __shared__ __align__(16) __nv_bfloat16 sx[kScanStages][kChunk][kScanCh];
+  const int lane = threadIdx.x;
+  const int w0 = blockIdx.x * kScanCh;
+  const int wn = min(kScanCh, W - w0);
+  const long long row0 = static_cast<long long>(blockIdx.y) * T;
+  const int n_chunks = (T + kChunk - 1) / kChunk;
+
+  auto load = [&](int c) {
+    const int st = c % kScanStages;
+    const int t0 = c * kChunk;
+    const int tn = min(kChunk, T - t0);
+    if constexpr (kVec16) {
+      // 4 pieces of 8 channels a row; W % 8 == 0, so wn % 8 == 0
+      for (int i = lane; i < tn * 4; i += kScanCh) {
+        const int r = i >> 2, q = (i & 3) * 8;
+        if (q < wn) {
+          const long long off = (row0 + t0 + r) * W + w0 + q;
+          scan_cp16(reinterpret_cast<float*>(&sa[st][r][q]),
+                    reinterpret_cast<const float*>(a + off));
+          scan_cp16(reinterpret_cast<float*>(&sx[st][r][q]),
+                    reinterpret_cast<const float*>(x + off));
+        }
+      }
+    } else {
+      if (lane < wn) {
+        for (int r = 0; r < tn; ++r) {
+          const long long off = (row0 + t0 + r) * W + w0 + lane;
+          sa[st][r][lane] = a[off];
+          sx[st][r][lane] = x[off];
+        }
+      }
+    }
+  };
+
+#pragma unroll
+  for (int c = 0; c < kScanStages - 1; ++c) {
+    if (c < n_chunks) load(c);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+
+  float h = 0.0f;
+  for (int c = 0; c < n_chunks; ++c) {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(kScanStages - 2) : "memory");
+    __syncthreads();                  // stage c landed; stage c-1 consumed
+    if (c + kScanStages - 1 < n_chunks) load(c + kScanStages - 1);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    if (lane >= wn) continue;
+    const int st = c % kScanStages;
+    const int t0 = c * kChunk;
+    const int tn = min(kChunk, T - t0);
+    __nv_bfloat16* dst = h_out + (row0 + t0) * W + w0 + lane;
+    for (int r = 0; r < tn; ++r) {
+      h = __fadd_rn(__fmul_rn(__bfloat162float(sa[st][r][lane]), h),
+                    __bfloat162float(sx[st][r][lane]));
+      dst[static_cast<long long>(r) * W] = __float2bfloat16_rn(h);
     }
   }
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
@@ -245,6 +323,30 @@ extern "C" int rglru_scan_f32(const void* a, const void* x, void* h, int B,
     rglru_scan_kernel<false><<<grid, kScanCh, 0, s>>>(
         static_cast<const float*>(a), static_cast<const float*>(x),
         static_cast<float*>(h), T, W);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// a, x, h: (B, T, W) bf16, contiguous, on the device.  Launches the bf16
+// forward on `stream` and returns cudaGetLastError().  Allocates nothing.
+extern "C" int rglru_scan_bf16(const void* a, const void* x, void* h, int B,
+                               int T, int W, int device, void* stream) {
+  using namespace fedk;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (B <= 0 || T <= 0 || W <= 0 || B > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>((W + kScanCh - 1) / kScanCh),
+                  static_cast<unsigned>(B));
+  const bool vec16 = W % 8 == 0 && reinterpret_cast<std::uintptr_t>(a) % 16 == 0 &&
+                     reinterpret_cast<std::uintptr_t>(x) % 16 == 0;
+  auto s = static_cast<cudaStream_t>(stream);
+  const auto* ab = static_cast<const __nv_bfloat16*>(a);
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  auto* hb = static_cast<__nv_bfloat16*>(h);
+  if (vec16)
+    rglru_scan_bf16_kernel<true><<<grid, kScanCh, 0, s>>>(ab, xb, hb, T, W);
+  else
+    rglru_scan_bf16_kernel<false><<<grid, kScanCh, 0, s>>>(ab, xb, hb, T, W);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -28,12 +28,22 @@ wrapper.  The kernel reads every tensor through its strides (the head dim
 must be contiguous), so a (B, S, H, D) tensor viewed as (B, H, S, D) costs
 no copy, and the output is allocated with q's strides.  Query i sits at key
 position ``i + (T - S)``, as in the reference; any S and T work, except
-causal S > T (rows with no key), which raises.  f32 only: other dtypes
-raise ``ValueError``.
+causal S > T (rows with no key), which raises.
+
+bf16: q, k and v in bfloat16 take the bf16 kernels
+(``csrc/flash_attention_bf16.cu`` and ``csrc/flash_attention_bwd_bf16.cu``),
+which compute what the TPU kernel computes at bf16: f32 arithmetic on the
+bf16 inputs, the output (or dq, dk, dv) rounded once to bf16, lse in f32.
+Q K^T is one bf16 ``wgmma`` (exact products), P V two (P split into bf16
+hi and lo); the backward rounds P and dS to bf16 once.  What bounds them is
+operations at the bf16 tensor-core rate (989 TFLOP/s).  q, k and v share
+one dtype, float32 or bfloat16; fp16 and mixed dtypes raise ``ValueError``.
+Rows are 16-byte aligned: 4 f32 or 8 bf16 values.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
-kernel (the split pass and the attention kernel, one entry point) or
-raises.  ``launches`` counts the kernel's launches, one a call.
+kernel of its dtype (f32: the split pass and the attention kernel, one
+entry point) or raises.  ``launches`` counts the f32 kernel's launches and
+``launches_bf16`` the bf16 kernel's, one a call.
 
 Training (``ops.flash_attention`` under autograd) asks the forward for the
 rows' log-sum-exp as well (``return_lse``; serving passes a null pointer and
@@ -48,7 +58,8 @@ delta) in a scratch buffer this wrapper allocates; kv-major blocks (dK, dV)
 and q-major blocks (dQ, recomputing the scores) run in one launch, longest
 walks first, each streaming the other side's tiles through a ring of bulk
 copies.  It is deterministic (no atomics; tensor-core sums kept to one step
-and added in f32) and skips the tiles the mask leaves out.
+and added in f32) and skips the tiles the mask leaves out.  The bf16
+backward is counted in ``bwd_launches_bf16``.
 """
 
 from __future__ import annotations
@@ -60,11 +71,14 @@ import torch
 from repro_torch.kernels import ref
 
 HEAD_DIMS = (32, 64, 128, 256)
+DTYPES = (torch.float32, torch.bfloat16)
 
 # Launches of the CUDA kernels in this process (set them to 0 to start a
-# count): the forward and the backward.
+# count): the forward and the backward, f32 and bf16.
 launches = 0
 bwd_launches = 0
+launches_bf16 = 0
+bwd_launches_bf16 = 0
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -91,16 +105,22 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
 
 
 def _check_rows(dev, named):
-    """Each tensor: 4-d f32 on ``dev``, head dim contiguous, rows 16-byte
-    aligned (what the kernels read through their strides)."""
+    """Each tensor: 4-d on ``dev``, all of one dtype (float32 or bfloat16),
+    head dim contiguous, rows 16-byte aligned (what the kernels read
+    through their strides)."""
+    dtype = named[0][1].dtype
+    if dtype not in DTYPES:
+        raise ValueError(f"{named[0][0]}: the kernels take float32 or "
+                         f"bfloat16, got {dtype}")
+    per16 = 16 // named[0][1].element_size()
     for name, x in named:
         if x.dim() != 4 or x.device != dev:
             raise ValueError(f"{name} must be a 4-d tensor on {dev}, got "
                              f"{tuple(x.shape)} on {x.device}")
-        if x.dtype != torch.float32:
-            raise ValueError(f"{name}: the kernel takes float32 only, got "
-                             f"{x.dtype}")
-        if x.stride(3) != 1 or any(s % 4 for s in x.stride()[:3]) \
+        if x.dtype != dtype:
+            raise ValueError(f"{name} is {x.dtype} where {named[0][0]} is "
+                             f"{dtype}: the kernels take one dtype")
+        if x.stride(3) != 1 or any(s % per16 for s in x.stride()[:3]) \
                 or x.data_ptr() % 16:
             raise ValueError(f"{name}: the head dim must be contiguous and "
                              "every row 16-byte aligned")
@@ -135,7 +155,7 @@ def _cuda_device(q, what):
 
 
 def _launch(q, k, v, causal, window, cap, return_lse=False):
-    global launches
+    global launches, launches_bf16
     from repro_torch.kernels import build
 
     dev = _cuda_device(q, "flash_attention")
@@ -147,6 +167,20 @@ def _launch(q, k, v, causal, window, cap, return_lse=False):
     lse = torch.empty((b, h, s), dtype=torch.float32, device=dev) \
         if return_lse else None
     if q.numel() == 0:
+        return (out, lse) if return_lse else out
+    if q.dtype == torch.bfloat16:
+        err = build.library().flash_attention_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *out.stride()[:3], b, h, kh, s, t, d, int(causal),
+            0 if window is None else int(window), float(d ** -0.5),
+            0.0 if cap is None else float(cap),
+            dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError("flash_attention bf16 kernel launch failed: "
+                               f"CUDA error {err}")
+        launches_bf16 += 1
         return (out, lse) if return_lse else out
     # scratch for the kernel's split pass: K and V in 16-key tiles of four
     # TF32 operand planes (hi and lo of K and of V transposed)
@@ -191,6 +225,9 @@ def _launch_bwd(q, k, v, out, lse, dout, causal, window, cap):
     if q.numel() == 0:
         return dq, dk, dv
     lib = build.library()
+    if q.dtype == torch.bfloat16:
+        return _launch_bwd_bf16(lib, q, k, v, out, lse, dout, dq, dk, dv,
+                                causal, window, cap)
     # scratch for the prep pass: split K/V planes and Q/dO row tiles
     info = (ctypes.c_longlong * 5)()
     nbytes = lib.flash_attention_bwd_plan_f32(
@@ -212,4 +249,29 @@ def _launch_bwd(q, k, v, out, lse, dout, causal, window, cap):
         raise RuntimeError(
             f"flash_attention_bwd kernel launch failed: CUDA error {err}")
     bwd_launches += 1
+    return dq, dk, dv
+
+
+def _launch_bwd_bf16(lib, q, k, v, out, lse, dout, dq, dk, dv, causal,
+                     window, cap):
+    global bwd_launches_bf16
+    import ctypes
+
+    dev = q.device
+    b, h, s, d = q.shape
+    kh, t = k.shape[1], k.shape[2]
+    delta = torch.empty(b * h * s, dtype=torch.float32, device=dev)
+    strides = (ctypes.c_longlong * 24)(*(
+        st for x in (q, k, v, out, dout, dq, dk, dv) for st in x.stride()[:3]))
+    err = lib.flash_attention_bwd_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), strides, b, h, kh, s, t, d,
+        int(causal), 0 if window is None else int(window), float(d ** -0.5),
+        0.0 if cap is None else float(cap),
+        dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError("flash_attention_bwd bf16 kernel launch failed: "
+                           f"CUDA error {err}")
+    bwd_launches_bf16 += 1
     return dq, dk, dv

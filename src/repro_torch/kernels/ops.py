@@ -11,6 +11,10 @@ kernels both ways and a CPU tensor the plain versions both ways; a kernel
 that fails to build or launch raises, nothing falls back.  Elsewhere
 (serving, ``no_grad``) they call the forward alone, exactly as before: no
 lse is written.
+
+Both Functions keep the inputs' dtype: at bf16 the forward returns bf16
+(lse stays f32) and the backward bf16 gradients (``RGLRUScanFn``'s reverse
+scan is f32 only: the models scan in f32).
 """
 
 from typing import Optional
@@ -43,7 +47,9 @@ class FlashAttentionFn(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         causal, window, cap = ctx.opts
-        if dout.stride(-1) != 1 or any(st % 4 for st in dout.stride()[:3]) \
+        per16 = 16 // dout.element_size()
+        if dout.stride(-1) != 1 \
+                or any(st % per16 for st in dout.stride()[:3]) \
                 or dout.data_ptr() % 16:
             dout = dout.contiguous()      # the kernel reads 16-byte rows
         dq, dk, dv = _fl.flash_attention_bwd(q, k, v, out, lse, dout,

@@ -17,7 +17,10 @@ the same f32 inputs they give the same bits:
 
 The LM zoo's ``flash_attention_ref`` and ``rglru_scan_ref`` follow at the
 end, with their backward passes ``flash_attention_bwd_ref`` and
-``rglru_scan_bwd_ref``.  On a CPU tensor the kernel wrappers
+``rglru_scan_bwd_ref``.  They take f32 or bf16 inputs and compute in f32,
+as the TPU kernels and the reference's jnp gradient do, returning the
+inputs' dtype (lse always f32): on bf16 inputs the one rounding to bf16 is
+at the end, and on f32 inputs the results are the same bits as ever.  On a CPU tensor the kernel wrappers
 (``fed_reduce.py``, ``fed_aggregate.py``, ``flash_attention.py``,
 ``rglru_scan.py``) run these functions; on the card the kernels are held
 against them.
@@ -241,7 +244,9 @@ def rglru_scan_ref(a: torch.Tensor, b: torch.Tensor,
                    h0: Optional[torch.Tensor] = None) -> torch.Tensor:
     """h_t = a_t * h_{t-1} + b_t over axis 1; a, b: (B, T, W) -> (B, T, W).
     A sequential loop in f32 that rounds ``a_t * h`` before the add (no
-    fused multiply-add), so the kernel matches it bit for bit."""
+    fused multiply-add), so the kernel matches it bit for bit.  The state
+    stays f32; on bf16 inputs each h_t is rounded to bf16 once, at its
+    store, as the Pallas step stores it."""
     bsz, t, w = a.shape
     af = a.to(torch.float32)
     bf = b.to(torch.float32)

@@ -13,8 +13,17 @@ and walks T in order with h in a register, ``__fmul_rn`` then
 and b stream through a ring of shared-memory time chunks filled by
 ``cp.async``, so several chunks are in flight while the lanes walk one.
 
+bf16: a and b in bfloat16 take the bf16 forward (entry point
+``rglru_scan_bf16`` of the same source), as the TPU kernel runs it at bf16:
+f32 state, each h_t rounded to bf16 at its store only, bitwise equal to the
+plain version on the same inputs; bound by bytes (6 bytes an element).  The
+reverse scan stays f32: the models scan in f32 (the reference's
+``lm.py:339-340`` and ``recurrent.py:107``, the port's
+``models/recurrent.py``), so no bf16 scan gradient is on any path.
+
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
-kernel or raises.  ``launches`` counts the kernel's launches.
+kernel of its dtype or raises.  ``launches`` counts the f32 kernel's
+launches and ``launches_bf16`` the bf16 kernel's.
 
 Training takes the gradient from ``rglru_scan_bwd``: the reverse scan
 (entry point ``rglru_scan_bwd_f32`` of the same source), one lane per
@@ -33,6 +42,7 @@ from repro_torch.kernels import ref
 # count): the forward scan and the reverse scan.
 launches = 0
 bwd_launches = 0
+launches_bf16 = 0
 
 
 def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -50,15 +60,20 @@ def rglru_scan_bwd(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor):
     return _launch_bwd(a, h, dh)
 
 
-def _check(what, named):
-    """Contiguous (B, T, W) f32 tensors of one shape on one CUDA device."""
+def _check(what, named, dtypes=(torch.float32,)):
+    """Contiguous (B, T, W) tensors of one shape and one of ``dtypes`` on
+    one CUDA device."""
     dev = named[0][1].device
+    dtype = named[0][1].dtype
     if dev.type != "cuda":
         raise ValueError(f"{what} kernel needs a CUDA tensor, got {dev}")
+    if dtype not in dtypes:
+        raise ValueError(f"{what} kernel takes {' or '.join(map(str, dtypes))}"
+                         f", got {dtype}")
     for name, x in named:
-        if x.dim() != 3 or x.dtype != torch.float32 or x.device != dev \
+        if x.dim() != 3 or x.dtype != dtype or x.device != dev \
                 or not x.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous (B, T, W) float32 "
+            raise ValueError(f"{name} must be a contiguous (B, T, W) {dtype} "
                              f"tensor on {dev}, got {tuple(x.shape)} "
                              f"{x.dtype} on {x.device}")
         if x.shape != named[0][1].shape:
@@ -71,20 +86,26 @@ def _check(what, named):
 
 
 def _launch(a, b):
-    global launches
+    global launches, launches_bf16
     from repro_torch.kernels import build
 
-    dev = _check("rglru_scan", (("a", a), ("b", b)))
+    dev = _check("rglru_scan", (("a", a), ("b", b)),
+                 (torch.float32, torch.bfloat16))
     bsz, t, w = a.shape
     out = torch.empty_like(a)
     if a.numel() == 0:
         return out
-    err = build.library().rglru_scan_f32(
-        a.data_ptr(), b.data_ptr(), out.data_ptr(), bsz, t, w,
-        dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+    bf16 = a.dtype == torch.bfloat16
+    fn = build.library().rglru_scan_bf16 if bf16 \
+        else build.library().rglru_scan_f32
+    err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), bsz, t, w,
+             dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"rglru_scan kernel launch failed: CUDA error {err}")
-    launches += 1
+    if bf16:
+        launches_bf16 += 1
+    else:
+        launches += 1
     return out
 
 

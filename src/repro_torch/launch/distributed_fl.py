@@ -7,13 +7,14 @@ is ROADMAP.md item 15b).  By default it takes the example's shape:
 ``reduced(cfg, n_layers=4)``, 8 participant slots of one 64-token sequence
 each with FedAvg weights [1, 2, 1, 4, 1, 2, 3, 2], lr 1e-2, on ``cuda``
 (``--device cpu`` for the CPU).  ``--full-width`` takes the full config
-(f32 params drawn on the device from ``--seed``); ``--layers`` cuts depth
+(params drawn on the device from ``--seed``); ``--layers`` cuts depth
 only, and ``--batch``/``--seq-len`` set the round batch (the weights cycle
-over the slots).
+over the slots).  ``--dtype`` sets the params' dtype: float32 by default,
+as the reference example passes, or bfloat16 (the production steps' own).
 
   PYTHONPATH=src python -m repro_torch.launch.distributed_fl --arch gemma2-2b --device cpu
   PYTHONPATH=src python -m repro_torch.launch.distributed_fl --arch gemma2-2b \\
-      --full-width --batch 2 --seq-len 4096 --rounds 3
+      --full-width --batch 2 --seq-len 4096 --rounds 3 [--dtype bfloat16]
 """
 
 from __future__ import annotations
@@ -68,9 +69,12 @@ def main(argv=None):
     ap.add_argument("--seq-len", type=int, default=64)
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"),
+                    default="float32")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
+    dtype = getattr(torch, args.dtype)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = get_config(args.arch)
@@ -83,12 +87,15 @@ def main(argv=None):
         build.library()
     shape = InputShape("mini_train", seq_len=args.seq_len,
                        global_batch=args.batch, kind="train")
-    step, _ = make_fl_train_step(cfg, shape, lr=1e-2)
+    step, _ = make_fl_train_step(cfg, shape, lr=1e-2, dtype=dtype)
     params = stacked.stack_params(build_model(cfg).init(args.seed, dev), cfg)
-    momentum = tree_map(torch.zeros_like, params)
+    if dtype != torch.float32:
+        params = tree_map(lambda x: x.to(dtype), params)
+    momentum = tree_map(lambda x: torch.zeros(x.shape, dtype=torch.float32,
+                                              device=x.device), params)
     gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
     print(f"arch={args.arch} ({'full width' if args.full_width else 'reduced'}"
-          f", {cfg.n_layers} layers)  device={dev}  "
+          f", {cfg.n_layers} layers)  device={dev}  dtype={args.dtype}  "
           f"params={sum(p.numel() for p in leaves(params)):,}", flush=True)
     for r in range(args.rounds):
         batch = round_batch(cfg, args.batch, args.seq_len, gen, dev)

@@ -3,9 +3,11 @@
 
     PYTHONPATH=src python -m repro_torch.launch.profile_train \\
         [--arch gemma2-2b] [--layers N] [--batch 2] [--seq-len 4096] \\
-        [--microbatches 1]
+        [--microbatches 1] [--dtype bfloat16]
 
-Full width by default, f32 params drawn on the card from a seed, the
+Full width by default, params drawn on the card from a seed (f32 unless
+``--dtype bfloat16``: then bf16 params, f32 momentum, as the reference's
+production step), the
 round batch drawn as ``launch/distributed_fl.py`` draws it (FedAvg weights
 cycled over the slots), remat on.  One step runs first, unprofiled: it
 warms up and gives the unprofiled wall.  Then one step runs under the
@@ -30,17 +32,18 @@ from repro_torch.launch.profile_trial import (by_class, card_name,
 
 def kernel_class(name: str) -> str:
     n = name.lower()
-    if "attn_bwd_" in n:
+    if "attn_bwd_" in n or "attn16_bwd_" in n:
         return "flash_attention_bwd"
-    if "flash_attention_kernel" in n:
+    if "flash_attention_kernel" in n or "flash_attention_bf16_kernel" in n:
         return "flash_attention"
     if "rglru_scan_bwd_kernel" in n:
         return "rglru_scan_bwd"
-    if "rglru_scan_kernel" in n:
+    if "rglru_scan_kernel" in n or "rglru_scan_bf16_kernel" in n:
         return "rglru_scan"
     if "memcpy" in n or "memset" in n:
         return "copies"
-    if any(k in n for k in ("gemm", "gemv", "cutlass", "xmma", "dot_kernel")):
+    if any(k in n for k in ("gemm", "gemv", "cutlass", "xmma", "dot_kernel",
+                            "nvjet")):
         return "matmul"
     return "elementwise_and_other"
 
@@ -53,6 +56,8 @@ def main(argv=None):
     ap.add_argument("--seq-len", type=int, default=4096)
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"),
+                    default="float32")
     args = ap.parse_args(argv)
 
     import torch
@@ -75,11 +80,13 @@ def main(argv=None):
         cfg = cut_layers(cfg, args.layers)
     b, s = args.batch, args.seq_len
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    params = stacked.init_params_stacked(cfg, gen)
-    momentum = tree_map(torch.zeros_like, params)
+    dtype = getattr(torch, args.dtype)
+    params = stacked.init_params_stacked(cfg, gen, dtype)
+    momentum = tree_map(lambda x: torch.zeros(x.shape, dtype=torch.float32,
+                                              device=x.device), params)
     step, _ = make_fl_train_step(
         cfg, InputShape("profile", seq_len=s, global_batch=b, kind="train"),
-        microbatches=args.microbatches)
+        microbatches=args.microbatches, dtype=dtype)
     bgen = torch.Generator(device=dev).manual_seed(args.seed + 1)
 
     def one_step():
@@ -97,7 +104,8 @@ def main(argv=None):
         wall_s, loss = one_step()
     act = device_activity(torch, prof)
     print(json.dumps(dict(
-        phase="train_step", arch=cfg.name, layers=cfg.n_layers, batch=b,
+        phase="train_step", arch=cfg.name, layers=cfg.n_layers,
+        dtype=args.dtype, batch=b,
         seq_len=s, microbatches=args.microbatches, remat=True, loss=loss,
         unprofiled_wall_s=warm_s, wall_s=wall_s,
         train_tok_per_s=b * s / wall_s, device_busy_s=act["busy_s"],

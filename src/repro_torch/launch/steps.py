@@ -1,5 +1,4 @@
-"""The federated LM training step (port of ``repro.launch.steps``' train
-half).
+"""The LM zoo's production steps (port of ``repro.launch.steps``).
 
   fl_train_step: one FL round.  Each participant slot's sequences carry
     their FedAvg weight n_k / n inside the loss (``batch["weight"]``), so
@@ -8,26 +7,36 @@ half).
     accumulates the gradients (E x compute, the upload unchanged), then SGD
     with momentum applies the mean.  ``microbatches`` splits the round batch
     to bound activation memory (flops unchanged).
+  prefill_step: the full-sequence forward that builds the KV cache (last
+    position's logits).
+  serve_step: ONE token against the cache (ring-buffered or recurrent for
+    sub-quadratic archs; full-attention archs beyond 65,536 positions are
+    served under the sliding-window variant), optionally from int8 weights
+    dequantised inside every step.
 
-The reference's step runs on a device mesh and lowers under GSPMD; this one
-runs on the one device that holds the params (the ``("data", "model")``
-mesh is ROADMAP.md item 15b).  It keeps the reference's arguments.  Two
-departures of form:
+The reference's steps run on a device mesh and lower under GSPMD; these run
+on the one device that holds the tensors (the ``("data", "model")`` mesh is
+ROADMAP.md item 15b).  They keep the reference's arguments, and bf16 is
+their default dtype, as the reference's.  Departures of form:
 
   * the reference donates params and momentum (``donate_argnums``); here
-    ``step`` updates both trees in place under ``no_grad`` after the
-    backward passes (their graph is freed by then) and returns them;
-  * gradients accumulate in the params' ``.grad`` across microbatches and
-    passes (the reference carries a zero-initialised sum), in the same
-    order, so the sums are the same.
-
-f32 only: the kernels take f32 (bf16 is ROADMAP.md queue 2).  The
-prefill and serve steps and the quantised serve step wait for item 15b.
+    ``fl_train_step`` updates both trees in place under ``no_grad`` after
+    the backward passes (their graph is freed by then) and returns them,
+    and ``serve_step`` writes the new token's keys and values into the
+    cache in place;
+  * the reference sums gradients into f32 zeros.  Here f32 params sum in
+    their ``.grad`` over microbatches and passes, in the same order (the
+    same bits); params of another dtype sum each pass's gradient, rounded
+    to that dtype as the reference's is, into an f32 accumulator when
+    ``microbatches * local_passes > 1``, and take it as it is when there is
+    one;
+  * ``resident_experts`` only changes the reference's sharding rules, so on
+    one device it is accepted and computes the same thing.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -65,7 +74,7 @@ def _quantize_dequantize_ste(w: torch.Tensor) -> torch.Tensor:
     return deq + (w - w.detach())
 
 
-def param_struct(cfg: ModelConfig, dtype=torch.float32, *,
+def param_struct(cfg: ModelConfig, dtype=torch.bfloat16, *,
                  stacked: bool = False):
     """The params' tree as tensors on the ``meta`` device: shapes and
     dtypes, nothing allocated."""
@@ -79,18 +88,11 @@ def _frontend_struct(cfg: ModelConfig, batch: int, dtype):
                        device="meta")
 
 
-def _check_dtype(dtype):
-    if dtype != torch.float32:
-        raise ValueError(
-            f"the port trains in float32 only, got {dtype}: the kernels take "
-            "f32 (bf16 kernels are ROADMAP.md queue 2)")
-
-
 def make_fl_train_step(cfg: ModelConfig, shape: InputShape, *,
                        lr: float = DEFAULT_LR,
                        momentum: float = DEFAULT_MOMENTUM,
                        local_passes: int = 1, microbatches: int = 1,
-                       remat: bool = True, dtype=torch.float32,
+                       remat: bool = True, dtype=torch.bfloat16,
                        quantize_comm: bool = False,
                        moe_mode: str = "dense"):
     """One FL round over layer-stacked params.  Returns ``(step,
@@ -102,7 +104,6 @@ def make_fl_train_step(cfg: ModelConfig, shape: InputShape, *,
     frontend?}; params and momentum are updated in place and returned;
     loss and metrics are those of the first pass (averaged over
     microbatches)."""
-    _check_dtype(dtype)
     if moe_mode == "hierarchical":
         raise NotImplementedError(
             "moe_mode='hierarchical' is the sharded MoE: it comes with the "
@@ -121,11 +122,17 @@ def make_fl_train_step(cfg: ModelConfig, shape: InputShape, *,
         with ffn_mod.moe_impl(moe_mode):
             return stacked_mod.loss_fn(params, cfg, batch, remat=remat)
 
+    n = microbatches * local_passes
+
     def fl_train_step(params, momentum_state, batch: Dict[str, Any]):
         ps = leaves(params)
         for p in ps:
             p.grad = None
             p.requires_grad_(True)
+        # an f32 sum for the gradients of params in another dtype
+        acc = {i: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+               for i, p in enumerate(ps)
+               if n > 1 and p.dtype != torch.float32}
         micro = [batch] if microbatches == 1 else [
             {k: v[i * mb_size:(i + 1) * mb_size] for k, v in batch.items()}
             for i in range(microbatches)]
@@ -135,6 +142,10 @@ def make_fl_train_step(cfg: ModelConfig, shape: InputShape, *,
                 for mb in micro:
                     l, metrics = loss(params, mb)
                     l.backward()
+                    for i, a in acc.items():
+                        if ps[i].grad is not None:
+                            a.add_(ps[i].grad)
+                            ps[i].grad = None
                     if e == 0:
                         losses.append(l.detach())
                         metricss.append({k: v.detach()
@@ -148,14 +159,18 @@ def make_fl_train_step(cfg: ModelConfig, shape: InputShape, *,
             l = torch.stack(losses).mean()
             metrics = {k: torch.stack([m[k] for m in metricss]).mean()
                        for k in metricss[0]}
-        n = microbatches * local_passes
         with torch.no_grad():
-            for p, m in zip(ps, leaves(momentum_state)):
-                g = p.grad if p.grad is not None else torch.zeros_like(p)
+            for i, (p, m) in enumerate(zip(ps, leaves(momentum_state))):
+                g = acc.get(i, p.grad)
+                if g is None:
+                    g = torch.zeros_like(p)
                 p.grad = None
                 g.div_(n)
                 m.mul_(momentum).add_(g.to(m.dtype))
-                p.sub_(lr * m.to(p.dtype))
+                # lr in the params' dtype, as the reference's weakly typed
+                # ``lr * m.astype(p.dtype)``
+                lr_p = float(torch.tensor(lr, dtype=p.dtype))
+                p.sub_(lr_p * m.to(p.dtype))
         return params, momentum_state, l, metrics
 
     p_struct = param_struct(cfg, dtype, stacked=True)
@@ -171,13 +186,151 @@ def make_fl_train_step(cfg: ModelConfig, shape: InputShape, *,
     return fl_train_step, (p_struct, m_struct, batch_struct)
 
 
+# ---------------------------------------------------------------------------
+# prefill
+# ---------------------------------------------------------------------------
+
+def make_prefill_step(cfg: ModelConfig, shape: InputShape, *,
+                      dtype=torch.bfloat16,
+                      decode_window: Optional[int] = None):
+    """The prompt pass.  Returns ``(step, (p_struct, tok_struct[,
+    frontend_struct]))``, the structs on the ``meta`` device.
+
+    ``step(params, tokens, frontend=None) -> (logits (B, V), cache)``: a
+    stacked cache of ``shape.seq_len`` positions in ``dtype`` (a sliding
+    window of ``decode_window`` on full-attention layers, when given) on
+    the tokens' device, filled by the prompt ``tokens`` (B, S'), S' <=
+    ``shape.seq_len``; the logits are the last position's."""
+    b, s = shape.global_batch, shape.seq_len
+
+    def prefill_step(params, tokens, frontend=None):
+        with ffn_mod.moe_impl("dense"):
+            cache = stacked_mod.init_cache_stacked(
+                cfg, tokens.shape[0], s, decode_window=decode_window,
+                dtype=dtype, device=tokens.device)
+            return stacked_mod.prefill(params, cfg, tokens, cache,
+                                       frontend=frontend)
+
+    args = (param_struct(cfg, dtype, stacked=True),
+            torch.empty((b, s), dtype=torch.int32, device="meta"))
+    if cfg.frontend is not None:
+        args = args + (_frontend_struct(cfg, b, dtype),)
+    return prefill_step, args
+
+
+# ---------------------------------------------------------------------------
+# serve (decode one token), with the int8-weight variant
+# ---------------------------------------------------------------------------
+
+def _quantizable(leaf) -> bool:
+    """The reference's rule: a matrix (ndim >= 2) of at least 2^20
+    elements in bf16 or f32."""
+    return leaf is not None and leaf.dim() >= 2 and \
+        leaf.numel() >= (1 << 20) and \
+        leaf.dtype in (torch.bfloat16, torch.float32)
+
+
+def quantize_param_structs(p_struct):
+    """Split a param struct tree into (int8 mirror, scales tree): a
+    quantisable leaf becomes int8 of its shape and an f32 scale of its
+    shape with the last axis 1; the rest pass through (scale None)."""
+    def q(leaf):
+        if _quantizable(leaf):
+            return torch.empty(leaf.shape, dtype=torch.int8, device="meta")
+        return leaf
+
+    def sc(leaf):
+        if _quantizable(leaf):
+            return torch.empty(leaf.shape[:-1] + (1,), dtype=torch.float32,
+                               device="meta")
+        return None
+
+    return tree_map(q, p_struct), tree_map(sc, p_struct)
+
+
+def quantize_params(params):
+    """Runtime int8 quantisation of the quantisable leaves: per row of the
+    last axis, scale = max(max|w| / 127, 1e-8) in f32 and values
+    ``clip(round(w / scale), -127, 127)`` (round half to even), as the
+    reference's eager ``quantize_params`` computes them (a true division by
+    127, not XLA's reciprocal: the reference does not jit it).  Returns
+    (int8-or-passthrough tree, scales tree with None for the rest)."""
+    def scale(w):
+        if not _quantizable(w):
+            return None
+        return torch.clamp_min(
+            w.to(torch.float32).abs().amax(dim=-1, keepdim=True) / 127.0,
+            1e-8)
+
+    def q(w, sc):
+        if sc is None:
+            return w
+        return torch.clamp(torch.round(w.to(torch.float32) / sc), -127,
+                           127).to(torch.int8)
+
+    scales = tree_map(scale, params)
+    return tree_map(q, params, scales), scales
+
+
+def dequantize_params(params_q, scales, dtype=torch.bfloat16):
+    """int8 leaves times their f32 scale, rounded to ``dtype``; leaves
+    without a scale pass through."""
+    def deq(q, s):
+        if s is None:
+            return q
+        return (q.to(torch.float32) * s).to(dtype)
+    return tree_map(deq, params_q, scales)
+
+
+def make_serve_step(cfg: ModelConfig, shape: InputShape, *,
+                    dtype=torch.bfloat16, quantize_weights: bool = False,
+                    resident_experts: bool = False):
+    """One decoded token.  Returns ``(step, (p_struct, cache_struct,
+    token_struct, pos_struct[, scale_struct]))`` on the ``meta`` device.
+
+    ``step(params, cache, token, pos, scales=None) -> (logits (B, V),
+    cache)``: token (B,) int, pos the token's position; the cache is a
+    stacked cache of ``shape.seq_len`` positions (``make_prefill_step``'s,
+    or ``stacked.init_cache_stacked``) and is updated in place.  A
+    full-attention arch beyond 65,536 positions is served under its
+    ``long_context_window`` (the reference's rule).  With
+    ``quantize_weights`` params are ``quantize_params``' int8 tree and
+    ``scales`` its scales, dequantised to ``dtype`` inside every step.
+    ``resident_experts`` changes only the reference's sharding, so here it
+    computes the same thing."""
+    del resident_experts                # a sharding rule: one device here
+    b, s = shape.global_batch, shape.seq_len
+    force_window = (not cfg.subquadratic) and s > 65536
+    decode_window = cfg.long_context_window if force_window else None
+
+    p_struct = param_struct(cfg, dtype, stacked=True)
+    scale_struct = None
+    if quantize_weights:
+        p_struct, scale_struct = quantize_param_structs(p_struct)
+
+    def serve_step(params, cache, token, pos, scales=None):
+        if quantize_weights:
+            params = dequantize_params(params, scales, dtype)
+        with ffn_mod.moe_impl("dense"):
+            return stacked_mod.decode_step(params, cfg, token, int(pos),
+                                           cache)
+
+    cache_struct = stacked_mod.init_cache_stacked(
+        cfg, b, s, decode_window=decode_window, dtype=dtype, device="meta")
+    args = [p_struct, cache_struct,
+            torch.empty((b,), dtype=torch.int32, device="meta"),
+            torch.empty((), dtype=torch.int32, device="meta")]
+    if quantize_weights:
+        args.append(scale_struct)
+    return serve_step, tuple(args)
+
+
 def step_for_shape(cfg: ModelConfig, shape: InputShape, **kw):
-    """Dispatch on the shape kind -> (step, example structs).  Only the
-    train step is ported; prefill and decode steps raise (item 15b)."""
+    """Dispatch on the shape kind -> (step, example structs)."""
     if shape.kind == "train":
         return make_fl_train_step(cfg, shape, **kw)
-    if shape.kind in ("prefill", "decode"):
-        raise NotImplementedError(
-            f"the {shape.kind} step runs on the device mesh: it comes with "
-            "the LM half of the multi-GPU slice (ROADMAP.md item 15b)")
+    if shape.kind == "prefill":
+        return make_prefill_step(cfg, shape, **kw)
+    if shape.kind == "decode":
+        return make_serve_step(cfg, shape, **kw)
     raise ValueError(shape.kind)

@@ -29,7 +29,11 @@ equal to itself run twice (also at its tiles' edges: T not a multiple of
 the 32-key tile, S G not of the 64-row tile, a window inside one tile,
 G = 6 at D = 128, MQA walks of 150 steps, and a strided dout), the scan's
 reverse scan bitwise, and a reduced stacked loss's gradients on the card
-within 1e-4 of the CPU's.  This file
+within 1e-4 of the CPU's.  The bf16 kernels: the forward within 8e-3 of
+the plain version's max-abs and element by element within 2 bf16 ulps
+plus 1e-3 of its row's max-abs, its lse, the backward within 2e-2 of
+each gradient's max-abs and of each row's and bitwise equal to itself,
+the bf16 scan bitwise, each counted in its own bf16 launch counter.  This file
 imports no JAX, so it runs where only torch is.
 """
 
@@ -40,6 +44,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import fed_aggregate as fa_mod  # noqa: E402
 from repro_torch.kernels import fed_reduce as fr_mod  # noqa: E402
+from repro_torch.kernels import parity  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -285,8 +290,10 @@ def test_serve_zoo_on_cuda_launches_the_kernel(cuda, arch):
 
 def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda):
     q, k, v = _qkv_cuda(1, 2, 1, 32, 32, 64, seed=0, dev=cuda)
-    with pytest.raises(ValueError, match="float32"):
-        fl_mod.flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16())
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fl_mod.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="one dtype"):
+        fl_mod.flash_attention(q.bfloat16(), k, v.bfloat16())
     with pytest.raises(ValueError, match="no key"):
         fl_mod.flash_attention(q, k[:, :, :16], v[:, :, :16])
     with pytest.raises(ValueError, match="head dim"):
@@ -688,3 +695,104 @@ def test_resnet_trial_on_cuda_launches_both_kernels(cuda):
         assert res.rounds == 2
         assert counter.launches - before >= 2
         assert all(p.device.type == "cuda" for p in leaves(res.params))
+
+
+# ---------------------------------------------------------------------------
+# the bf16 kernels
+# ---------------------------------------------------------------------------
+
+BF16_ATTN = [
+    (2, 16, 1, 300, 300, 256, True, 128, None),    # recurrentgemma, MQA
+    (1, 8, 4, 200, 200, 256, True, None, 50.0),    # gemma2 global
+    (1, 8, 4, 130, 130, 256, True, 64, 50.0),      # gemma2 local
+    (2, 4, 2, 77, 200, 64, True, None, None),      # S < T: aligned to T
+    (1, 6, 2, 100, 70, 32, False, None, 30.0),     # non-causal, S > T, D=32
+    (2, 16, 16, 96, 200, 64, False, None, None),   # cross-attention S < T
+    (1, 2, 2, 65, 65, 128, False, 9, None),        # non-causal window
+    (1, 14, 2, 272, 272, 64, True, None, None),    # G=7
+    (1, 6, 2, 50, 50, 128, True, None, 20.0),      # S G = 150, not of 64
+    (2, 4, 4, 90, 90, 64, True, 5, None),          # window < one key tile
+    (1, 16, 1, 600, 600, 256, True, 300, None),    # MQA G=16: long walks
+]
+
+
+def _qkv_bf16(b, h, kh, s, t, d, seed, dev):
+    return [x.to(torch.bfloat16) for x in _qkv_cuda(b, h, kh, s, t, d, seed,
+                                                     dev)]
+
+
+@pytest.mark.parametrize("b,h,kh,s,t,d,causal,window,cap", BF16_ATTN)
+def test_flash_attention_bf16_kernels_match_plain(cuda, b, h, kh, s, t, d,
+                                                  causal, window, cap):
+    """bf16 q, k, v: the forward within 8e-3 of the plain version's
+    max-abs and element by element within 2 bf16 ulps plus 1e-3 of its
+    row's max-abs, its lse within 1e-4; the backward from the same (q, k,
+    v, out, lse, dout) within 2e-2 of each gradient's max-abs and of each
+    row's (a query's dq, a key's dk and dv), bf16 out, and a second call
+    gives the same bits; one bf16 launch each."""
+    q, k, v = _qkv_bf16(b, h, kh, s, t, d, seed=s * d + t + 2, dev=cuda)
+    dout = torch.randn_like(q)
+    kw = dict(causal=causal, window=window, cap=cap)
+    out, lse = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
+    f0, b0 = fl_mod.launches_bf16, fl_mod.bwd_launches_bf16
+    k_out, k_lse = fl_mod.flash_attention(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert fl_mod.launches_bf16 == f0 + 1
+    assert k_out.dtype == torch.bfloat16 and k_lse.dtype == torch.float32
+    assert _max_rel(k_out.float(), out.float()) <= 8e-3
+    assert parity.bf16_ulps(k_out, out, parity.row_floor(
+        out, parity.BF16_ROW_FLOOR)) <= 2.0
+    torch.testing.assert_close(k_lse, lse, rtol=1e-4, atol=1e-4)
+    got = fl_mod.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    again = fl_mod.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    assert fl_mod.bwd_launches_bf16 == b0 + 2
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == torch.bfloat16 and torch.equal(g, a)
+        assert _max_rel(g.float(), w.float()) <= 2e-2
+        assert parity.row_rel_err(g, w) <= 2e-2
+
+
+def test_flash_attention_bf16_autograd_launches_both_kernels(cuda):
+    """``ops.flash_attention`` under autograd at bf16 on the model's
+    strided layout: one bf16 forward and one bf16 backward launch, bf16
+    gradients within 2e-2 of autograd through the plain version."""
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(9)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(cuda).to(torch.bfloat16).requires_grad_(True)
+        for shape in ((2, 150, 8, 64), (2, 150, 4, 64), (2, 150, 4, 64)))
+    dout = torch.randn(2, 150, 8, 64, device=cuda).to(torch.bfloat16)
+    kw = dict(causal=True, window=40, cap=20.0)
+    f0, b0 = fl_mod.launches_bf16, fl_mod.bwd_launches_bf16
+    out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), **kw)
+    got = torch.autograd.grad(out.transpose(1, 2), (q, k, v), dout)
+    torch.cuda.synchronize()
+    assert (fl_mod.launches_bf16, fl_mod.bwd_launches_bf16) == (f0 + 1,
+                                                                b0 + 1)
+    want = torch.autograd.grad(ref.flash_attention_ref(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        **kw).transpose(1, 2), (q, k, v), dout)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        assert _max_rel(g.float(), w.float()) <= 2e-2
+
+
+@pytest.mark.parametrize("b,t,w", [(2, 64, 4096), (1, 37, 4099), (3, 1, 130),
+                                   (3, 75, 1000),   # 16-byte copies
+                                   (3, 75, 4099)])  # 2-byte loads
+def test_rglru_scan_bf16_kernel_is_bitwise(cuda, b, t, w):
+    rng = np.random.default_rng(b * t + w + 2)
+    a = torch.from_numpy(rng.uniform(0.5, 0.999, (b, t, w)).astype(
+        np.float32)).to(cuda).to(torch.bfloat16)
+    x = torch.from_numpy(rng.standard_normal((b, t, w)).astype(
+        np.float32)).to(cuda).to(torch.bfloat16)
+    before = sc_mod.launches_bf16
+    got = sc_mod.rglru_scan(a, x)
+    torch.cuda.synchronize()
+    assert sc_mod.launches_bf16 == before + 1
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, ref.rglru_scan_ref(a, x))

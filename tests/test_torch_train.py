@@ -419,7 +419,7 @@ def test_fl_train_step_matches_reference(case):
         dtype=jnp.float32, lr=1e-2, **kw)
     fn, (p_struct, m_struct, b_struct) = steps.make_fl_train_step(
         cfg, InputShape("t", seq_len=s, global_batch=b, kind="train"),
-        lr=1e-2, **kw)
+        lr=1e-2, dtype=torch.float32, **kw)
     p, jp = _params(cfg, jcfg, stack=True)
     assert [x.shape for x in leaves(p)] == [x.shape for x in leaves(p_struct)]
     assert all(x.device.type == "meta" for x in leaves(m_struct))
@@ -443,8 +443,9 @@ def test_fl_train_step_matches_reference(case):
 
 def test_train_step_contract():
     """The structs are on the meta device with the full config's shapes
-    (nothing allocated); another dtype, the hierarchical MoE and the
-    prefill/decode shapes raise; the STE is the reference's bits."""
+    (nothing allocated), in bf16 by default as the reference's, f32 when
+    asked; the hierarchical MoE raises; the prefill and decode shapes
+    dispatch to their steps; the STE is the reference's bits."""
     from repro_torch.configs.shapes import get_shape
 
     cfg = get_config(GEMMA)
@@ -452,15 +453,20 @@ def test_train_step_contract():
         cfg, get_shape("train_4k"))
     assert sum(x.numel() for x in leaves(p_struct)) == 2_614_222_080
     assert all(x.device.type == "meta" for x in leaves(p_struct))
+    assert {x.dtype for x in leaves(p_struct)} == {torch.bfloat16}
+    assert {x.dtype for x in leaves(m_struct)} == {torch.float32}
     assert b_struct["tokens"].shape == (256, 4096)
-    with pytest.raises(ValueError, match="float32"):
-        steps.make_fl_train_step(cfg, get_shape("train_4k"),
-                                 dtype=torch.bfloat16)
+    _, (p32, _, _) = steps.make_fl_train_step(cfg, get_shape("train_4k"),
+                                              dtype=torch.float32)
+    assert {x.dtype for x in leaves(p32)} == {torch.float32}
     with pytest.raises(NotImplementedError, match="item 15"):
         steps.make_fl_train_step(cfg, get_shape("train_4k"),
                                  moe_mode="hierarchical")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        steps.step_for_shape(cfg, get_shape("prefill_32k"))
+    fn, (pp, tok) = steps.step_for_shape(cfg, get_shape("prefill_32k"))
+    assert callable(fn) and tok.shape == (32, 32768)
+    assert {x.dtype for x in leaves(pp)} == {torch.bfloat16}
+    fn, structs = steps.step_for_shape(cfg, get_shape("decode_32k"))
+    assert callable(fn) and structs[2].shape == (128,)
     fn, _ = steps.step_for_shape(reduced(cfg), get_shape("train_4k"))
     assert callable(fn)
     rng = np.random.default_rng(6)
