@@ -224,9 +224,12 @@ pre-pass and the kernel alone timed as well) and without.
      unless these limits reject them: the second half of the rows computed
      with one 64-key V tile read as zeros (the forward and dq), and dv's
      last quarter of keys written as zeros.  Each case: card, plain and library ms (SDPA in bf16 with the
-     mask explicit; none under a cap or for the scan) and the bf16 bound
-     (bytes at 3.35 TB/s, 4 D or 10 D flops a live pair at 989 TFLOP/s)
-     with its share.
+     mask explicit; none under a cap or for the scan; timed in turns with
+     the kernel, with the spread of its calls) and the bf16 bound (bytes
+     at 3.35 TB/s, 4 D or 10 D flops a live pair at 989 TFLOP/s) with its
+     share, ptxas's report of the kernel, and for the backward its launch
+     plan and the device kernels of one call (``torch.profiler``; it fails
+     on none or more than two).
   14. The production steps at bf16 (``launch/steps.py``'s default dtype).
      14a: phase 11's two training cells with bf16 params and f32 momentum,
      the same exact launch counts on the bf16 kernels (52 + 26 for
@@ -259,15 +262,18 @@ it exits 1 and prints no result.
 
     python3 chip_smoke.py --baseline OLD/src/repro_torch/kernels/csrc
 
-also builds another checkout's ``fed_reduce``, ``fed_aggregate`` and
-``flash_attention_bwd`` and times them beside this checkout's on every
-phase-2 case and every phase-2c attention case, in turns (old, new, new,
-old), each through its own C entry point (the older attention backward
-takes a (B, H, S) delta buffer where this one takes its scratch); each
-case's line then carries ``old_ms`` and ``new_ms`` (two each) and whether
-the old kernel ran and agreed (bitwise for the FedTune kernels, within
-1e-4 of each gradient's max-abs against the plain version for the
-backward).
+also builds another checkout's ``fed_reduce``, ``fed_aggregate``,
+``flash_attention_bwd`` and, where it has them, bf16 attention kernels
+(``flash_attention_bf16.cu``, ``flash_attention_bwd_bf16.cu`` with its
+own ``attn_bf16.cuh``) and times them beside this checkout's on every
+phase-2 case, every phase-2c attention case and every phase-2e attention
+case, in turns (old, new, new, old), each through its own C entry point
+(an older attention backward takes a (B, H, S) delta buffer where this one
+takes the scratch its planner sizes); each case's line then carries
+``old_ms`` and ``new_ms`` (two each) and whether the old kernel ran and
+agreed (bitwise for the FedTune kernels, within 1e-4 of each gradient's
+max-abs against the plain version for the f32 backward, within phase
+2e's limits for the bf16 kernels).
 """
 
 from __future__ import annotations
@@ -324,6 +330,12 @@ def median_ms(torch, fn, flush, iters: int = 30, warmup: int = 3) -> float:
     the stream busy while the host enqueues ``fn``, so the event pair
     brackets the device work (and whatever host gaps ``fn`` itself leaves
     between its own launches)."""
+    ms = times_ms(torch, fn, flush, iters, warmup)
+    return ms[len(ms) // 2]
+
+
+def times_ms(torch, fn, flush, iters: int = 30, warmup: int = 3):
+    """``median_ms``'s timings of ``iters`` calls, sorted."""
     for _ in range(warmup):
         fn()
     times = []
@@ -337,8 +349,7 @@ def median_ms(torch, fn, flush, iters: int = 30, warmup: int = 3) -> float:
         end.record()
         times.append((start, end))
     torch.cuda.synchronize()
-    ms = sorted(s.elapsed_time(e) for s, e in times)
-    return ms[len(ms) // 2]
+    return sorted(s.elapsed_time(e) for s, e in times)
 
 
 def launch_floor_ms(torch, flush) -> float:
@@ -728,7 +739,7 @@ def chunked_attention_ref(ref, q, k, v, rows, **kw):
                                    v[:, :, :rows.stop], **kw)
 
 
-def bf16_kernel_cases(torch, np, card, flush):
+def bf16_kernel_cases(torch, np, card, flush, ptxas, old_lib=None):
     """Phase 2e: the bf16 kernels at the bf16 production steps' shapes, each
     held against its plain version on the same bf16 inputs (attention within
     8e-3 of the plain output's max-abs and within 2 bf16 ulps plus 1e-3 of
@@ -742,8 +753,19 @@ def bf16_kernel_cases(torch, np, card, flush):
     Every attention case plants faults in the plain result (a 64-key V
     tile read as zeros on the second half of the rows; dv's last quarter
     of keys zeroed) and fails unless the element and row limits reject
-    them."""
+    them.  Each attention record carries ptxas's report of its kernel and,
+    for the backward, its launch plan and the device kernels of one call
+    (``torch.profiler``; one or two).  Where SDPA computes the function it
+    is timed in turns with the kernel (kernel, SDPA, SDPA, kernel), each a
+    median of as many calls, with the spread of its calls.  With
+    ``old_lib`` (``--baseline``) an older checkout's bf16 kernels are timed
+    beside these in turns (old, new, new, old), each through its own C
+    entry point, and held to the same limits."""
+    import ctypes
+
     import torch.nn.functional as F
+
+    from repro_torch.kernels import build
 
     from repro_torch.kernels import flash_attention as fl_mod
     from repro_torch.kernels import ref
@@ -782,6 +804,84 @@ def bf16_kernel_cases(torch, np, card, flush):
         bad[:, :, half:] = ref.flash_attention_ref(q, k, vz, **kw)[
             :, :, half:]
         return bad, vz
+
+    outs = {}
+
+    def library_turns(kernel_fn, lib):
+        """The kernel and the library call in turns (kernel, library,
+        library, kernel), medians of 10 calls each, and the library's
+        spread over its 20 calls."""
+        k1 = times_ms(torch, kernel_fn, flush, 10)
+        l1 = times_ms(torch, lib, flush, 10)
+        l2 = times_ms(torch, lib, flush, 10)
+        k2 = times_ms(torch, kernel_fn, flush, 10)
+        med = sorted(l1 + l2)
+        return dict(library_ms=med[len(med) // 2],
+                    library_turns_ms=[l1[5], l2[5]],
+                    kernel_turns_ms=[k1[5], k2[5]],
+                    library_spread_ms=[med[0], med[-1]])
+
+    def fwd_call(lib_, key, q, k, v, kw):
+        """The forward through a library's C entry point (its signature
+        has not changed since the bf16 kernels came)."""
+        o = torch.empty_like(q)
+        outs[key] = o
+        w, cap = kw["window"], kw["cap"]
+        return raw_call(
+            torch, lib_.flash_attention_bf16, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), o.data_ptr(), None, *q.stride()[:3],
+            *k.stride()[:3], *v.stride()[:3], *o.stride()[:3], q.shape[0],
+            q.shape[1], k.shape[1], q.shape[2], k.shape[2], q.shape[3],
+            int(kw["causal"]), 0 if w is None else int(w),
+            float(q.shape[3] ** -0.5), 0.0 if cap is None else float(cap))
+
+    def fwd_agrees(o, q, k, v, kw, check_rows):
+        """The phase's forward limits on an output."""
+        s_len = q.shape[2]
+        spans = [slice(0, s_len)] if check_rows is None else [
+            slice(0, check_rows), slice(s_len - check_rows, s_len)]
+        for rows in spans:
+            want = chunked_attention_ref(ref, q, k, v, rows, **kw) \
+                if check_rows else ref.flash_attention_ref(q, k, v, **kw)
+            if rel_err(o[:, :, rows], want) > 8e-3 or bf16_ulps(
+                    o[:, :, rows], want, row_floor(want, BF16_ROW_FLOOR)) > 2.0:
+                return False
+        return True
+
+    def bwd_call(lib_, key, q, k, v, out, lse, dout, kw):
+        """The backward through a library's C entry point: an older one
+        takes a (B, H, S) delta buffer, this one the scratch its planner
+        sizes."""
+        b, h, s_len, d = q.shape
+        kh, t_len = k.shape[1], k.shape[2]
+        w, cap = kw["window"], kw["cap"]
+        if hasattr(lib_, "flash_attention_bwd_plan_bf16"):
+            info = (ctypes.c_longlong * 5)()
+            nbytes = lib_.flash_attention_bwd_plan_bf16(
+                b, h, kh, s_len, t_len, d, 0 if w is None else int(w), info)
+            work = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+        else:
+            work = torch.empty(b * h * s_len, dtype=torch.float32,
+                               device=dev)
+        grads = tuple(torch.empty_like(x) for x in (q, k, v))
+        outs[key] = grads
+        strides = (ctypes.c_longlong * 24)(*(
+            st for x in (q, k, v, out, dout, *grads) for st in x.stride()[:3]))
+        return raw_call(
+            torch, lib_.flash_attention_bwd_bf16, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            work.data_ptr(), *(x.data_ptr() for x in grads), strides, b, h,
+            kh, s_len, t_len, d, int(kw["causal"]), 0 if w is None else int(w),
+            float(d ** -0.5), 0.0 if cap is None else float(cap))
+
+    def device_kernels(fn):
+        """The names of the device kernels one call of ``fn`` runs."""
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return [e.name for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
 
     def attn_case(name, b, h, kh, s_len, t_len, d, causal, window, cap,
                   check_rows=None):
@@ -833,8 +933,16 @@ def bf16_kernel_cases(torch, np, card, flush):
             kk, vv = k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)
             lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 q, kk, vv, attn_mask=mask)
-        ms = median_ms(torch, lambda: fl_mod.flash_attention(q, k, v, **kw),
-                       flush, iters=10)
+        kernel_fn = lambda: fl_mod.flash_attention(q, k, v, **kw)  # noqa
+        ms = median_ms(torch, kernel_fn, flush, iters=10)
+        lib_rec = {} if lib is None else library_turns(kernel_fn, lib)
+        old_rec = {}
+        if old_lib is not None and hasattr(old_lib, "flash_attention_bf16"):
+            old_rec = old_vs_new(
+                torch, flush, fwd_call(old_lib, "old", q, k, v, kw),
+                fwd_call(build.library(), "new", q, k, v, kw),
+                lambda: fwd_agrees(outs["old"], q, k, v, kw, check_rows))
+            outs.clear()
         rec = dict(
             phase="bf16_kernel_check", kernel="flash_attention", case=name,
             dtype="bfloat16", shape=dict(B=b, H=h, Kh=kh, S=s_len, T=t_len,
@@ -849,8 +957,7 @@ def bf16_kernel_cases(torch, np, card, flush):
             plain_call="ref.flash_attention_ref" + (
                 "" if check_rows is None else
                 f" in blocks of {check_rows} query rows"),
-            library_ms=None if lib is None else median_ms(
-                torch, lib, flush, iters=10),
+            library_ms=lib_rec.pop("library_ms", None),
             library_call="none: scaled_dot_product_attention has no "
                          "soft-cap" if lib is None else
             "F.scaled_dot_product_attention(q, k, v, attn_mask=mask) in "
@@ -859,7 +966,8 @@ def bf16_kernel_cases(torch, np, card, flush):
             bound_by=bound_by, bound_share=bound_ms / ms,
             bound_route="4 D flops a live pair at 989 TFLOP/s (bf16); the "
                         "kernel runs P V twice (P = hi + lo): 6 D",
-            card=card)
+            ptxas=ptxas_of(ptxas, f"flash_attention_bf16_kernelILi{d}E"),
+            **lib_rec, **old_rec, card=card)
         emit(rec)
         results.append(rec)
         del q, k, v, got
@@ -931,8 +1039,28 @@ def bf16_kernel_cases(torch, np, card, flush):
                                                    attn_mask=mask)
             lib = lambda: torch.autograd.grad(  # noqa: E731
                 o_lib, (qq, kk, vv), dout, retain_graph=True)
-        ms = median_ms(torch, lambda: fl_mod.flash_attention_bwd(
-            q, k, v, out, lse, dout, **kw), flush, iters=10)
+        kernel_fn = lambda: fl_mod.flash_attention_bwd(  # noqa: E731
+            q, k, v, out, lse, dout, **kw)
+        ms = median_ms(torch, kernel_fn, flush, iters=10)
+        lib_rec = {} if lib is None else library_turns(kernel_fn, lib)
+        # a profile that reads no kernel at all is taken again
+        kernels = device_kernels(kernel_fn) or device_kernels(kernel_fn)
+        check(1 <= len(kernels) <= 2, f"flash_attention_bwd bf16 {name}: "
+                                      f"{len(kernels)} device kernels a call")
+        old_rec = {}
+        if old_lib is not None and hasattr(old_lib,
+                                           "flash_attention_bwd_bf16"):
+            def old_agrees():
+                want_ = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout,
+                                                    **kw)
+                return all(rel_err(g, w) <= 2e-2 and row_rel_err(g, w) <= 2e-2
+                           for g, w in zip(outs["old"], want_))
+            old_rec = old_vs_new(
+                torch, flush,
+                bwd_call(old_lib, "old", q, k, v, out, lse, dout, kw),
+                bwd_call(build.library(), "new", q, k, v, out, lse, dout, kw),
+                old_agrees)
+            outs.clear()
         rec = dict(
             phase="bf16_kernel_check", kernel="flash_attention_bwd",
             case=name, dtype="bfloat16",
@@ -946,8 +1074,7 @@ def bf16_kernel_cases(torch, np, card, flush):
             lse_max_abs_err=lse_err, ms=ms,
             plain_ms=median_ms(torch, lambda: ref.flash_attention_bwd_ref(
                 q, k, v, out, lse, dout, **kw), flush, iters=3, warmup=1),
-            library_ms=None if lib is None else median_ms(
-                torch, lib, flush, iters=10),
+            library_ms=lib_rec.pop("library_ms", None),
             library_call="none: scaled_dot_product_attention has no "
                          "soft-cap" if lib is None else
             "the backward of F.scaled_dot_product_attention with the mask "
@@ -956,7 +1083,10 @@ def bf16_kernel_cases(torch, np, card, flush):
             bound_by=bound_by, bound_share=bound_ms / ms,
             bound_route="10 D flops a live pair at 989 TFLOP/s (bf16); the "
                         "kernel recomputes S and dP for dQ: 14 D",
-            card=card)
+            device_kernels=kernels,
+            plan=bwd_plan(torch, ptxas, b, h, kh, s_len, t_len, d, window,
+                          "bf16"),
+            **lib_rec, **old_rec, card=card)
         emit(rec)
         results.append(rec)
         del q, k, v, dout, out, lse, got, again, want
@@ -1722,21 +1852,23 @@ def ptxas_of(table, needle: str):
     return next(iter(hits.values())) if len(hits) == 1 else hits
 
 
-def bwd_plan(torch, ptxas, b, h, kh, s_len, t_len, d, window):
+def bwd_plan(torch, ptxas, b, h, kh, s_len, t_len, d, window, dtype="f32"):
     """The backward's launch as its C planner gives it (scratch bytes,
     blocks of the prep pass and of the main pass's kv-major and q-major
     kinds, dynamic shared memory) with ptxas's report of both kernels and
     the main grid's waves: its blocks over the SMs times the blocks an SM
-    holds (shared memory and registers)."""
+    holds (shared memory and registers).  ``dtype`` "f32" or "bf16" picks
+    the kernel (both 256 threads a block)."""
     import ctypes
 
     from repro_torch.kernels import build
 
     info = (ctypes.c_longlong * 5)()
-    scratch = build.library().flash_attention_bwd_plan_f32(
+    scratch = getattr(build.library(), f"flash_attention_bwd_plan_{dtype}")(
         b, h, kh, s_len, t_len, d, 0 if window is None else int(window), info)
     n_dkv, n_dq, n_prep, smem, dq_first = (int(x) for x in info)
-    main = ptxas_of(ptxas, f"attn_bwd_mainILi{d}E")
+    kernel = "attn_bwd" if dtype == "f32" else "attn16_bwd"
+    main = ptxas_of(ptxas, f"{kernel}_mainILi{d}E")
     regs = main.get("registers", 255) if isinstance(main, dict) and main \
         else 255
     per_sm = max(1, min((228 * 1024) // (smem + 1024),
@@ -1749,7 +1881,7 @@ def bwd_plan(torch, ptxas, b, h, kh, s_len, t_len, d, window):
                 waves=(n_dkv + n_dq) / (sms * per_sm),
                 dynamic_smem_bytes=smem,
                 ptxas=dict(main=main, prep=ptxas_of(
-                    ptxas, f"attn_bwd_prepILi{d}E")))
+                    ptxas, f"{kernel}_prepILi{d}E")))
 
 
 def train_kernel_cases(torch, np, card, flush, ptxas, old_lib=None):
@@ -1846,14 +1978,21 @@ def train_kernel_cases(torch, np, card, flush, ptxas, old_lib=None):
             card=card)
         if old_lib is not None and hasattr(old_lib,
                                            "flash_attention_bwd_f32"):
-            # both through their C entry points: the older kernel takes a
-            # (B, H, S) delta buffer where this one takes its scratch
+            # both through their C entry points: a kernel without a planner
+            # entry takes a (B, H, S) delta buffer, one with it the scratch
+            # its planner sizes
             strides = (ctypes.c_longlong * 24)(*(
                 st for x in (q, k, v, out, dout, q, k, v)
                 for st in x.stride()[:3]))
             outs = {}
 
-            def c_call(lib_, key, work_floats):
+            def c_call(lib_, key):
+                work_floats = b * h * s_len
+                if hasattr(lib_, "flash_attention_bwd_plan_f32"):
+                    info = (ctypes.c_longlong * 5)()
+                    work_floats = lib_.flash_attention_bwd_plan_f32(
+                        b, h, kh, s_len, t_len, d,
+                        0 if window is None else int(window), info) // 4
                 work = torch.empty(work_floats, dtype=torch.float32,
                                    device=dev)
                 grads = tuple(torch.empty_like(x) for x in (q, k, v))
@@ -1873,9 +2012,8 @@ def train_kernel_cases(torch, np, card, flush, ptxas, old_lib=None):
                 return max(rel_err(g, w) for g, w in zip(outs["old"],
                                                          want_)) <= 1e-4
             rec.update(old_vs_new(
-                torch, flush, c_call(old_lib, "old", b * h * s_len),
-                c_call(build.library(), "new",
-                       rec["plan"]["scratch_bytes"] // 4), old_agrees))
+                torch, flush, c_call(old_lib, "old"),
+                c_call(build.library(), "new"), old_agrees))
             del outs
         emit(rec)
         results.append(rec)
@@ -3307,8 +3445,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--baseline", type=Path, default=None,
                     help="another checkout's kernels/csrc: time its "
-                         "fed_reduce, fed_aggregate and "
-                         "flash_attention_bwd beside this one's")
+                         "fed_reduce, fed_aggregate, flash_attention_bwd "
+                         "and bf16 attention kernels beside this one's")
     args = ap.parse_args()
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"the port's sources are not beside this script ({SRC})")
@@ -3344,11 +3482,14 @@ def main():
 
     old_lib = None
     if args.baseline is not None:
-        # a checkout from before the training kernels has no backward
+        # a checkout from before the training kernels has no backward,
+        # one from before bf16 no bf16 kernels
         old_lib = build.library(
             args.baseline.resolve(), ROOT / "build" / "kernels_baseline",
             tuple(f for f in ("fed_reduce.cu", "fed_aggregate.cu",
-                              "flash_attention_bwd.cu")
+                              "flash_attention_bwd.cu",
+                              "flash_attention_bf16.cu",
+                              "flash_attention_bwd_bf16.cu")
                   if (args.baseline / f).exists()))
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32,
                         device="cuda")
@@ -3356,7 +3497,7 @@ def main():
     cases += lm_kernel_cases(torch, np, card, flush)
     ptxas_fns = ptxas_table(log.read_text()) if log.exists() else {}
     cases += train_kernel_cases(torch, np, card, flush, ptxas_fns, old_lib)
-    cases += bf16_kernel_cases(torch, np, card, flush)
+    cases += bf16_kernel_cases(torch, np, card, flush, ptxas_fns, old_lib)
     del flush
 
     from repro_torch.models import build_model

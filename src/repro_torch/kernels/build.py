@@ -140,7 +140,10 @@ def _entry_points():
         "flash_attention_bwd_bf16.cu": [("flash_attention_bwd_bf16",
                                          [ptr] * 10 + [ctypes.POINTER(i64)]
                                          + [i32] * 8 + [f32] * 2
-                                         + [i32, ptr])],
+                                         + [i32, ptr]),
+                                        ("flash_attention_bwd_plan_bf16",
+                                         [i32] * 7 + [ctypes.POINTER(i64)],
+                                         i64)],
     }
 
 

@@ -1,23 +1,49 @@
 // Shared pieces of the bf16 attention kernels (flash_attention_bf16.cu,
-// flash_attention_bwd_bf16.cu): cp.async copies, the wgmma shared-memory
-// descriptor, the bf16 wgmma products (m64nNk16, f32 accumulate) and the
-// tile layout both kernels keep their operands in.
+// flash_attention_bwd_bf16.cu): the asynchronous machinery of a
+// warp-specialised Hopper kernel (mbarriers, bulk and TMA copies, named
+// barriers), the wgmma shared-memory descriptors, the bf16 wgmma products
+// (m64nNk16, f32 accumulate) and the two tile layouts the kernels keep
+// their operands in.
 //
-// The tile layout ("blocked").  A (rows x cols) bf16 tile with cols
-// contiguous in device memory is kept in shared memory as 8 x 8 core
+// Both kernels have one shape: 256 threads, two consumer warpgroups that
+// compute, and one producer thread (thread 0) that keeps copies in flight
+// into a ring of shared-memory slots, each slot on a full and an empty
+// mbarrier (Ring below).  A producer warp or warpgroup was tried: a ninth
+// warp puts three warps on one of the SM's four schedulers, whose 16K
+// registers then cap every thread at 168 (224 asked by __launch_bounds__
+// for 288 threads), and setmaxnreg, which should hand a producer
+// warpgroup's registers to the consumers, did not lift ptxas's allocation
+// of the consumers' code above that cap (CUDA 12.8): both spilled at
+// D = 256.  With 8 warps each thread may use 255 registers (127 where two
+// blocks share an SM).  A wait on an mbarrier that never ends traps after
+// 2^26 tries, seconds after any real wait would have ended, so a fault in
+// a ring fails the launch instead of hanging it.
+//
+// The "blocked" layout (the backward's tiles, which its prep pass writes
+// into scratch so that one bulk copy brings a whole tile).  A (rows x cols)
+// bf16 tile with cols contiguous in device memory is kept as 8 x 8 core
 // matrices of 128 bytes: element (i, j) at
-//     (i / 8) * 8 * cols + (j / 8) * 64 + (i % 8) * 8 + j % 8   (elements),
-// so one 16-byte piece of a row (8 consecutive columns) is one row of a
-// core matrix and lands with one 16-byte cp.async.  wgmma reads such a tile
-// without a swizzle in either major order of a 16-bit operand:
-//  * K-major (the tile's cols are the product's K): LBO, the step between
-//    core matrices along K, is 128 bytes; SBO, the step between 8-row
-//    groups, 16 * cols bytes;
+//     (i / 8) * 8 * cols + (j / 8) * 64 + (i % 8) * 8 + j % 8   (elements).
+// wgmma reads such a tile without a swizzle in either major order of a
+// 16-bit operand; LBO steps along K and SBO along M or N in both orders:
+//  * K-major (the tile's cols are the product's K): LBO 128 bytes, SBO
+//    16 * cols bytes;
 //  * MN-major (the tile's cols are M or N, its rows K; the transpose bit
-//    set): LBO, along K (the rows), 16 * cols bytes; SBO, along M or N,
-//    128 bytes.
-// So Q, K, V and dO are copied as they lie and serve both as K-major
-// operands (Q K^T, dO V^T) and as MN-major ones (P V, dO^T P, Q^T dS, dS K).
+//    set): LBO 16 * cols bytes, SBO 128 bytes.
+// So Q, K, V and dO serve both as K-major operands (Q K^T, dO V^T) and as
+// MN-major ones (P V, dS K, P^T dO, dS^T Q) with nothing transposed.
+//
+// The "swizzled" layout (the forward's tiles, which TMA writes straight
+// from q, k and v as they lie).  A tile is cut into column chunks of CW =
+// min(D, 64) elements; chunk c holds the tile's rows at SW = 2 CW bytes
+// each (128 or 64), and the 16-byte piece u of row r sits at u ^ (r & 7)
+// (128-byte swizzle) or u ^ ((r >> 1) & 3) (64-byte), on absolute
+// shared-memory address bits, so every chunk starts on 1024 bytes.  wgmma
+// reads it with the matching swizzle mode:
+//  * K-major: SBO 8 SW bytes (the step between 8-row groups), LBO unused;
+//    the k-step of 16 elements inside a row is +32 bytes on the start;
+//  * MN-major: LBO the step between CW-wide chunks along M or N, SBO 8 SW
+//    bytes (the step between 8-row groups along K).
 #pragma once
 
 #include <cstdint>
@@ -31,6 +57,135 @@ namespace b16 {
 __device__ __forceinline__ int blk(int i, int j, int cols) {
   return (i >> 3) * 8 * cols + (j >> 3) * 64 + (i & 7) * 8 + (j & 7);
 }
+
+// ---- barriers and copies ----------------------------------------------------
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+// makes the inits visible to the async proxy (the copies' completions)
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// Waits for the phase of parity `phase` to complete; traps after 2^26
+// tries (see the header note).
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int phase) {
+  for (unsigned tries = 0;; ++tries) {
+    unsigned done;
+    asm volatile("{\n.reg .pred p;\n"
+                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                 "selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(smem_u32(bar)), "r"(phase) : "memory");
+    if (done) return;
+    if (tries == (1u << 26)) __trap();
+  }
+}
+// whether the phase of parity `phase` has completed, without waiting
+__device__ __forceinline__ bool mbar_test(uint64_t* bar, int phase) {
+  unsigned done;
+  asm volatile("{\n.reg .pred p;\n"
+               "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+               "selp.u32 %0, 1, 0, p;\n}\n"
+               : "=r"(done) : "r"(smem_u32(bar)), "r"(phase) : "memory");
+  return done != 0;
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+// dst <- src (bytes, a multiple of 16, both 16-byte aligned) by the bulk
+// copy engine, completing on `bar`, which expects the bytes first
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  mbar_expect(bar, bytes);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+               "[%0], [%1], %2, [%3];\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+               : "memory");
+}
+// one TMA box of a 4-d tensor map at coordinates (c0 .. c3), completing on
+// `bar` (whose expected bytes the caller sets)
+__device__ __forceinline__ void tma_load_4d(void* dst, const void* map, int c0,
+                                            int c1, int c2, int c3, uint64_t* bar) {
+  asm volatile("cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+               "[%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+               :: "r"(smem_u32(dst)), "l"(map), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+                  "r"(smem_u32(bar))
+               : "memory");
+}
+// named barriers (0 is __syncthreads): wait for, or arrive at, barrier id
+// of `n` threads
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+// The streamed side's ring: load n goes to slot n % NR, on full[slot] (the
+// copy's bytes) and empty[slot] (one arrival from each of the 8 consumer
+// warps once they are done with it).  Thread 0 is the producer: `issued`
+// (its own count) runs ahead of the consumers by up to NR loads.  top_up
+// issues every load up to `need` (waiting for its slot to empty if it
+// must) and then more while slots are free, without waiting; issue(n,
+// slot) starts load n's copies, completing on full + slot with the bytes
+// it expects.
+template <int NR>
+struct Ring {
+  uint64_t* full;
+  uint64_t* empty;
+  int total;                         // loads of the walk
+  int issued;                        // thread 0: loads started
+
+  __device__ __forceinline__ void init() const {   // thread 0
+    for (int i = 0; i < NR; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, 8);
+    }
+  }
+  template <class Issue>
+  __device__ __forceinline__ void top_up(int need, Issue issue) {   // thread 0
+    for (; issued < total; ++issued) {
+      const int slot = issued % NR;
+      if (issued >= NR) {
+        const int parity = (issued / NR - 1) & 1;
+        if (issued <= need) mbar_wait(empty + slot, parity);
+        else if (!mbar_test(empty + slot, parity)) break;
+      }
+      issue(issued, slot);
+    }
+  }
+  __device__ __forceinline__ void wait(int n) const {
+    mbar_wait(full + n % NR, (n / NR) & 1);
+  }
+  __device__ __forceinline__ void release(int n) const {  // every consumer thread
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) mbar_arrive(empty + n % NR);
+  }
+};
+
+// x as the compiler must recompute it where it is used: keeps a loop's
+// invariant wgmma descriptors from being hoisted into live registers
+__device__ __forceinline__ uint64_t opaque(uint64_t x) {
+  asm volatile("" : "+l"(x));
+  return x;
+}
+
+// 2^x on the SFU
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+constexpr float kLog2e = 1.4426950408889634f;
 
 // 16 bytes, global -> shared; src_bytes = 0 fills zeros
 __device__ __forceinline__ void cp16(void* dst, const void* src, int src_bytes) {
@@ -67,6 +222,10 @@ __device__ __forceinline__ uint64_t desc_k(const void* p, int cols) {
 __device__ __forceinline__ uint64_t desc_mn(const void* p, int cols) {
   return desc(p, 16 * cols, 128);
 }
+// a swizzled descriptor: `sw` the row bytes of the layout (128 or 64)
+__device__ __forceinline__ uint64_t desc_sw(const void* p, int lbo, int sbo, int sw) {
+  return desc(p, lbo, sbo) | (static_cast<uint64_t>(sw == 128 ? 1 : 2) << 62);
+}
 
 __device__ __forceinline__ void wg_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -74,14 +233,23 @@ __device__ __forceinline__ void wg_fence() {
 __device__ __forceinline__ void wg_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
+// waits until at most N committed groups of this warpgroup are in flight
+template <int N = 0>
 __device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
 }
-// keeps the compiler from moving an accumulator while a wgmma owns it
+// keeps the compiler from moving an accumulator while a wgmma owns it, and
+// fixes registers a wgmma reads where they were written (before the next
+// wgmma.fence), so that ptxas finds no write between fence and product
 template <int N>
 __device__ __forceinline__ void pin(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -110,30 +278,6 @@ __device__ __forceinline__ float bf16_hi(uint32_t v) {
 // MN-major); _rs: a from registers in the m64k16 fragment layout (thread
 // (g, t) of warp w holds rows 16w + g and + 8, columns 2t, 2t + 1 and
 // + 8), b from shared memory.  acc = 0 overwrites d.
-
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma_ss_n16(float (&d)[8], uint64_t da,
-                                            uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7}, "
-      "%8, %9, p, 1, 1, %11, %12;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
-}
-
-template <int TB>
-__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4],
-                                            uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7}, "
-      "{%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(TB));
-}
 
 template <int TA, int TB>
 __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
@@ -308,8 +452,7 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&
 template <int N, int TB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
                                          uint64_t db, int acc) {
-  if constexpr (N == 16) wgmma_rs_n16<TB>(d, a, db, acc);
-  else if constexpr (N == 32) wgmma_rs_n32<TB>(d, a, db, acc);
+  if constexpr (N == 32) wgmma_rs_n32<TB>(d, a, db, acc);
   else if constexpr (N == 64) wgmma_rs_n64<TB>(d, a, db, acc);
   else if constexpr (N == 128) wgmma_rs_n128<TB>(d, a, db, acc);
   else wgmma_rs_n256<TB>(d, a, db, acc);
@@ -318,8 +461,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
 template <int N, int TA, int TB>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
                                          uint64_t db, int acc) {
-  if constexpr (N == 16) wgmma_ss_n16<TA, TB>(d, da, db, acc);
-  else if constexpr (N == 32) wgmma_ss_n32<TA, TB>(d, da, db, acc);
+  if constexpr (N == 32) wgmma_ss_n32<TA, TB>(d, da, db, acc);
   else if constexpr (N == 64) wgmma_ss_n64<TA, TB>(d, da, db, acc);
   else if constexpr (N == 128) wgmma_ss_n128<TA, TB>(d, da, db, acc);
   else wgmma_ss_n256<TA, TB>(d, da, db, acc);

@@ -19,67 +19,77 @@
 //
 // What bounds it: operations.  Each live (query, key) pair costs five
 // products of length D (S, dP, dV, dK, dQ), 10 D flops, and this design
-// recomputes S and dP for dQ (14 D, as the reference's two passes do); at
-// gemma2-2b's global layer (B=2, H=8, S=T=4096, D=256, causal) 10 D flops
-// a pair are 3.44e11 flops: 0.348 ms at 989 TFLOP/s (bf16 tensor cores),
-// against 0.11 GB of bytes (0.033 ms at 3.35 TB/s).
+// recomputes S and dP for dQ (14 D, as the reference's two passes do:
+// determinism rules out atomics, and a dQ partial per key tile would cost
+// more bytes than the recompute); at gemma2-2b's global layer (B=2, H=8,
+// S=T=4096, D=256, causal) 10 D flops a pair are 3.44e11 flops: 0.348 ms
+// at 989 TFLOP/s (bf16 tensor cores), against 0.11 GB of bytes (0.033 ms
+// at 3.35 TB/s).  Measured (chip_smoke.py phase 2e, NVIDIA H100 80GB HBM3,
+// 700.00 W): 1.95 ms there (17.5% of the bound), 2.85 ms at
+// recurrentgemma-9b's local layer (SDPA's backward: 6.98 ms).
 //
-// The design (a simple kernel first; deterministic: no atomics, every sum in
-// a fixed order, so two calls give the same bits):
+// The design (deterministic: no atomics, every sum in a fixed order, so two
+// calls give the same bits; warp-specialised, as attn_bf16.cuh sets out):
 //
-//  * Every product is a bf16 wgmma with f32 accumulation.  S = Q K^T and
-//    dP = dO V^T are exact products of bf16 inputs.  P and dS are f32 and
-//    enter dV, dK and dQ rounded once to bf16: an error of at most 2^-9 of
-//    each term, which sums to ~2^-9 / sqrt(n) of a gradient over n terms of
-//    random sign, against a tolerance of 2e-2 of each row's max-abs (a
-//    query's dq, a key's dk and dv: 2.5-5 bf16 ulps at the row's max), so
-//    no split pass (the forward splits P because its output is held
-//    element by element within 2 ulps).
-//  * Every operand is read as it lies.  Q, dO, K and V are copied into
-//    shared memory in one layout (attn_bf16.cuh, "blocked") by 16-byte
-//    cp.async pieces, and P and dS are written there by the threads that
-//    make them; wgmma reads each tile K-major or MN-major (16-bit operands
-//    take the transpose bit), so nothing is transposed or split:
-//      S = Q K^T,  dP = dO V^T      M = 64 rows, N = 64 or 32 keys, K = D
-//      dV^T = dO^T P, dK^T = Q^T dS M = 64 dims, N = 64 keys, K = 64 rows
-//      dQ = dS K                    M = 64 rows, N = D / 2,  K = 32 keys
-//  * Three launches: a delta pass (delta = rowsum(dO O) in f32, into the
-//    scratch the wrapper allocates), then kv-major blocks (dK, dV) and
-//    q-major blocks (dQ).  A kv-major block owns 64 keys of one (b, kv head)
-//    and walks, 64 rows a step, every row of its G heads that sees one of
-//    them; a q-major block owns 64 rows and walks the 32-key tiles they see
-//    (the forward's tile skipping).  Each kind orders its blocks longest
-//    walk first.  The kv-major walks re-read Q and dO once for every key
-//    tile a row sees, from device memory once they outgrow the L2 (128 MB
-//    of them at recurrentgemma-9b's layer), the largest cost at the
-//    training shapes; so its key tiles are as wide as its registers allow,
-//    64 keys, twice the q-major's.
-//  * Two warpgroups a block.  In a step warpgroup 0 computes S and
-//    warpgroup 1 dP; each hands the other half of its 16 elements a thread
-//    through shared memory (same fragment layout, thread for thread), both
-//    make P and dS for their 8 and write them as bf16 tiles; then
-//    warpgroup 0 accumulates dV^T and warpgroup 1 dK^T (kv-major), or each
-//    warpgroup dQ for half the head dim (q-major).  The rows' lse and
-//    delta are loaded before the products, which hide their latency.
-//  * Tensor-core sums flushed every step, as in the f32 backward: the
-//    tensor cores' f32 accumulation truncates, so dV^T and dK^T are summed
-//    there over one 64-row step (one 64-dim chunk at a time) and dQ over
-//    one 32-key tile, each from a fresh accumulator, and added to running
-//    sums on the f32 pipes.
-//  * The streamed tiles (Q and dO rows, or K and V keys) come through two
-//    stages of cp.async copies; the copy of step i + 2 starts when step i
-//    is done.
-//  * Shared memory at D = 256: kv-major 229,376 B (its K and V, two stages
-//    of Q and dO rows, the P and dS tiles and the S exchange); q-major
-//    143,360 B.  At D = 32 the row tiles are kept 64 columns wide (zero
-//    beyond D), so that dV^T and dK^T still have M = 64 dims.
+//  * Two launches a call.  A prep pass (attn16_bwd_prep) lays every 64-row
+//    tile of Q and dO out in the blocked layout, with its rows' lse (times
+//    log2 e) and delta = rowsum(dO O) (computed there, in f32), and every
+//    64-key tile of K and V, in scratch the wrapper allocates (sized by
+//    flash_attention_bwd_plan_bf16), so one bulk copy brings a whole tile.
+//    Then one launch (attn16_bwd_main) holds both kinds of block:
+//    kv-major blocks own a 64-key tile of one (b, kv head) and walk, 64
+//    rows a step, every row of its G heads that sees one of its keys,
+//    keeping dK and dV; q-major blocks own a 64-row tile and walk the
+//    64-key tiles its rows see (the forward's tile skipping), keeping dQ.
+//    The kind whose longest walk costs more goes first, each kind longest
+//    walk first, so the short blocks fill the tail.
+//  * 256 threads a block, two consumer warpgroups; thread 0 is also the
+//    producer: it brings the block's own tile and then the streamed tiles
+//    (row tiles, or K and V tiles as loads 2j and 2j + 1) by cp.async.bulk
+//    into a ring on full and empty mbarriers, topping it up at each step
+//    (attn_bf16.cuh, Ring); no thread computes an address of a copy.  Up
+//    to 255 registers a thread at D >= 128, 127 at D <= 64, where two
+//    blocks share an SM.  The ring holds 2 row tiles in a kv-major block
+//    at D = 256 (its own K and V and the P/dS tiles leave room for no
+//    more), 3-4 at D <= 128, and 5-8 K or V tiles in a q-major block.
+//  * Each consumer warpgroup makes S and dP for its own 32 of the tile's 64
+//    keys (m64n32k16, K = D; no exchange between the warpgroups), and P and
+//    dS from them in registers: exp2 with log2 e folded into the scale and
+//    into lse, the cap's tanh from exp2, the mask tested only on tiles that
+//    are not wholly live, the rows' lse and delta read from the row tile.
+//    kv-major: both write P and dS as bf16 tiles (double-buffered), meet
+//    at one named barrier a step, and then warpgroup 0 accumulates dV +=
+//    P^T dO and warpgroup 1 dK += dS^T Q (M = 64 keys, N = D, K = 64 rows;
+//    P^T and dS^T read MN-major from the tiles).  q-major: dS stays in
+//    registers as the A operand of dQ += dS K (M = 64 rows, N = D, K = its
+//    32 keys), each warpgroup summing its own keys; the two halves are
+//    added once at the end, in a fixed order.
+//  * Products overlapped with the elementwise work: a step issues the next
+//    step's S and dP, then this step's dV/dK (or dQ) product, waits for the
+//    scores alone (wgmma wait_group 1) and makes the next P and dS while
+//    the gradient product runs.
+//  * Accuracy: S = Q K^T and dP = dO V^T are exact products of bf16 inputs.
+//    P and dS are f32 and enter dV, dK and dQ rounded once to bf16: an
+//    error of at most 2^-9 of each term, ~2^-9 / sqrt(n) of a gradient over
+//    n terms of random sign, against the card's limit of 2e-2 of each row's
+//    max-abs (a query's dq, a key's dk and dv).  The gradient sums stay in
+//    the tensor cores over the whole walk (the flush period is the walk):
+//    their truncating f32 accumulation loses at most 2^-23 of the running
+//    sum a k-step: over recurrentgemma-9b's 2,080-k-step walk the
+//    emulation of tests/test_torch_attn_bwd.py moves each gradient by
+//    6e-5 of its max-abs, a sixtieth of a bf16 ulp at the max.
+//  * Shared memory at D = 256: kv-major 230,440 B (its K and V, the two P
+//    and dS tiles, 2 row tiles of 66,048 B); q-major 229,976 B (its row
+//    tile, 5 K or V tiles of 32 KB).  At D <= 64 at most 113 KB, two blocks
+//    an SM.
 //
 // Layout through strides: q, dq, out, dout (B, H, S, D); k, v, dk, dv
 // (B, Kh, T, D); each addressed by (batch, head, position) strides with the
 // head dim contiguous and rows 16-byte aligned.  lse is (B, H, S) f32
-// contiguous.  Ragged S and T: rows past S G and keys past T are
-// zero-filled by the copies and masked.
+// contiguous.  Ragged S and T: rows past S G and keys past T are zero in
+// the scratch and masked.
 
+#include <algorithm>
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -90,517 +100,639 @@ namespace fedk {
 namespace fb16 {
 
 using namespace b16;
+using bf = __nv_bfloat16;
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;       // two consumer warpgroups
 constexpr int kBq = 64;             // rows of a row tile
-constexpr int kBk = 32;             // keys of a q-major block's key tile
-constexpr int kBkv = 64;            // keys of a kv-major block
+constexpr int kBk = 64;             // keys of a key tile
+constexpr int kBarStep = 1;         // named barrier of the two consumers
 
-struct Args {
-  const __nv_bfloat16 *q, *k, *v, *out, *dout;
-  const float* lse;
-  float* delta;                      // (B, H, S) scratch
-  __nv_bfloat16 *dq, *dk, *dv;
-  long long s[24];                   // (b, head, position) strides, in the
-                                     // order q, k, v, out, dout, dq, dk, dv
-  int H, KH, S, T, causal, window;
-  float scale, cap;
-};
+enum { kQ = 0, kK = 3, kV = 6, kO = 9, kDO = 12, kDQ = 15, kDK = 18, kDV = 21 };
+
+// The deepest ring, at most `most` slots, that fits beside `base` bytes.
+constexpr int ring_depth(size_t base, size_t slot, size_t cap, int most) {
+  int n = most;
+  while (n > 2 && base + n * slot > cap) --n;
+  return n;
+}
 
 template <int D>
 struct Cfg {
-  static constexpr int DP = D < 64 ? 64 : D;           // row tiles' width
-  static constexpr int kRowTile = kBq * DP;            // elements
-  static constexpr int kKeyTile = kBk * D;             // q-major's
-  static constexpr int kKvTile = kBkv * D;             // kv-major's own
-  // kv-major: K, V; 2 stages of Q, dO; P, dS; the exchange (32 elements
-  // a thread)
-  static constexpr size_t kKvSmem =
-      2 * (2 * static_cast<size_t>(kKvTile) + 4 * kRowTile + 2 * kBq * kBkv) +
-      4 * 32 * 128;
-  // q-major: Q, dO; 2 stages of K, V; dS; the exchange (16)
-  static constexpr size_t kQSmem =
-      2 * (2 * static_cast<size_t>(kRowTile) + 4 * kKeyTile + kBq * kBk) +
-      4 * 16 * 128;
+  // a row tile: Q and dO (64 x D, blocked), lse * log2 e [64], delta [64]
+  static constexpr int ROW = 2 * kBq * D * 2 + 2 * kBq * 4;
+  // a key tile: K and V (64 x D, blocked); PART is one of them
+  static constexpr int PART = kBk * D * 2;
+  static constexpr int KEY = 2 * PART;
+  static constexpr int PDS = 4 * kBq * kBk * 2;      // 2 buffers of P, dS
+  static constexpr int kMinBlocks = D <= 64 ? 2 : 1;
+  static constexpr size_t kCap = D <= 64 ? 115712 : 232448;
+  static constexpr int NR_KV = ring_depth(KEY + PDS + 256, ROW, kCap, 4);
+  static constexpr int NR_Q = ring_depth(ROW + 256, PART, kCap, 8);
+  static constexpr size_t kKvBytes = KEY + PDS + static_cast<size_t>(NR_KV) * ROW + 16 * NR_KV + 8;
+  static constexpr size_t kQBytes = ROW + static_cast<size_t>(NR_Q) * PART + 16 * NR_Q + 8;
+  static constexpr size_t kSmem = kKvBytes > kQBytes ? kKvBytes : kQBytes;
+  static_assert(kSmem <= kCap, "two ring slots must fit");
+  static_assert(NR_Q * PART >= kBq * D * 4, "the dQ halves' exchange must fit the ring");
 };
 
-// delta[b, h, s] = sum_d dout * out, one warp a row, in f32
+struct Args {
+  const bf *q, *k, *v, *out, *dout;
+  const float* lse;
+  uint8_t* rows;                     // scratch: row tiles
+  uint8_t* keys;                     // scratch: key tiles
+  bf *dq, *dk, *dv;
+  long long st[24];                  // (b, head, position) strides, in the
+                                     // order q, k, v, out, dout, dq, dk, dv
+  int B, H, KH, S, T, causal, window;
+  int n_rt, n_kt;                    // row tiles, key tiles of a (b, kv head)
+  long long n_kv, n_q;               // kv-major and q-major blocks
+  int dq_first;                      // the q-major blocks come first
+  float scale, cap;
+};
+
+// ---- the prep pass ----------------------------------------------------------
+
+// Row tile rt of (b, kv head) hb: Q and dO blocked (rows past S G zero),
+// lse * log2 e and delta = rowsum(dO O) (4 threads a row, a fixed order).
+// Key tile kt: K and V blocked (keys past T zero).  16 bytes a thread.
 template <int D>
 __global__ void __launch_bounds__(256)
-attn16_bwd_delta(const Args p, int B) {
-  const long long row = static_cast<long long>(blockIdx.x) * 8 + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= static_cast<long long>(B) * p.H * p.S) return;
-  const int pos = static_cast<int>(row % p.S);
-  const long long bh = row / p.S;
-  const int h = static_cast<int>(bh % p.H);
-  const long long b = bh / p.H;
-  const __nv_bfloat16* o = p.out + b * p.s[9] + h * p.s[10] + pos * p.s[11];
-  const __nv_bfloat16* d = p.dout + b * p.s[12] + h * p.s[13] + pos * p.s[14];
-  float acc = 0.0f;
-#pragma unroll
-  for (int i = lane; i < D; i += 32)
-    acc = __fadd_rn(acc, __fmul_rn(__bfloat162float(d[i]), __bfloat162float(o[i])));
-#pragma unroll
-  for (int w = 16; w > 0; w >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, w);
-  if (lane == 0) p.delta[row] = acc;
-}
-
-// copies a 64-row tile of (position, group head) rows f0 .. f0 + 63 of x
-// (strides sb, sh, ss) into `dst` (blocked, DP columns); rows past SG zero
-template <int D>
-__device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat16* x,
-                                          long long sb, long long sh, long long ss,
-                                          long long b, int kh, int G, int SG, int f0) {
-  constexpr int CH = D / 8;
-  for (int i = threadIdx.x; i < kBq * CH; i += kThreads) {
-    const int r = i / CH, c = (i - r * CH) * 8;
-    const int f = f0 + r;
-    const __nv_bfloat16* src = x;
-    int bytes = 0;
+attn16_bwd_prep(const Args p) {
+  using C = Cfg<D>;
+  constexpr int CH = D / 8;                       // 16-byte pieces of a row
+  const long long n_row_blocks = static_cast<long long>(p.B) * p.KH * p.n_rt;
+  const int G = p.H / p.KH, SG = p.S * G;
+  const int tid = threadIdx.x;
+  if (blockIdx.x < n_row_blocks) {
+    const long long hb = blockIdx.x / p.n_rt;     // b * KH + kh
+    const int rt = static_cast<int>(blockIdx.x - hb * p.n_rt);
+    const long long b = hb / p.KH;
+    const int kh = static_cast<int>(hb - b * p.KH);
+    uint8_t* dst = p.rows + (hb * p.n_rt + rt) * static_cast<long long>(C::ROW);
+    for (int i = tid; i < 2 * kBq * CH; i += 256) {
+      const int which = i / (kBq * CH);           // 0: Q, 1: dO
+      const int r = (i / CH) % kBq, c8 = i % CH;
+      const int f = rt * kBq + r;
+      uint4 x = make_uint4(0u, 0u, 0u, 0u);
+      if (f < SG) {
+        const int pos = f / G, h = kh * G + (f - pos * G);
+        const int o = which ? kDO : kQ;
+        x = __ldg(reinterpret_cast<const uint4*>(
+            (which ? p.dout : p.q) + b * p.st[o] + h * p.st[o + 1] + pos * p.st[o + 2] +
+            c8 * 8));
+      }
+      *reinterpret_cast<uint4*>(dst + which * kBq * D * 2 + blk(r, c8 * 8, D) * 2) = x;
+    }
+    const int r = tid >> 2, j = tid & 3;
+    const int f = rt * kBq + r;
+    float lse2 = 0.0f, acc = 0.0f;
     if (f < SG) {
       const int pos = f / G, h = kh * G + (f - pos * G);
-      src = x + b * sb + h * sh + pos * ss + c;
-      bytes = 16;
+      const bf* o = p.out + b * p.st[kO] + h * p.st[kO + 1] + pos * p.st[kO + 2];
+      const bf* d = p.dout + b * p.st[kDO] + h * p.st[kDO + 1] + pos * p.st[kDO + 2];
+      for (int c8 = j; c8 < CH; c8 += 4) {
+        const uint4 x = __ldg(reinterpret_cast<const uint4*>(o + c8 * 8));
+        const uint4 y = __ldg(reinterpret_cast<const uint4*>(d + c8 * 8));
+        const uint32_t xs[4] = {x.x, x.y, x.z, x.w}, ys[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          acc = fmaf(bf16_lo(xs[u]), bf16_lo(ys[u]), acc);
+          acc = fmaf(bf16_hi(xs[u]), bf16_hi(ys[u]), acc);
+        }
+      }
+      lse2 = __ldg(p.lse + (b * p.H + h) * p.S + pos) * kLog2e;
     }
-    cp16(dst + blk(r, c, Cfg<D>::DP), src, bytes);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    if (j == 0) {
+      float* stats = reinterpret_cast<float*>(dst + 2 * kBq * D * 2);
+      stats[r] = lse2;
+      stats[kBq + r] = acc;
+    }
+    return;
+  }
+  const long long x = blockIdx.x - n_row_blocks;
+  const long long hb = x / p.n_kt;
+  const int kt = static_cast<int>(x - hb * p.n_kt);
+  const long long b = hb / p.KH;
+  const int kh = static_cast<int>(hb - b * p.KH);
+  uint8_t* dst = p.keys + (hb * p.n_kt + kt) * static_cast<long long>(C::KEY);
+  for (int i = tid; i < 2 * kBk * CH; i += 256) {
+    const int which = i / (kBk * CH);             // 0: K, 1: V
+    const int r = (i / CH) % kBk, c8 = i % CH;
+    const int key = kt * kBk + r;
+    uint4 y = make_uint4(0u, 0u, 0u, 0u);
+    if (key < p.T) {
+      const int o = which ? kV : kK;
+      y = __ldg(reinterpret_cast<const uint4*>(
+          (which ? p.v : p.k) + b * p.st[o] + kh * p.st[o + 1] + key * p.st[o + 2] + c8 * 8));
+    }
+    *reinterpret_cast<uint4*>(dst + which * C::PART + blk(r, c8 * 8, D) * 2) = y;
   }
 }
 
-// copies keys kt .. kt + BK - 1 of x (a (b, kv head) base, key stride st)
-// into `dst` (blocked, D columns); keys past T zero
-template <int D, int BK>
-__device__ __forceinline__ void load_keys(__nv_bfloat16* dst, const __nv_bfloat16* x,
-                                          long long st, int kt, int T) {
-  constexpr int CH = D / 8;
-  for (int i = threadIdx.x; i < BK * CH; i += kThreads) {
-    const int r = i / CH, c = (i - r * CH) * 8;
-    const int key = kt + r;
-    const bool in = key < T;
-    cp16(dst + blk(r, c, D), in ? x + key * st + c : x, in ? 16 : 0);
-  }
-}
+// ---- the main pass ----------------------------------------------------------
 
-// S (or dP) = A B^T over the head dim: A a 64-row tile (DP columns), B a
-// BK-key tile (D columns), both K-major
-template <int D, int BK>
-__device__ __forceinline__ void scores(float (&s)[BK / 2], const __nv_bfloat16* a,
-                                       const __nv_bfloat16* bt) {
-#pragma unroll
-  for (int i = 0; i < BK / 2; ++i) s[i] = 0.0f;
-  wg_fence();
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks)
-    wgmma_ss<BK, 0, 0>(s, desc_k(a + ks * 128, Cfg<D>::DP), desc_k(bt + ks * 128, D),
-                       ks > 0);
-  wg_commit();
-  wg_wait();
-  pin(s);
-}
-
-// P and dS of one element: the raw product s, dP, the row's lse and delta
-struct Mask {
-  int T, causal, window;
-  __device__ __forceinline__ bool live(int key, int qk) const {
-    bool ok = key < T;
-    if (causal) ok = ok && key <= qk;
-    if (window > 0) ok = ok && key > qk - window;
-    return ok;
+// P and dS of one element from the raw product s, dP and the row's lse *
+// log2 e and delta; tanh y = 1 - 2 / (e^{2y} + 1), off tanhf by ~1e-7
+struct Elem {
+  float c_scale, c_in, c_out;        // scale log2 e; cap: 2 log2 e scale / cap,
+  bool capped;                       // cap log2 e
+  __device__ __forceinline__ void operator()(float s, float dp, float lse2, float delta,
+                                             float& pv, float& dsv) const {
+    float x2, dcap = 1.0f;
+    if (capped) {
+      const float th = 1.0f - __fdividef(2.0f, ex2(s * c_in) + 1.0f);
+      x2 = th * c_out;
+      dcap = 1.0f - th * th;
+    } else {
+      x2 = s * c_scale;
+    }
+    pv = ex2(x2 - lse2);
+    dsv = pv * (dp - delta) * dcap;
   }
 };
 
-__device__ __forceinline__ void p_ds(float s, float dp, float lse, float delta,
-                                     float scale, float cap, bool live,
-                                     float& pv, float& dsv) {
-  float x = s * scale, dcap = 1.0f;
-  if (cap > 0.0f) {
-    const float th = tanhf(x / cap);
-    x = cap * th;
-    dcap = 1.0f - th * th;
-  }
-  pv = live ? expf(x - lse) : 0.0f;
-  dsv = live ? pv * (dp - delta) * dcap : 0.0f;
-}
-
-// The rows' lse, delta, key position and validity for this thread's two
-// rows (16 warp + g and + 8 of the 64-row tile at f0).
-struct Rows {
-  float lse[2], dl[2];
-  int qk[2];
-  bool rv[2];                          // rows past S G see no key
-  __device__ __forceinline__ void load(const Args& p, long long b, int kh,
-                                       int G, int SG, int off, int f0,
-                                       int warp, int g) {
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int f = f0 + warp * 16 + g + 8 * hf;
-      const int pos = f / G;
-      qk[hf] = pos + off;
-      rv[hf] = f < SG;
-      lse[hf] = dl[hf] = 0.0f;
-      if (rv[hf]) {
-        const long long ix = (b * p.H + kh * G + (f - pos * G)) * p.S + pos;
-        lse[hf] = p.lse[ix];
-        dl[hf] = p.delta[ix];
-      }
-    }
-  }
-};
-
-// Both warpgroups make P and dS of the 64 x BK tile.  A thread of
-// warpgroup W holds S (W = 0) or dP (W = 1) in `s` (BK / 2 elements).
-// give<W> hands the half that the other warpgroup makes through sX (same
-// fragment layout, thread for thread: element e in row e of sX); after a
-// barrier make_p_ds<W> makes elements W BK / 4 .. (keys W BK / 2 .. of the
-// tile) and writes P (when sP is not null) and dS as bf16 tiles, then
-// fences them for the async proxy.
-template <int W, int BK>
-__device__ __forceinline__ void give(const float (&s)[BK / 2], float* sX, int wt) {
-  constexpr int kHalf = BK / 4;
-  constexpr int kGive = W == 0 ? kHalf : 0;
-#pragma unroll
-  for (int e = 0; e < kHalf; ++e) sX[(kGive + e) * 128 + wt] = s[kGive + e];
-}
-
-template <int W, int BK>
-__device__ __forceinline__ void make_p_ds(const float (&s)[BK / 2], const float* sX,
-                                          int wt, int warp, int g, int tq, int kt,
-                                          const Rows& r, const Mask& mask,
-                                          float scale, float cap,
-                                          __nv_bfloat16* sP, __nv_bfloat16* sdS) {
-#pragma unroll
-  for (int nn = 0; nn < BK / 16; ++nn) {
-    const int n = W * BK / 16 + nn;
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      float pv[2], dsv[2];
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int e = 4 * n + 2 * hf + u;
-        const float other = sX[e * 128 + wt];
-        const int key = kt + 8 * n + 2 * tq + u;
-        p_ds(W == 0 ? s[e] : other, W == 0 ? other : s[e], r.lse[hf],
-             r.dl[hf], scale, cap, r.rv[hf] && mask.live(key, r.qk[hf]),
-             pv[u], dsv[u]);
-      }
-      const int o = blk(warp * 16 + g + 8 * hf, 8 * n + 2 * tq, BK);
-      if (sP != nullptr)
-        *reinterpret_cast<uint32_t*>(sP + o) = pack_bf16(pv[0], pv[1]);
-      *reinterpret_cast<uint32_t*>(sdS + o) = pack_bf16(dsv[0], dsv[1]);
-    }
-  }
-  fence_async_smem();
-}
-
+// S (or dP) of this warpgroup's 32 keys: a 64-row tile times 32 key rows,
+// both K-major, over the head dim, from their descriptors (a k-step is
+// 256 bytes along K: + 16 in the descriptor)
 template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
-attn16_bwd_kv(const Args p) {
-  using C = Cfg<D>;
-  constexpr int DP = C::DP;
-  constexpr int BK = kBkv;
-  constexpr int NE = BK / 2;           // S or dP elements a thread
-  extern __shared__ __align__(128) __nv_bfloat16 sm[];
-  __nv_bfloat16* sK = sm;
-  __nv_bfloat16* sV = sK + C::kKvTile;
-  __nv_bfloat16* sRing = sV + C::kKvTile;               // stage st: Q, dO
-  __nv_bfloat16* sP = sRing + 4 * C::kRowTile;
-  __nv_bfloat16* sdS = sP + kBq * BK;
-  float* sX = reinterpret_cast<float*>(sdS + kBq * BK);
-
-  const int tid = threadIdx.x;
-  const int wg = tid >> 7, wt = tid & 127;
-  const int warp = wt >> 5, lane = tid & 31;
-  const int g = lane >> 2, tq = lane & 3;
-  // under a causal mask the first key tiles see the most rows: first
-  const int kt0 = blockIdx.x * BK;
-  const int kh = blockIdx.y;
-  const long long b = blockIdx.z;
-  const int G = p.H / p.KH, SG = p.S * G, off = p.T - p.S;
-  const Mask mask{p.T, p.causal, p.window};
-
-  // the rows that see one of keys kt0 .. kt0 + BK - 1
-  const int k_last = min(kt0 + BK, p.T) - 1;
-  int pos_lo = 0, pos_hi = p.S - 1;
-  if (p.causal) pos_lo = max(0, kt0 - off);
-  if (p.window > 0) pos_hi = min(pos_hi, k_last + p.window - 1 - off);
-  const int rt_lo = pos_lo * G / kBq;
-  const int n_steps = pos_lo > pos_hi ? 0 : (pos_hi * G + G - 1) / kBq - rt_lo + 1;
-
-  if constexpr (DP != D) {
-    // the columns past D of the row tiles are never copied: zero, once
-    for (int i = tid; i < 4 * C::kRowTile; i += kThreads) {
-      const int e = i % C::kRowTile;
-      const int j = (e / 64 % 8) * 8 + e % 8;      // the column of element e
-      if (j >= D) sRing[i] = __float2bfloat16_rn(0.0f);
-    }
-  }
-  const __nv_bfloat16* kb = p.k + b * p.s[3] + kh * p.s[4];
-  const __nv_bfloat16* vb = p.v + b * p.s[6] + kh * p.s[7];
-  load_keys<D, BK>(sK, kb, p.s[5], kt0, p.T);
-  load_keys<D, BK>(sV, vb, p.s[8], kt0, p.T);
-  auto load_step = [&](int i) {
-    __nv_bfloat16* d = sRing + (i & 1) * 2 * C::kRowTile;
-    const int f0 = (rt_lo + i) * kBq;
-    load_rows<D>(d, p.q, p.s[0], p.s[1], p.s[2], b, kh, G, SG, f0);
-    load_rows<D>(d + C::kRowTile, p.dout, p.s[12], p.s[13], p.s[14], b, kh, G, SG, f0);
-  };
-  if (n_steps > 0) load_step(0);
-  cp_commit();
-  if (n_steps > 1) load_step(1);
-  cp_commit();
-
-  // running sums: dV^T (warpgroup 0) or dK^T (1), M = DP dims in 64-dim
-  // chunks, N = BK keys; run[c][4n + e] is dim 64c + 16 warp + g (+ 8 when
-  // e & 2), key 8n + 2tq + (e & 1)
-  constexpr int NC = DP / 64;
-  float run[NC][NE];
+__device__ __forceinline__ void scores32(float (&s)[16], uint64_t da, uint64_t db) {
 #pragma unroll
-  for (int c = 0; c < NC; ++c)
-#pragma unroll
-    for (int i = 0; i < NE; ++i) run[c][i] = 0.0f;
-
-  for (int i = 0; i < n_steps; ++i) {
-    const __nv_bfloat16* sq = sRing + (i & 1) * 2 * C::kRowTile;
-    const __nv_bfloat16* sdo = sq + C::kRowTile;
-    const int f0 = (rt_lo + i) * kBq;
-    cp_wait<1>();
-    fence_async_smem();
-    __syncthreads();
-
-    // S (warpgroup 0) and dP (1); the 64 rows are f0 + 16 warp + g (+ 8),
-    // their lse and delta loaded first (the loads overlap the products)
-    Rows rows;
-    rows.load(p, b, kh, G, SG, off, f0, warp, g);
-    float s[NE];
-    scores<D, BK>(s, wg == 0 ? sq : sdo, wg == 0 ? sK : sV);
-    if (wg == 0) give<0, BK>(s, sX, wt);
-    else give<1, BK>(s, sX, wt);
-    __syncthreads();
-    if (wg == 0)
-      make_p_ds<0, BK>(s, sX, wt, warp, g, tq, kt0, rows, mask, p.scale,
-                       p.cap, sP, sdS);
-    else
-      make_p_ds<1, BK>(s, sX, wt, warp, g, tq, kt0, rows, mask, p.scale,
-                       p.cap, sP, sdS);
-    __syncthreads();
-
-    // dV^T += dO^T P (warpgroup 0), dK^T += Q^T dS (1), a 64-dim chunk at
-    // a time: 4 k-steps of 16 rows into a fresh accumulator, added on the
-    // f32 pipes
-    const __nv_bfloat16* a = wg == 0 ? sdo : sq;
-    const __nv_bfloat16* bb = wg == 0 ? sP : sdS;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      float stp[NE];
-#pragma unroll
-      for (int e = 0; e < NE; ++e) stp[e] = 0.0f;
-      wg_fence();
-#pragma unroll
-      for (int ks = 0; ks < kBq / 16; ++ks)
-        wgmma_ss<BK, 1, 1>(stp, desc_mn(a + ks * 16 * DP + c * 8 * 64, DP),
-                           desc_mn(bb + ks * 16 * BK, BK), ks > 0);
-      wg_commit();
-      wg_wait();
-      pin(stp);
-#pragma unroll
-      for (int e = 0; e < NE; ++e) run[c][e] += stp[e];
-    }
-    __syncthreads();                   // stage i & 1, P and dS consumed
-    if (i + 2 < n_steps) load_step(i + 2);
-    cp_commit();
-  }
-  cp_wait<0>();
-
-  // store: dV (warpgroup 0), dK = scale dK^T^T (1)
-  __nv_bfloat16* out = wg == 0 ? p.dv + b * p.s[21] + kh * p.s[22]
-                               : p.dk + b * p.s[18] + kh * p.s[19];
-  const long long st = wg == 0 ? p.s[23] : p.s[20];
-  const float mul = wg == 0 ? 1.0f : p.scale;
-#pragma unroll
-  for (int c = 0; c < NC; ++c)
-#pragma unroll
-    for (int e = 0; e < NE; ++e) {
-      const int d = 64 * c + 16 * warp + g + 8 * ((e >> 1) & 1);
-      const int key = kt0 + 8 * (e >> 2) + 2 * tq + (e & 1);
-      if (d < D && key < p.T)
-        out[key * st + d] = __float2bfloat16_rn(run[c][e] * mul);
-    }
+  for (int ks = 0; ks < D / 16; ++ks) wgmma_ss<32, 0, 0>(s, da + 16 * ks, db + 16 * ks, ks > 0);
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
-attn16_bwd_q(const Args p) {
-  using C = Cfg<D>;
-  constexpr int DP = C::DP;
-  constexpr int DH = D / 2;            // dQ columns of a warpgroup
-  extern __shared__ __align__(128) __nv_bfloat16 sm[];
-  __nv_bfloat16* sQ = sm;
-  __nv_bfloat16* sdO = sQ + C::kRowTile;
-  __nv_bfloat16* sRing = sdO + C::kRowTile;             // stage st: K, V
-  __nv_bfloat16* sdS = sRing + 4 * C::kKeyTile;
-  float* sX = reinterpret_cast<float*>(sdS + kBq * kBk);
+// Whether every (row, key) of rows [fa, fa + 63] and keys [ka, ka + 31] is
+// live: then the per-element mask test is skipped.
+__device__ __forceinline__ bool all_live(const Args& p, int fa, int ka, int G, int SG) {
+  if (fa + kBq - 1 >= SG || ka + 31 >= p.T) return false;
+  const int off = p.T - p.S;
+  if (p.causal && ka + 31 > fa / G + off) return false;
+  if (p.window > 0 && ka <= (fa + kBq - 1) / G + off - p.window) return false;
+  return true;
+}
 
-  const int tid = threadIdx.x;
-  const int wg = tid >> 7, wt = tid & 127;
-  const int warp = wt >> 5, lane = tid & 31;
-  const int g = lane >> 2, tq = lane & 3;
-  const int kh = blockIdx.y;
-  const long long b = blockIdx.z;
-  const int G = p.H / p.KH, SG = p.S * G, off = p.T - p.S;
-  const Mask mask{p.T, p.causal, p.window};
-  // the last rows see the most keys under a causal mask: first
-  const int f0 = (gridDim.x - 1 - blockIdx.x) * kBq;
-  const int f_last = min(f0 + kBq, SG) - 1;
-  const int s_lo = f0 / G, s_hi = f_last / G;
-  int k_lo = 0, k_hi = p.T - 1;
-  if (p.causal) k_hi = min(k_hi, s_hi + off);
-  if (p.window > 0) k_lo = max(0, s_lo + off - p.window + 1);
-  const int t_lo = k_lo / kBk;
-  const int n_tiles = k_hi < k_lo ? 0 : k_hi / kBk - t_lo + 1;
+__device__ __forceinline__ bool live(const Args& p, int f, int key, int G, int SG) {
+  const int qk = f / G + (p.T - p.S);
+  bool ok = f < SG && key < p.T;
+  if (p.causal) ok = ok && key <= qk;
+  if (p.window > 0) ok = ok && key > qk - p.window;
+  return ok;
+}
 
-  load_rows<D>(sQ, p.q, p.s[0], p.s[1], p.s[2], b, kh, G, SG, f0);
-  load_rows<D>(sdO, p.dout, p.s[12], p.s[13], p.s[14], b, kh, G, SG, f0);
-  const __nv_bfloat16* kb = p.k + b * p.s[3] + kh * p.s[4];
-  const __nv_bfloat16* vb = p.v + b * p.s[6] + kh * p.s[7];
-  auto load_tile = [&](int i) {
-    __nv_bfloat16* d = sRing + (i & 1) * 2 * C::kKeyTile;
-    const int kt = (t_lo + i) * kBk;
-    load_keys<D, kBk>(d, kb, p.s[5], kt, p.T);
-    load_keys<D, kBk>(d + C::kKeyTile, vb, p.s[8], kt, p.T);
-  };
-  if (n_tiles > 0) load_tile(0);
-  cp_commit();
-  if (n_tiles > 1) load_tile(1);
-  cp_commit();
-
-  Rows rows;                           // the block's rows: lse and delta
-  rows.load(p, b, kh, G, SG, off, f0, warp, g);
-
-  // running dQ for this warpgroup's DH columns: run[4n + e] is row
-  // 16 warp + g (+ 8 when e & 2), column DH wg + 8n + 2tq + (e & 1)
-  float run[DH / 2];
+// P and dS in place of s (P: only where `pv` is non-null) and dP for this
+// thread's 16 elements: rows fa + 16 warp + g (+ 8 when e & 2), keys ka +
+// 8 (e >> 2) + 2 tq + (e & 1); lse2 and delta of the two rows
+__device__ __forceinline__ void probs(const Args& p, const Elem& el, float (&s)[16],
+                                      float (&dp)[16], const float (&lse2)[2],
+                                      const float (&dl)[2], int fa, int ka, int G,
+                                      int SG, int warp, int g, int tq) {
+  const bool full = all_live(p, fa, ka, G, SG);
 #pragma unroll
-  for (int i = 0; i < DH / 2; ++i) run[i] = 0.0f;
-
-  for (int i = 0; i < n_tiles; ++i) {
-    const __nv_bfloat16* sk = sRing + (i & 1) * 2 * C::kKeyTile;
-    const __nv_bfloat16* sv = sk + C::kKeyTile;
-    const int kt = (t_lo + i) * kBk;
-    cp_wait<1>();
-    fence_async_smem();
-    __syncthreads();
-
-    float s[kBk / 2];
-    scores<D, kBk>(s, wg == 0 ? sQ : sdO, wg == 0 ? sk : sv);
-    if (wg == 0) give<0, kBk>(s, sX, wt);
-    else give<1, kBk>(s, sX, wt);
-    __syncthreads();
-    if (wg == 0)
-      make_p_ds<0, kBk>(s, sX, wt, warp, g, tq, kt, rows, mask, p.scale,
-                        p.cap, nullptr, sdS);
-    else
-      make_p_ds<1, kBk>(s, sX, wt, warp, g, tq, kt, rows, mask, p.scale,
-                        p.cap, nullptr, sdS);
-    __syncthreads();
-
-    // dQ[:, DH wg ..] += dS K: 2 k-steps of 16 keys, a fresh accumulator,
-    // added on the f32 pipes
-    {
-      float stp[DH / 2];
-#pragma unroll
-      for (int e = 0; e < DH / 2; ++e) stp[e] = 0.0f;
-      wg_fence();
-#pragma unroll
-      for (int ks = 0; ks < kBk / 16; ++ks)
-        wgmma_ss<DH, 0, 1>(stp, desc_k(sdS + ks * 128, kBk),
-                           desc_mn(sk + ks * 16 * D + wg * (DH / 8) * 64, D), ks > 0);
-      wg_commit();
-      wg_wait();
-      pin(stp);
-#pragma unroll
-      for (int e = 0; e < DH / 2; ++e) run[e] += stp[e];
+  for (int e = 0; e < 16; ++e) {
+    const int hf = (e >> 1) & 1;
+    float pv, dsv;
+    el(s[e], dp[e], lse2[hf], dl[hf], pv, dsv);
+    if (!full && !live(p, fa + 16 * warp + g + 8 * hf, ka + 8 * (e >> 2) + 2 * tq + (e & 1),
+                       G, SG)) {
+      pv = 0.0f;
+      dsv = 0.0f;
     }
-    __syncthreads();                   // stage i & 1 and dS consumed
-    if (i + 2 < n_tiles) load_tile(i + 2);
-    cp_commit();
+    s[e] = pv;
+    dp[e] = dsv;
   }
-  cp_wait<0>();
+}
 
+// kv-major: one 64-key tile of (b, kv head); dV (warpgroup 0) and dK
+// (warpgroup 1) over every 64-row tile whose rows see one of its keys.
+template <int D>
+__device__ __forceinline__ void kv_block(const Args& p, long long x, uint8_t* sm) {
+  using C = Cfg<D>;
+  constexpr int NR = C::NR_KV;
+  const long long heads = static_cast<long long>(p.B) * p.KH;
+  const int kt = static_cast<int>(x / heads);       // longest walks first
+  const long long hb = x - kt * heads;
+  const long long b = hb / p.KH;
+  const int kh = static_cast<int>(hb - b * p.KH);
+  const int G = p.H / p.KH, SG = p.S * G, off = p.T - p.S;
+  const int k0 = kt * kBk, k1 = min(k0 + kBk, p.T) - 1;
+  // positions that see one of keys k0 .. k1, then whole 64-row tiles
+  int i_lo = 0, i_hi = p.S - 1;
+  if (p.causal) i_lo = max(0, k0 - off);
+  if (p.window > 0)
+    i_hi = static_cast<int>(min(static_cast<long long>(i_hi),
+                                static_cast<long long>(k1) + p.window - 1 - off));
+  const int rt0 = i_lo <= i_hi ? (i_lo * G) / kBq : 0;
+  const int n = i_lo <= i_hi ? ((i_hi + 1) * G - 1) / kBq - rt0 + 1 : 0;
+
+  bf* sK = reinterpret_cast<bf*>(sm);               // own K, V
+  bf* sPdS = sK + 2 * kBk * D;                       // buffer u: P, dS
+  uint8_t* slots = reinterpret_cast<uint8_t*>(sPdS + 4 * kBq * kBk);
+  uint64_t* own = reinterpret_cast<uint64_t*>(slots + NR * C::ROW);
+  // row tile rt0 + i is load i of the ring, thread 0 the producer
+  Ring<NR> ring{own + 1, own + 1 + NR, n, 0};
+  const uint8_t* rows = p.rows + (hb * p.n_rt + rt0) * static_cast<long long>(C::ROW);
+  auto issue = [&](int i, int slot) {
+    bulk_load(slots + slot * C::ROW, rows + static_cast<long long>(i) * C::ROW, C::ROW,
+              ring.full + slot);
+  };
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(own, 1);
+    ring.init();
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    bulk_load(sK, p.keys + (hb * p.n_kt + kt) * static_cast<long long>(C::KEY), C::KEY, own);
+    ring.top_up(-1, issue);
+  }
+  const int wg = tid >> 7;
+  const int wt = tid & 127, warp = wt >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const Elem el{p.scale * kLog2e, 2.0f * kLog2e * p.scale / p.cap, p.cap * kLog2e,
+                p.cap > 0.0f};
+  const int ka = k0 + 32 * wg;                       // this warpgroup's keys
+  const bf* kw = sK + 32 * wg * D;
+  const bf* vw = sK + kBk * D + 32 * wg * D;
+  // dV (wg 0) or dK (wg 1): acc[4n + e] is key 16 warp + g (+ 8 when e & 2),
+  // dim 8n + 2tq + (e & 1)
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+  pin(acc);
+  float s[16], dp[16];
+  mbar_wait(own, 0);
+
+  auto tile = [&](int i) { return reinterpret_cast<const bf*>(slots + (i % NR) * C::ROW); };
+  auto sdp = [&](int i) {
+    if (tid == 0) ring.top_up(i, issue);
+    ring.wait(i);
+    const bf* q = tile(i);
+    const uint64_t dk = opaque(desc_k(kw, D)), dv = opaque(desc_k(vw, D));
+    wg_fence();
+    scores32<D>(s, desc_k(q, D), dk);
+    scores32<D>(dp, desc_k(q + kBq * D, D), dv);
+    wg_commit();
+  };
+  auto pds = [&](int i, int buf) {
+    pin(s);
+    pin(dp);
+    const float* stats = reinterpret_cast<const float*>(tile(i) + 2 * kBq * D);
+    const int r = 16 * warp + g;
+    const float lse2[2] = {stats[r], stats[r + 8]};
+    const float dl[2] = {stats[kBq + r], stats[kBq + r + 8]};
+    probs(p, el, s, dp, lse2, dl, (rt0 + i) * kBq, ka, G, SG, warp, g, tq);
+    bf* pb = sPdS + buf * 2 * kBq * kBk;
+#pragma unroll
+    for (int nn = 0; nn < 4; ++nn)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int o = blk(r + 8 * hf, 32 * wg + 8 * nn + 2 * tq, kBk);
+        *reinterpret_cast<uint32_t*>(pb + o) = pack_bf16(s[4 * nn + 2 * hf], s[4 * nn + 2 * hf + 1]);
+        *reinterpret_cast<uint32_t*>(pb + kBq * kBk + o) =
+            pack_bf16(dp[4 * nn + 2 * hf], dp[4 * nn + 2 * hf + 1]);
+      }
+  };
+  // dV += P^T dO (wg 0), dK += dS^T Q (wg 1): M = 64 keys, K = 64 rows
+  auto dvdk = [&](int i) {
+    const bf* q = tile(i);
+    const bf* a = sPdS + (i & 1) * 2 * kBq * kBk + wg * kBq * kBk;
+    const bf* bb = wg == 0 ? q + kBq * D : q;
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < kBq / 16; ++ks)
+      wgmma_ss<D, 1, 1>(acc, desc_mn(a + ks * 16 * kBk, kBk), desc_mn(bb + ks * 16 * D, D), 1);
+    wg_commit();
+  };
+  auto release = [&](int i) { ring.release(i); };
+
+  // Every step issues the next step's scores (the last step recomputes its
+  // own into the buffer no product reads), so that no product is issued
+  // under a runtime test.
+  if (n > 0) {
+    sdp(0);
+    wg_wait<0>();
+    pds(0, 0);
+    fence_async_smem();
+    bar_sync(kBarStep, 256);
+  }
+  for (int i = 0; i < n; ++i) {
+    const int nx = min(i + 1, n - 1);
+    sdp(nx);
+    dvdk(i);
+    wg_wait<1>();
+    pds(nx, (i + 1) & 1);
+    wg_wait<0>();
+    pin(acc);
+    // P/dS i + 1 to the async proxy, with no wgmma in flight: ptxas (CUDA
+    // 12.8) crashes on this fence issued while one is
+    fence_async_smem();
+    release(i);
+    bar_sync(kBarStep, 256);         // P/dS i + 1 written, buffer i & 1 free
+    if (tid == 0) ring.top_up(-1, issue);           // row tile i's slot
+  }
+
+  const int o = wg ? kDK : kDV;
+  bf* out = (wg ? p.dk : p.dv) + b * p.st[o] + kh * p.st[o + 1];
+  const float mul = wg ? p.scale : 1.0f;
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
-    const int f = f0 + warp * 16 + g + 8 * hf;
+    const int key = k0 + 16 * warp + g + 8 * hf;
+    if (key >= p.T) continue;
+    bf* dst = out + key * p.st[o + 2] + 2 * tq;
+#pragma unroll
+    for (int nn = 0; nn < D / 8; ++nn)
+      *reinterpret_cast<uint32_t*>(dst + 8 * nn) =
+          pack_bf16(acc[4 * nn + 2 * hf] * mul, acc[4 * nn + 2 * hf + 1] * mul);
+  }
+}
+
+// q-major: one 64-row tile of (b, kv head); dQ over every key tile its rows
+// see.  Warpgroup w sums dS K over keys 32 w .. 32 w + 31 of each tile.
+template <int D>
+__device__ __forceinline__ void q_block(const Args& p, long long x, uint8_t* sm) {
+  using C = Cfg<D>;
+  constexpr int NR = C::NR_Q;
+  const long long heads = static_cast<long long>(p.B) * p.KH;
+  const int qi = static_cast<int>(x / heads);       // last rows first
+  const int rt = p.n_rt - 1 - qi;
+  const long long hb = x - qi * heads;
+  const long long b = hb / p.KH;
+  const int kh = static_cast<int>(hb - b * p.KH);
+  const int G = p.H / p.KH, SG = p.S * G, off = p.T - p.S;
+  const int fa = rt * kBq, fz = min(fa + kBq, SG) - 1;
+  int k_lo = 0, k_hi = p.T - 1;
+  if (p.causal) k_hi = min(k_hi, fz / G + off);
+  if (p.window > 0) k_lo = max(0, fa / G + off - p.window + 1);
+  const int kt0 = k_lo / kBk;
+  const int n = k_hi >= k_lo ? k_hi / kBk - kt0 + 1 : 0;
+
+  const bf* sQ = reinterpret_cast<const bf*>(sm);   // own Q, dO, stats
+  uint8_t* slots = sm + C::ROW;                      // load 2j: K_j, 2j + 1: V_j
+  uint64_t* own = reinterpret_cast<uint64_t*>(slots + NR * C::PART);
+  Ring<NR> ring{own + 1, own + 1 + NR, 2 * n, 0};
+  const uint8_t* keys = p.keys + (hb * p.n_kt + kt0) * static_cast<long long>(C::KEY);
+  auto issue = [&](int ld, int slot) {
+    bulk_load(slots + slot * C::PART, keys + static_cast<long long>(ld) * C::PART, C::PART,
+              ring.full + slot);
+  };
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(own, 1);
+    ring.init();
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    bulk_load(sm, p.rows + (hb * p.n_rt + rt) * static_cast<long long>(C::ROW), C::ROW, own);
+    ring.top_up(-1, issue);
+  }
+  const int wg = tid >> 7;
+  const int wt = tid & 127, warp = wt >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const Elem el{p.scale * kLog2e, 2.0f * kLog2e * p.scale / p.cap, p.cap * kLog2e,
+                p.cap > 0.0f};
+  // dQ over this warpgroup's keys: acc[4n + e] is row 16 warp + g (+ 8 when
+  // e & 2), dim 8n + 2tq + (e & 1)
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+  pin(acc);
+  float s[16], dp[16];
+  uint32_t a[2][4];                                  // dS as A, 2 k-steps
+  mbar_wait(own, 0);
+  const float* stats = reinterpret_cast<const float*>(sQ + 2 * kBq * D);
+  const int r = 16 * warp + g;
+  const float lse2[2] = {stats[r], stats[r + 8]};
+  const float dl[2] = {stats[kBq + r], stats[kBq + r + 8]};
+
+  auto part = [&](int ld) { return reinterpret_cast<const bf*>(slots + (ld % NR) * C::PART); };
+  auto release = [&](int ld) { ring.release(ld); };
+  auto sdp = [&](int j) {
+    if (tid == 0) ring.top_up(2 * j + 1, issue);
+    ring.wait(2 * j);
+    ring.wait(2 * j + 1);
+    const uint64_t dq_ = opaque(desc_k(sQ, D)), ddo = opaque(desc_k(sQ + kBq * D, D));
+    wg_fence();
+    scores32<D>(s, dq_, desc_k(part(2 * j) + 32 * wg * D, D));
+    scores32<D>(dp, ddo, desc_k(part(2 * j + 1) + 32 * wg * D, D));
+    wg_commit();
+  };
+  auto ds = [&](int j) {
+    pin(s);
+    pin(dp);
+    probs(p, el, s, dp, lse2, dl, fa, (kt0 + j) * kBk + 32 * wg, G, SG, warp, g, tq);
+  };
+  // k-step kk (keys 16kk .. of the warpgroup's 32): rows g, g + 8; keys
+  // 2t, 2t + 1, then + 8: dp[8kk .. 8kk + 7] in order
+  auto pack = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) a[kk][e] = pack_bf16(dp[8 * kk + 2 * e], dp[8 * kk + 2 * e + 1]);
+    pin(a[0]);
+    pin(a[1]);
+  };
+  auto dq = [&](int j) {
+    const bf* kb = part(2 * j) + 32 * wg * D;
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) wgmma_rs<D, 1>(acc, a[kk], desc_mn(kb + 16 * kk * D, D), 1);
+    wg_commit();
+  };
+
+  // every step issues the next step's scores (the last step recomputes its
+  // own, which nothing reads), so that no product is issued under a
+  // runtime test; V_{n-1} is released once, and nothing refills its slot
+  if (n > 0) {
+    sdp(0);
+    wg_wait<0>();
+    release(1);
+    ds(0);
+    pack();
+  }
+  for (int j = 0; j < n; ++j) {
+    const int nx = min(j + 1, n - 1);
+    sdp(nx);
+    dq(j);
+    wg_wait<1>();
+    if (j + 1 < n) release(2 * j + 3);               // V_{j+1}
+    ds(nx);
+    wg_wait<0>();
+    pin(acc);
+    release(2 * j);                                  // K_j
+    pack();
+  }
+
+  // dQ = dQ(wg 0) + dQ(wg 1), then scaled: the halves meet in the ring
+  float* sx = reinterpret_cast<float*>(slots);
+  bar_sync(kBarStep, 256);                           // the ring is drained
+  if (wg == 1) {
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) sx[e * 128 + wt] = acc[e];
+  }
+  bar_sync(kBarStep, 256);
+  if (wg == 1) return;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int f = fa + r + 8 * hf;
     if (f >= SG) continue;
     const int pos = f / G, h = kh * G + (f - pos * G);
-    __nv_bfloat16* dst = p.dq + b * p.s[15] + h * p.s[16] + pos * p.s[17] +
-                         DH * wg + 2 * tq;
+    bf* dst = p.dq + b * p.st[kDQ] + h * p.st[kDQ + 1] + pos * p.st[kDQ + 2] + 2 * tq;
 #pragma unroll
-    for (int n = 0; n < DH / 8; ++n)
-      *reinterpret_cast<uint32_t*>(dst + 8 * n) =
-          pack_bf16(run[4 * n + 2 * hf] * p.scale, run[4 * n + 2 * hf + 1] * p.scale);
+    for (int nn = 0; nn < D / 8; ++nn) {
+      const int e = 4 * nn + 2 * hf;
+      *reinterpret_cast<uint32_t*>(dst + 8 * nn) =
+          pack_bf16((acc[e] + sx[e * 128 + wt]) * p.scale,
+                    (acc[e + 1] + sx[(e + 1) * 128 + wt]) * p.scale);
+    }
   }
 }
 
 template <int D>
-int launch(const Args& a, int B, cudaStream_t stream) {
+__global__ void __launch_bounds__(kThreads, Cfg<D>::kMinBlocks)
+attn16_bwd_main(const Args p) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  const long long x = blockIdx.x;
+  if (p.dq_first) {
+    if (x < p.n_q) q_block<D>(p, x, smem);
+    else kv_block<D>(p, x - p.n_q, smem);
+  } else {
+    if (x < p.n_kv) kv_block<D>(p, x, smem);
+    else q_block<D>(p, x - p.n_kv, smem);
+  }
+}
+
+// The launch's shape: scratch bytes, kv-major and q-major blocks, prep
+// blocks, dynamic shared memory, and which kind goes first: the one whose
+// longest walk costs more (a kv-major step is 4 products, a q-major one 3).
+struct Plan {
+  long long rows_bytes, keys_bytes, n_kv, n_q, n_prep;
+  int n_rt, n_kt, dq_first;
+  size_t smem;
+};
+
+template <int D>
+Plan plan(int B, int H, int KH, int S, int T, int window) {
   using C = Cfg<D>;
+  Plan pl{};
+  const long long heads = static_cast<long long>(B) * KH;
+  const long long sg = static_cast<long long>(S) * (H / KH);
+  pl.n_rt = static_cast<int>((sg + kBq - 1) / kBq);
+  pl.n_kt = static_cast<int>((static_cast<long long>(T) + kBk - 1) / kBk);
+  pl.rows_bytes = heads * pl.n_rt * C::ROW;
+  pl.keys_bytes = heads * pl.n_kt * C::KEY;
+  pl.n_kv = heads * pl.n_kt;
+  pl.n_q = heads * pl.n_rt;
+  pl.n_prep = pl.n_kv + pl.n_q;
+  pl.smem = C::kSmem;
+  // the longest walks: rows of the positions a key tile's keys reach, keys
+  // a row tile's positions reach
+  const long long G = H / KH, w = window > 0 ? window : 0;
+  const long long pos = w ? std::min<long long>(S, w + kBk) : S;
+  const long long keys = w ? std::min<long long>(T, w + (kBq + G - 1) / G) : T;
+  const long long kv_steps = (pos * G + kBq - 1) / kBq + 1;
+  const long long q_steps = (keys + kBk - 1) / kBk + 1;
+  pl.dq_first = 3 * q_steps > 4 * kv_steps;
+  return pl;
+}
+
+inline bool plan_for(int D, int B, int H, int KH, int S, int T, int window, Plan& pl) {
+  switch (D) {
+    case 32: pl = plan<32>(B, H, KH, S, T, window); return true;
+    case 64: pl = plan<64>(B, H, KH, S, T, window); return true;
+    case 128: pl = plan<128>(B, H, KH, S, T, window); return true;
+    case 256: pl = plan<256>(B, H, KH, S, T, window); return true;
+    default: return false;
+  }
+}
+
+inline bool valid(int B, int H, int KH, int S, int T, int causal) {
+  return !(B <= 0 || H <= 0 || KH <= 0 || H % KH != 0 || S <= 0 || T <= 0 ||
+           B > 65535 || KH > 65535 || (causal && S > T) ||
+           static_cast<long long>(S) * (H / KH) > 2147483647LL - kBq ||
+           static_cast<long long>(T) > 2147483647LL - kBk);
+}
+
+template <int D>
+int launch_bwd(const Args& a, const Plan& pl, cudaStream_t stream) {
+  auto kernel = attn16_bwd_main<D>;
+  const int smem = static_cast<int>(pl.smem);
   cudaError_t err = cudaFuncSetAttribute(
-      attn16_bwd_kv<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(C::kKvSmem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(attn16_bwd_q<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(C::kQSmem));
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long rows = static_cast<long long>(B) * a.H * a.S;
-  attn16_bwd_delta<D><<<static_cast<unsigned>((rows + 7) / 8), 256, 0, stream>>>(a, B);
-  const int n_kt = (a.T + kBkv - 1) / kBkv;
-  attn16_bwd_kv<D><<<dim3(n_kt, a.KH, B), kThreads, C::kKvSmem, stream>>>(a);
-  const long long sg = static_cast<long long>(a.S) * (a.H / a.KH);
-  attn16_bwd_q<D><<<dim3(static_cast<unsigned>((sg + kBq - 1) / kBq), a.KH, B),
-                    kThreads, C::kQSmem, stream>>>(a);
+  if (pl.n_prep > 2147483647LL || pl.n_kv + pl.n_q > 2147483647LL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  attn16_bwd_prep<D><<<static_cast<unsigned>(pl.n_prep), 256, 0, stream>>>(a);
+  kernel<<<static_cast<unsigned>(pl.n_kv + pl.n_q), kThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace fb16
 }  // namespace fedk
 
+// The scratch and grid of one call: returns the scratch bytes the caller
+// allocates for flash_attention_bwd_bf16 (-1 for a shape it refuses) and
+// fills info[0..4] with the kv-major blocks, the q-major blocks (one launch
+// of both), the prep pass's blocks, the main launch's dynamic shared
+// memory in bytes, and 1 where the q-major blocks come first.
+extern "C" long long flash_attention_bwd_plan_bf16(int B, int H, int KH, int S,
+                                                   int T, int D, int window,
+                                                   long long* info) {
+  using namespace fedk::fb16;
+  Plan pl{};
+  if (!valid(B, H, KH, S, T, 0) || !plan_for(D, B, H, KH, S, T, window, pl))
+    return -1;
+  info[0] = pl.n_kv;
+  info[1] = pl.n_q;
+  info[2] = pl.n_prep;
+  info[3] = static_cast<long long>(pl.smem);
+  info[4] = pl.dq_first;
+  return pl.rows_bytes + pl.keys_bytes;
+}
+
 // q, out, dout, dq: (B, H, S, D); k, v, dk, dv: (B, Kh, T, D); all bf16 on
 // the device, addressed through `strides` (24 element strides: batch, head,
 // position of q, k, v, out, dout, dq, dk, dv in that order; the head dim
 // contiguous, rows 16-byte aligned).  lse: (B, H, S) f32 contiguous.
-// delta: f32 scratch of B * H * S floats.  causal: 0 or 1; window <= 0
-// means none; cap <= 0 means none; D one of 32, 64, 128, 256.  Launches the
-// delta pass and the kv-major and q-major kernels on `stream` and returns
-// cudaGetLastError().  Allocates nothing.
+// work: scratch of flash_attention_bwd_plan_bf16's bytes, 16-byte aligned.
+// causal: 0 or 1; window <= 0 means none; cap <= 0 means none; D one of 32,
+// 64, 128, 256.  Launches the prep pass and the main pass on `stream` and
+// returns cudaGetLastError().  Allocates nothing.
 extern "C" int flash_attention_bwd_bf16(
     const void* q, const void* k, const void* v, const void* out,
-    const void* dout, const void* lse, void* delta, void* dq, void* dk,
+    const void* dout, const void* lse, void* work, void* dq, void* dk,
     void* dv, const long long* strides, int B, int H, int KH, int S, int T,
     int D, int causal, int window, float scale, float cap, int device,
     void* stream) {
   using namespace fedk::fb16;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (B <= 0 || H <= 0 || KH <= 0 || H % KH != 0 || S <= 0 || T <= 0 ||
-      B > 65535 || KH > 65535 || (causal && S > T) ||
-      static_cast<long long>(S) * (H / KH) > 2147483647LL - kBq)
+  Plan pl{};
+  if (!valid(B, H, KH, S, T, causal) || !plan_for(D, B, H, KH, S, T, window, pl))
     return static_cast<int>(cudaErrorInvalidValue);
-  using bf = __nv_bfloat16;
   Args a{};
   a.q = static_cast<const bf*>(q); a.k = static_cast<const bf*>(k);
   a.v = static_cast<const bf*>(v); a.out = static_cast<const bf*>(out);
   a.dout = static_cast<const bf*>(dout);
   a.lse = static_cast<const float*>(lse);
-  a.delta = static_cast<float*>(delta);
+  a.rows = static_cast<uint8_t*>(work);
+  a.keys = a.rows + pl.rows_bytes;
   a.dq = static_cast<bf*>(dq); a.dk = static_cast<bf*>(dk); a.dv = static_cast<bf*>(dv);
-  for (int i = 0; i < 24; ++i) a.s[i] = strides[i];
-  a.H = H; a.KH = KH; a.S = S; a.T = T; a.causal = causal; a.window = window;
-  a.scale = scale; a.cap = cap;
+  for (int i = 0; i < 24; ++i) a.st[i] = strides[i];
+  a.B = B; a.H = H; a.KH = KH; a.S = S; a.T = T;
+  a.causal = causal; a.window = window; a.scale = scale; a.cap = cap;
+  a.n_rt = pl.n_rt; a.n_kt = pl.n_kt; a.n_kv = pl.n_kv; a.n_q = pl.n_q;
+  a.dq_first = pl.dq_first;
   auto s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 32: return launch<32>(a, B, s);
-    case 64: return launch<64>(a, B, s);
-    case 128: return launch<128>(a, B, s);
-    case 256: return launch<256>(a, B, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 32: return launch_bwd<32>(a, pl, s);
+    case 64: return launch_bwd<64>(a, pl, s);
+    case 128: return launch_bwd<128>(a, pl, s);
+    default: return launch_bwd<256>(a, pl, s);
   }
 }

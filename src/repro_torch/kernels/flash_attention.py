@@ -36,9 +36,21 @@ which compute what the TPU kernel computes at bf16: f32 arithmetic on the
 bf16 inputs, the output (or dq, dk, dv) rounded once to bf16, lse in f32.
 Q K^T is one bf16 ``wgmma`` (exact products), P V two (P split into bf16
 hi and lo); the backward rounds P and dS to bf16 once.  What bounds them is
-operations at the bf16 tensor-core rate (989 TFLOP/s).  q, k and v share
-one dtype, float32 or bfloat16; fp16 and mixed dtypes raise ``ValueError``.
-Rows are 16-byte aligned: 4 f32 or 8 bf16 values.
+operations at the bf16 tensor-core rate (989 TFLOP/s).  In both, one
+producer thread keeps copies in flight into a ring of shared-memory slots
+on mbarriers and two warpgroups compute.  The forward is one launch: TMA
+brings K and V tiles straight from k and v (tensor maps built per call)
+and the two warpgroups take turns on the tensor cores, one's softmax
+running while the other's products run.
+The backward is two launches: a prep pass lays Q/dO row tiles (with each
+row's lse and delta) and K/V key tiles out in scratch this wrapper
+allocates (``flash_attention_bwd_plan_bf16`` sizes it), then one launch of
+kv-major (dK, dV) and q-major (dQ, recomputing the scores) blocks, longest
+walks first, streams the tiles by bulk copies.  Its gradient sums stay in
+the tensor cores over the whole walk, and it is deterministic (no
+atomics).  q, k and v share one dtype, float32 or bfloat16; fp16 and mixed
+dtypes raise ``ValueError``.  Rows are 16-byte aligned: 4 f32 or 8 bf16
+values.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel of its dtype (f32: the split pass and the attention kernel, one
@@ -59,7 +71,8 @@ and q-major blocks (dQ, recomputing the scores) run in one launch, longest
 walks first, each streaming the other side's tiles through a ring of bulk
 copies.  It is deterministic (no atomics; tensor-core sums kept to one step
 and added in f32) and skips the tiles the mask leaves out.  The bf16
-backward is counted in ``bwd_launches_bf16``.
+backward is counted in ``bwd_launches_bf16``, one a call (two device
+kernels).
 """
 
 from __future__ import annotations
@@ -260,15 +273,21 @@ def _launch_bwd_bf16(lib, q, k, v, out, lse, dout, dq, dk, dv, causal,
     dev = q.device
     b, h, s, d = q.shape
     kh, t = k.shape[1], k.shape[2]
-    delta = torch.empty(b * h * s, dtype=torch.float32, device=dev)
+    w = 0 if window is None else int(window)
+    # scratch for the prep pass: Q/dO row tiles and K/V key tiles
+    info = (ctypes.c_longlong * 5)()
+    nbytes = lib.flash_attention_bwd_plan_bf16(b, h, kh, s, t, d, w, info)
+    if nbytes < 0:
+        raise ValueError(f"flash_attention_bwd refuses the shape "
+                         f"{tuple(q.shape)} / {tuple(k.shape)}")
+    work = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     strides = (ctypes.c_longlong * 24)(*(
         st for x in (q, k, v, out, dout, dq, dk, dv) for st in x.stride()[:3]))
     err = lib.flash_attention_bwd_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), work.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), strides, b, h, kh, s, t, d,
-        int(causal), 0 if window is None else int(window), float(d ** -0.5),
-        0.0 if cap is None else float(cap),
+        int(causal), w, float(d ** -0.5), 0.0 if cap is None else float(cap),
         dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError("flash_attention_bwd bf16 kernel launch failed: "

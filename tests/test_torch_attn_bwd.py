@@ -22,6 +22,15 @@ recurrentgemma-9b's (33,280 rows: 2,080 positions x 16 heads) at a
 narrower head dim.  Summing the whole walk in the tensor cores stays
 within the bound at gemma2's length but misses it at recurrentgemma's:
 that is what pins the period.
+
+The bf16 backward (``csrc/flash_attention_bwd_bf16.cu``) multiplies bf16
+operands, whose products are exact in f32, in k-steps of 16, and keeps its
+gradient sums in the tensor cores over the whole walk: its flush period is
+the walk.  Its card limit is 2e-2 of each row's max-abs (P and dS are
+rounded once to bf16), so one kv-major block (64 keys, each warpgroup's
+S and dP over its own 32) is emulated at recurrentgemma-9b's walk, 33,280
+rows, and held against the plain version row by row; the truncation alone
+moves each gradient by a small fraction of that limit.
 """
 
 import numpy as np
@@ -144,6 +153,91 @@ def test_flash_attention_bwd_flush_period_against_plain(heads, positions,
     else:
         assert max(rel[1:]) > 1e-4, rel      # dK and dV drift; dQ does not
         assert rel[0] <= 1e-4, rel
+
+
+BF16_KSTEP = 16      # a bf16 wgmma's k-step
+BF16_KEYS = 64       # a kv-major block's keys (32 a warpgroup)
+
+
+def _tc_bf16(a, b, period):
+    """a (M, K) @ b (K, N), both holding bf16 values, as the bf16 tensor
+    cores sum them: each k-step of 16 exact (in f64), added to the
+    accumulator and rounded toward zero to f32; the accumulator starts
+    afresh every ``period`` of K and those partial sums are added in f32."""
+    run = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float32)
+    acc = torch.zeros_like(run)
+    for k0 in range(0, a.shape[1], BF16_KSTEP):
+        if k0 and k0 % period == 0:
+            run, acc = run + acc, torch.zeros_like(run)
+        ks = slice(k0, k0 + BF16_KSTEP)
+        acc = _round_toward_zero(acc.double()
+                                 + a[:, ks].double() @ b[ks].double())
+    return run + acc
+
+
+def _emulated_bwd_bf16(q, k, v, out, lse, dout, walk_period):
+    """One 64-key tile, non-causal, no cap, bf16 inputs: the bf16 kernel's
+    kv-major and q-major arithmetic over rows f = position * G + head.  S
+    and dP per warpgroup over the head dim (one chain); P = exp2(S scale
+    log2 e - lse log2 e) and dS = P (dP - delta) in f32, each rounded once
+    to bf16; dV = P^T dO and dK = dS^T Q summed over the walk in the tensor
+    cores (``walk_period``); dQ = dS K over each warpgroup's 32 keys, the
+    two halves added in f32; the gradients in f32, before the kernel's
+    one rounding to bf16 at the store."""
+    _, h, s, d = q.shape
+    scale = d ** -0.5
+    log2e = 1.4426950408889634
+    f32, bf = torch.float32, torch.bfloat16
+
+    def rows(x):
+        return x[0].permute(1, 0, 2).reshape(s * h, d).to(f32)
+
+    q_r, do_r, o_r = rows(q), rows(dout), rows(out)
+    lse2 = lse[0].permute(1, 0).reshape(s * h) * log2e
+    k_t, v_t = k[0, 0].to(f32), v[0, 0].to(f32)
+    halves = (slice(0, 32), slice(32, 64))
+    sc = torch.cat([_tc_bf16(q_r, k_t[hk].T, d) for hk in halves], 1)
+    dp = torch.cat([_tc_bf16(do_r, v_t[hk].T, d) for hk in halves], 1)
+    p = torch.exp2(sc * (scale * log2e) - lse2[:, None])
+    delta = (do_r * o_r).sum(-1)
+    ds = p * (dp - delta[:, None])
+    p_b, ds_b = p.to(bf).to(f32), ds.to(bf).to(f32)
+    dv = _tc_bf16(p_b.T, do_r, walk_period)
+    dk = _tc_bf16(ds_b.T, q_r, walk_period) * scale
+    dq = sum(_tc_bf16(ds_b[:, hk], k_t[hk], 32) for hk in halves) * scale
+    dq = dq.reshape(s, h, d).permute(1, 0, 2)[None]
+    return dq, dk[None, None], dv[None, None]
+
+
+def test_flash_attention_bwd_bf16_whole_walk_sums_against_plain():
+    """recurrentgemma-9b's kv-major walk (16 heads x 2,080 positions =
+    33,280 rows, 2,080 k-steps in the tensor cores): the bf16 kernel's
+    arithmetic, gradient sums never flushed, within 2e-2 of each row's
+    max-abs of the plain version (the card's limit); the truncation alone,
+    against the same bf16 terms summed exactly, under 1e-3 of each
+    gradient's max-abs."""
+    from repro_torch.kernels import parity
+
+    heads, positions, d = 16, 2080, 32
+    rng = np.random.default_rng(23)
+
+    def normal(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(torch.bfloat16)
+
+    q, dout = normal(1, heads, positions, d), normal(1, heads, positions, d)
+    k, v = normal(1, 1, BF16_KEYS, d), normal(1, 1, BF16_KEYS, d)
+    out, lse = ref.flash_attention_ref(q, k, v, causal=False,
+                                       return_lse=True)
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=False)
+    walk = heads * positions
+    got = _emulated_bwd_bf16(q, k, v, out, lse, dout, walk)
+    exact = _emulated_bwd_bf16(q, k, v, out, lse, dout, BF16_KSTEP)
+    rows = [parity.row_rel_err(g.to(torch.bfloat16), w)
+            for g, w in zip(got, want)]
+    assert max(rows) <= 2e-2, rows
+    drift = [parity.rel_err(g, e) for g, e in zip(got, exact)]
+    assert max(drift) <= 1e-3, drift
 
 
 def test_round_toward_zero_truncates_both_signs():

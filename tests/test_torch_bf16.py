@@ -227,24 +227,27 @@ def test_rglru_scan_ref_bf16_bitwise_against_pallas(shape):
 
 
 # the card's bf16 attention limits (chip_smoke.py phase 2e and the card
-# tests): name: (B, H, Kh, S=T, D, window, cap)
+# tests): name: (B, H, Kh, S, T, D, causal, window, cap)
 LIMIT_CASES = {
-    "causal_mqa": (1, 4, 1, 1024, 128, None, None),
-    "cap_gqa": (1, 4, 2, 1024, 128, None, 50.0),
-    "window": (1, 2, 1, 1024, 256, 256, None),
+    "causal_mqa": (1, 4, 1, 1024, 1024, 128, True, None, None),
+    "cap_gqa": (1, 4, 2, 1024, 1024, 128, True, None, 50.0),
+    "window": (1, 2, 1, 1024, 1024, 256, True, 256, None),
+    # seamless-m4t's cross-attention, reduced: 16/16, S=512 over T=1024
+    "noncausal_cross": (1, 4, 4, 256, 512, 64, False, None, None),
 }
 
 
-def _kernel_like(q, k, v, do, window, cap):
+def _kernel_like(q, k, v, do, causal, window, cap):
     """The bf16 kernels' arithmetic, emulated: the forward's P V as two
     bf16 passes (P = hi + lo) summed in f32, one rounding at the store;
     the backward with P and dS each rounded once to bf16 before their
-    products, f32 sums."""
+    products, f32 sums (their tensor-core truncation over a walk is
+    emulated in tests/test_torch_attn_bwd.py)."""
     f32, bf = torch.float32, torch.bfloat16
     b, h, s, d = q.shape
     kh = k.shape[1]
     g = h // kh
-    sc, mask, dcap = ref._attn_scores(q, k, True, window, cap)
+    sc, mask, dcap = ref._attn_scores(q, k, causal, window, cap)
     m = sc.amax(-1, keepdim=True)
     p = torch.exp(sc - m)
     lsum = p.sum(-1, keepdim=True)
@@ -276,20 +279,20 @@ def test_bf16_attention_limits_take_kernel_arithmetic_not_faults(case):
     max-abs) pass the kernels' arithmetic, emulated, and reject faults
     planted in the plain result: the second half of the rows computed with
     one 64-key V tile read as zeros, and dv's last quarter of keys zeroed."""
-    b, h, kh, s, d, window, cap = LIMIT_CASES[case]
+    b, h, kh, s, t, d, causal, window, cap = LIMIT_CASES[case]
     rng = np.random.default_rng(sorted(LIMIT_CASES).index(case) + 30)
     q, do = _tb(_bf(rng, (b, h, s, d))), _tb(_bf(rng, (b, h, s, d)))
-    k, v = _tb(_bf(rng, (b, kh, s, d))), _tb(_bf(rng, (b, kh, s, d)))
-    kw = dict(causal=True, window=window, cap=cap)
+    k, v = _tb(_bf(rng, (b, kh, t, d))), _tb(_bf(rng, (b, kh, t, d)))
+    kw = dict(causal=causal, window=window, cap=cap)
     out, lse = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
     grads = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, **kw)
-    emu_out, emu_grads = _kernel_like(q, k, v, do, window, cap)
+    emu_out, emu_grads = _kernel_like(q, k, v, do, causal, window, cap)
     floor = parity.row_floor(out, parity.BF16_ROW_FLOOR)
     assert 0.0 < parity.bf16_ulps(emu_out, out, floor) <= 1.0
     for got, want in zip(emu_grads, grads):
         assert 0.0 < parity.row_rel_err(got, want) <= GRAD_TOL
     vz = v.clone()
-    vz[:, :, s // 2 - 64:s // 2] = 0
+    vz[:, :, t // 2 - 64:t // 2] = 0
     bad = out.clone()
     bad[:, :, s // 2:] = ref.flash_attention_ref(q, k, vz, **kw)[:, :, s // 2:]
     assert parity.bf16_ulps(bad, out, floor) > 2.0
@@ -297,7 +300,7 @@ def test_bf16_attention_limits_take_kernel_arithmetic_not_faults(case):
     dq_bad[:, :, s // 2:] = ref.flash_attention_bwd_ref(
         q, k, vz, out, lse, do, **kw)[0][:, :, s // 2:]
     dv_bad = grads[2].clone()
-    dv_bad[:, :, 3 * s // 4:] = 0
+    dv_bad[:, :, 3 * t // 4:] = 0
     assert parity.row_rel_err(dq_bad, grads[0]) > GRAD_TOL
     assert parity.row_rel_err(dv_bad, grads[2]) > GRAD_TOL
 

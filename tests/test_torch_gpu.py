@@ -31,9 +31,12 @@ G = 6 at D = 128, MQA walks of 150 steps, and a strided dout), the scan's
 reverse scan bitwise, and a reduced stacked loss's gradients on the card
 within 1e-4 of the CPU's.  The bf16 kernels: the forward within 8e-3 of
 the plain version's max-abs and element by element within 2 bf16 ulps
-plus 1e-3 of its row's max-abs, its lse, the backward within 2e-2 of
-each gradient's max-abs and of each row's and bitwise equal to itself,
-the bf16 scan bitwise, each counted in its own bf16 launch counter.  This file
+plus 1e-3 of its row's max-abs and bitwise equal to itself, its lse, the
+backward within 2e-2 of each gradient's max-abs and of each row's and
+bitwise equal to itself (D = 32 to 256, non-causal S < T, ragged S and
+T, G > 1 with a window, a cap) and at most two device kernels a call
+(``torch.profiler``), the bf16 scan bitwise, each counted in its own bf16
+launch counter.  This file
 imports no JAX, so it runs where only torch is.
 """
 
@@ -713,6 +716,8 @@ BF16_ATTN = [
     (1, 6, 2, 50, 50, 128, True, None, 20.0),      # S G = 150, not of 64
     (2, 4, 4, 90, 90, 64, True, 5, None),          # window < one key tile
     (1, 16, 1, 600, 600, 256, True, 300, None),    # MQA G=16: long walks
+    (1, 16, 16, 256, 512, 64, False, None, None),  # seamless cross, reduced
+    (1, 8, 4, 333, 333, 32, True, 100, 20.0),      # D=32, ragged, window, cap
 ]
 
 
@@ -729,15 +734,17 @@ def test_flash_attention_bf16_kernels_match_plain(cuda, b, h, kh, s, t, d,
     row's max-abs, its lse within 1e-4; the backward from the same (q, k,
     v, out, lse, dout) within 2e-2 of each gradient's max-abs and of each
     row's (a query's dq, a key's dk and dv), bf16 out, and a second call
-    gives the same bits; one bf16 launch each."""
+    of each gives the same bits; one bf16 launch a call."""
     q, k, v = _qkv_bf16(b, h, kh, s, t, d, seed=s * d + t + 2, dev=cuda)
     dout = torch.randn_like(q)
     kw = dict(causal=causal, window=window, cap=cap)
     out, lse = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
     f0, b0 = fl_mod.launches_bf16, fl_mod.bwd_launches_bf16
     k_out, k_lse = fl_mod.flash_attention(q, k, v, return_lse=True, **kw)
+    k_again = fl_mod.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
-    assert fl_mod.launches_bf16 == f0 + 1
+    assert fl_mod.launches_bf16 == f0 + 2
+    assert torch.equal(k_out, k_again)
     assert k_out.dtype == torch.bfloat16 and k_lse.dtype == torch.float32
     assert _max_rel(k_out.float(), out.float()) <= 8e-3
     assert parity.bf16_ulps(k_out, out, parity.row_floor(
@@ -752,6 +759,33 @@ def test_flash_attention_bf16_kernels_match_plain(cuda, b, h, kh, s, t, d,
         assert g.dtype == torch.bfloat16 and torch.equal(g, a)
         assert _max_rel(g.float(), w.float()) <= 2e-2
         assert parity.row_rel_err(g, w) <= 2e-2
+
+
+@pytest.mark.parametrize("b,h,kh,s,t,d,causal,window,cap", [
+    (2, 16, 16, 96, 200, 64, False, None, None),   # both kinds, D <= 64
+    (1, 8, 4, 200, 200, 256, True, None, 50.0),    # gemma2 global, D = 256
+])
+def test_flash_attention_bwd_bf16_is_two_device_kernels(cuda, b, h, kh, s, t,
+                                                        d, causal, window,
+                                                        cap):
+    """One bf16 backward call runs at most two kernels on the device (the
+    prep pass and one launch of both block kinds), counted by
+    ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v = _qkv_bf16(b, h, kh, s, t, d, seed=7, dev=cuda)
+    dout = torch.randn_like(q)
+    kw = dict(causal=causal, window=window, cap=cap)
+    out, lse = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
+    fl_mod.flash_attention_bwd(q, k, v, out, lse, dout, **kw)   # builds
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fl_mod.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert 1 <= len(kernels) <= 2, kernels
+    assert all("attn16_bwd" in name for name in kernels), kernels
 
 
 def test_flash_attention_bf16_autograd_launches_both_kernels(cuda):
