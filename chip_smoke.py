@@ -248,6 +248,22 @@ pre-pass and the kernel alone timed as well) and without.
      same 32 steps from int8 weights within 5e-2 of the bf16 ones; prefill
      tokens/s from the median of three calls after one to warm up, decode
      tokens/s from the median step, and peak memory.
+  15. The LM steps on ``("data", "model")`` device meshes (DTensor): 15a
+     joins a 1-rank NCCL group in this process and makes a (1, 1) mesh;
+     phase 14a's bf16 gemma2-2b step at full width and depth (B=2 x
+     S=4,096, f32 momentum, the same init and batches) runs two rounds on
+     one device and then two through ``make_fl_train_step(mesh=...)``:
+     losses and params bitwise (else within 14b's limits, and the line
+     says it), 52 + 26 bf16 attention launches a step on both, one more
+     mesh step under ``torch.profiler`` seeing the forward and backward
+     kernels, step seconds and peak beside the one-device run's and 14a's;
+     then 14c's bf16 prefill (B=2, 4,096 tokens into 32,768 positions)
+     and 8 serve steps on one device and through the mesh, logits bitwise
+     (else within 5e-2), the median serve step and the decode's peak on
+     each side.  A (1, 1) mesh shards nothing, so the kernels' sharded
+     paths are not run here.  Two ranks sharing the card are not run:
+     DTensor's all-gather of a CUDA tensor over gloo kills the rank
+     (ROADMAP.md, departure 14).
 
 The last three lines are the card's name and power limit (as nvidia-smi
 gives them), the kernels' JSON summary (six entries: ``fed_reduce``,
@@ -255,7 +271,7 @@ gives them), the kernels' JSON summary (six entries: ``fed_reduce``,
 ``flash_attention_bwd`` and ``rglru_scan_bwd``; the launches are the main
 path's, phase 11's training steps and phase 12's and 13's trials (both
 ranks) included; each entry's ``launches_bf16`` counts its bf16 kernel's
-launches in phase 14, and ``bf16`` holds that kernel's source, phase-2e
+launches in phases 14 and 15, and ``bf16`` holds that kernel's source, phase-2e
 numbers and parity) and
 ``{"ok": true, "device": {...}}``.  Without a GPU, or without the port's sources beside this file,
 it exits 1 and prints no result.
@@ -3441,6 +3457,250 @@ def kernel_summary(cases, launches):
     return summary
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the LM steps on ("data", "model") device meshes
+# ---------------------------------------------------------------------------
+
+MESH_ROUNDS = 2
+MESH_DECODE = 8          # phase 15a's serve steps on each side
+ATTN16_FWD, ATTN16_BWD = "flash_attention_bf16_kernel", "attn16_bwd"
+
+
+def device_kernel_counts(torch, fn, names):
+    """How many device kernels whose name holds each of ``names`` one call
+    of ``fn`` runs (``torch.profiler``)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    got = [e.name for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {n: sum(n in g for g in got) for n in names}
+
+
+def mesh_leaf_err(torch, got, want):
+    """(bitwise, max |got - want| over max |want|) of two same-shaped
+    leaves, ``want`` on the host."""
+    g = got.detach().float()
+    w = want.to(got.device).float()
+    if torch.equal(got.detach(), want.to(got.device)):
+        return True, 0.0
+    den = float(w.abs().max())
+    return False, float((g - w).abs().max()) / max(den, 1e-30)
+
+
+def mesh_phase_1rank(torch, card, beside):
+    """Phase 15a: a 1-rank NCCL group and a (1, 1) ``("data", "model")``
+    mesh in this process.  Phase 14a's bf16 gemma2-2b production step at
+    full width and depth (B=2 x S=4,096, f32 momentum, the same init and
+    batches) for MESH_ROUNDS rounds on one device, then through
+    ``make_fl_train_step(mesh=...)`` (DTensor params and momentum, the
+    kernels under ``local_map``): losses and params bitwise, else within
+    14b's limits; step seconds and peak beside 14a's (``beside``); the
+    bf16 attention launches by the wrappers' counts and, for one more step,
+    by ``torch.profiler``.  Then phase 14c's bf16 prefill (B=2, a 4,096
+    prompt into 32,768 positions) and MESH_DECODE serve steps on one
+    device and through the mesh (the mesh fed the one-device tokens):
+    logits bitwise, else within 5e-2; the median serve step's seconds and
+    the decode's peak on each side.  Returns the counts of the mesh
+    steps' and prefills' launches."""
+    import os
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.kernels import flash_attention as fl_mod
+    from repro_torch.kernels import rglru_scan as sc_mod
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch.distributed_fl import round_batch
+    from repro_torch.launch.steps import (make_fl_train_step,
+                                          make_prefill_step, make_serve_step)
+    from repro_torch.models import stacked
+    from repro_torch.sharding.ctx import is_dtensor
+    from repro_torch.tree import leaves, tree_map
+
+    bf = torch.bfloat16
+    arch, b, s_len = "gemma2-2b", 2, 4096
+    cfg = get_config(arch)
+    n_attn = sum(sp.mixer == "attn" for sp in cfg.layers)
+    shape = InputShape("train_4k_cut", seq_len=s_len, global_batch=b,
+                       kind="train")
+    bgen = torch.Generator(device="cuda").manual_seed(7)
+    batches = [round_batch(cfg, b, s_len, bgen, "cuda")
+               for _ in range(MESH_ROUNDS)]
+    tmp = tempfile.mkdtemp()
+    group = mesh_mod.join(0, 1, device="cuda",
+                          init_method="file://" + os.path.join(tmp, "nccl"))
+    check(group.backend == "nccl", f"15a: 1-rank group on {group.backend}")
+    mesh = mesh_mod.make_mesh((1, 1), ("data", "model"), "cuda")
+    totals = {}
+    try:
+        runs = {}
+        for where in ("one_device", "mesh"):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            params = stacked.init_params_stacked(cfg, gen, bf)
+            momentum = tree_map(lambda x: torch.zeros(
+                x.shape, dtype=torch.float32, device=x.device), params)
+            step, _ = make_fl_train_step(
+                cfg, shape, dtype=bf,
+                mesh=mesh if where == "mesh" else None)
+            secs, losses = [], []
+            train_counts(fl_mod, sc_mod, reset=True)
+            for batch in batches:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, momentum, loss, _ = step(params, momentum, batch)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                losses.append(float(loss))
+            counts = {k: v for k, v in train_counts(fl_mod, sc_mod).items()
+                      if v}
+            peak = torch.cuda.max_memory_allocated()
+            local = [x.to_local() if is_dtensor(x) else x
+                     for x in leaves(params)]
+            rec = dict(step_s=secs, loss=losses, peak_mem_gib=peak / 2**30,
+                       launches=counts)
+            if where == "mesh":
+                check(all(is_dtensor(x) for x in leaves(params)),
+                      "15a: the mesh step's params are not DTensors")
+                want = runs["one_device"]
+                errs = [mesh_leaf_err(torch, g, w)
+                        for g, w in zip(local, want["params"])]
+                rec["params_bitwise"] = all(e[0] for e in errs)
+                rec["params_max_rel_err"] = max(e[1] for e in errs)
+                rec["loss_bitwise"] = losses == want["loss"]
+                rec["profiled"] = device_kernel_counts(
+                    torch, lambda: step(params, momentum, batches[0]),
+                    (ATTN16_FWD, ATTN16_BWD))
+                for k, v in counts.items():
+                    totals[k] = totals.get(k, 0) + v
+            else:
+                rec["params"] = [x.detach().to("cpu") for x in local]
+            runs[where] = rec
+            del params, momentum, step, local
+        one, msh = runs["one_device"], runs["mesh"]
+        want = {"flash_attention_bf16": 2 * n_attn * MESH_ROUNDS,
+                "flash_attention_bwd_bf16": n_attn * MESH_ROUNDS}
+        check(msh["launches"] == want and one["launches"] == want,
+              f"15a: launches {msh['launches']} / {one['launches']}, "
+              f"wanted {want}")
+        check(msh["profiled"][ATTN16_FWD] > 0 and
+              msh["profiled"][ATTN16_BWD] > 0,
+              f"15a: profiled attention kernels {msh['profiled']}")
+        # 14b's limits where the bits differ
+        check(msh["loss_bitwise"] or all(
+            abs(a - c) <= 1e-2 * abs(c) for a, c in zip(msh["loss"],
+                                                        one["loss"])),
+              f"15a: mesh losses {msh['loss']} vs {one['loss']}")
+        check(msh["params_bitwise"] or msh["params_max_rel_err"] <= 3e-2,
+              f"15a: mesh params off by {msh['params_max_rel_err']}")
+        ref14a = (beside or {}).get(arch, {})
+        emit(dict(phase="mesh_1rank_train", arch=arch, mesh="1x1 nccl",
+                  dtype="bfloat16", batch=b, seq_len=s_len,
+                  rounds=MESH_ROUNDS, loss=msh["loss"],
+                  loss_one_device=one["loss"],
+                  loss_bitwise=msh["loss_bitwise"],
+                  params_bitwise=msh["params_bitwise"],
+                  params_max_rel_err=msh["params_max_rel_err"],
+                  step_s=msh["step_s"], step_s_one_device=one["step_s"],
+                  mesh_over_one_device=min(msh["step_s"]) /
+                  min(one["step_s"]),
+                  peak_mem_gib=msh["peak_mem_gib"],
+                  peak_mem_gib_one_device=one["peak_mem_gib"],
+                  phase14a_step_s=ref14a.get("step_s"),
+                  phase14a_peak_mem_gib=ref14a.get("peak_mem_gib"),
+                  launches=msh["launches"],
+                  profiled_device_kernels=msh["profiled"], card=card))
+        del runs, one
+
+        # 14c's prefill, then MESH_DECODE serve steps, through the mesh
+        max_len, prompt_len = 32768, 4096
+        torch.cuda.empty_cache()
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        params = stacked.init_params_stacked(cfg, gen, bf)
+        tgen = torch.Generator(device="cuda").manual_seed(4)
+        prompt = torch.randint(0, cfg.vocab_size, (b, prompt_len),
+                               generator=tgen, device="cuda")
+        pshape = InputShape("prefill_32k_cut", seq_len=max_len,
+                            global_batch=b, kind="prefill")
+        dshape = InputShape("decode_32k_cut", seq_len=max_len,
+                            global_batch=b, kind="decode")
+        out, feed = {}, None
+        for where, m in (("one_device", None), ("mesh", mesh)):
+            pre, _ = make_prefill_step(cfg, pshape, mesh=m)
+            serve, _ = make_serve_step(cfg, dshape, mesh=m)
+            pre(params, prompt)                       # warm-up
+            torch.cuda.synchronize()
+            train_counts(fl_mod, sc_mod, reset=True)
+            t0 = time.perf_counter()
+            logits, cache = pre(params, prompt)
+            torch.cuda.synchronize()
+            rec = dict(logits=logits.float(), prefill_s=time.perf_counter()
+                       - t0, launches={k: v for k, v in train_counts(
+                           fl_mod, sc_mod).items() if v})
+            # the serve steps, the mesh run fed the one-device run's tokens
+            torch.cuda.reset_peak_memory_stats()
+            tok, toks, dec, times = logits.argmax(-1), [], [], []
+            for i in range(MESH_DECODE):
+                if feed is not None:
+                    tok = feed[i]
+                toks.append(tok)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lg, cache = serve(params, cache, tok, prompt_len + i)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                dec.append(lg.float())
+                tok = lg.argmax(-1)
+            feed = toks
+            rec.update(decode=torch.stack(dec),
+                       decode_s=sorted(times)[len(times) // 2],
+                       decode_peak_gib=torch.cuda.max_memory_allocated()
+                       / 2**30)
+            out[where] = rec
+            del cache, logits, lg
+            torch.cuda.empty_cache()
+        one, msh = out["one_device"], out["mesh"]
+        check(bool(torch.isfinite(msh["logits"]).all()) and
+              bool(torch.isfinite(msh["decode"]).all()),
+              "15a: prefill or decode logits not finite")
+        errs = {}
+        for k in ("logits", "decode"):
+            errs[k] = (torch.equal(msh[k], one[k]),
+                       float((msh[k] - one[k]).abs().max()
+                             / one[k].abs().max()))
+            check(errs[k][0] or errs[k][1] <= 5e-2,
+                  f"15a: mesh {k} off by {errs[k][1]}")
+        cm = msh["launches"]
+        check(cm == {"flash_attention_bf16": n_attn},
+              f"15a: mesh prefill launches {cm}")
+        for k, v in cm.items():
+            totals[k] = totals.get(k, 0) + v
+        emit(dict(phase="mesh_1rank_prefill", arch=arch, mesh="1x1 nccl",
+                  dtype="bfloat16", batch=b, prompt_len=prompt_len,
+                  cache_len=max_len, logits_bitwise=errs["logits"][0],
+                  logits_max_rel_err=errs["logits"][1],
+                  prefill_s=msh["prefill_s"],
+                  prefill_s_one_device=one["prefill_s"], launches=cm,
+                  card=card))
+        emit(dict(phase="mesh_1rank_decode", arch=arch, mesh="1x1 nccl",
+                  dtype="bfloat16", batch=b, cache_len=max_len,
+                  steps=MESH_DECODE, logits_bitwise=errs["decode"][0],
+                  logits_max_rel_err=errs["decode"][1],
+                  step_s=msh["decode_s"], step_s_one_device=one["decode_s"],
+                  mesh_over_one_device=msh["decode_s"] / one["decode_s"],
+                  peak_mem_gib=msh["decode_peak_gib"],
+                  peak_mem_gib_one_device=one["decode_peak_gib"],
+                  card=card))
+        del params, prompt, out, one, msh
+    finally:
+        mesh_mod.leave()
+        torch.cuda.empty_cache()
+    return totals
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--baseline", type=Path, default=None,
@@ -3541,8 +3801,8 @@ def main():
     # phase 14: the bf16 production steps
     torch.cuda.empty_cache()
     t14 = time.perf_counter()
-    bf16_totals, _ = train_full_width(torch, card, torch.bfloat16,
-                                      beside=train_recs)
+    bf16_totals, bf16_recs = train_full_width(torch, card, torch.bfloat16,
+                                              beside=train_recs)
     bf16_train_card_vs_cpu(torch, np)
     for k, v in bf16_serve(torch, np, card).items():
         bf16_totals[k] = bf16_totals.get(k, 0) + v
@@ -3565,6 +3825,13 @@ def main():
         torch, np, card, init_params, runs["sync"], walls["sync"],
         speech_init, sweep_records)
     cases.append(sharded_reduce_case(torch, np, card, floor))
+
+    # phase 15: the LM steps on ("data", "model") meshes
+    torch.cuda.empty_cache()
+    t15 = time.perf_counter()
+    for k, v in mesh_phase_1rank(torch, card, bf16_recs).items():
+        launches[k] = launches.get(k, 0) + v
+    emit(dict(phase="mesh_steps", seconds=time.perf_counter() - t15))
 
     for k in ("flash_attention_bf16", "flash_attention_bwd_bf16"):
         check(launches.get(k, 0) > 0, f"{k}: no launch on the bf16 path")

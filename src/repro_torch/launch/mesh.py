@@ -29,9 +29,12 @@ staged through the host for each collective.  Rank r of a CUDA run takes
                          process group; with none, a mesh of one rank that
                          gathers nothing).
 
-The ``("data", "model")`` meshes (``make_production_mesh``,
-``make_host_mesh``) belong to the LM half of the multi-GPU slice
-(ROADMAP.md queue 1, item 15b).
+The LM steps' meshes are ``DeviceMesh``es over the same group, counterparts
+of ``jax.make_mesh``: ``make_mesh(shape, axes)``, ``make_production_mesh``
+(``("data", "model")`` 16 x 16, or ``("pod", "data", "model")`` 2 x 16 x 16)
+and ``make_host_mesh`` (1 x world); ``axis_size`` reads an axis as the
+reference reads ``mesh.shape[name]``.  Their collectives are DTensor's
+(``repro_torch.sharding``), not ``fold``'s rank-order sums.
 """
 
 from __future__ import annotations
@@ -286,3 +289,58 @@ def run_ranks(fn: Callable[..., Any], world_size: int, *, device,
                 p.terminate()
                 p.join()
     return [out[r] for r in range(world_size)]
+
+
+# ---------------------------------------------------------------------------
+# ("data", "model") device meshes for the LM steps
+# ---------------------------------------------------------------------------
+
+def make_mesh(shape: Sequence[int], axes: Sequence[str], device=None):
+    """A ``DeviceMesh`` of ``shape`` named ``axes`` over the default process
+    group (rank r at row-major place r, as ``jax.make_mesh`` lays out its
+    devices), on ``device``'s type (default: this rank's device).  The
+    group's size must be the product of ``shape``."""
+    from torch.distributed.device_mesh import init_device_mesh
+    shape, axes = tuple(int(n) for n in shape), tuple(axes)
+    if len(shape) != len(axes):
+        raise ValueError(f"mesh shape {shape} and axes {axes} differ in rank")
+    n = 1
+    for k in shape:
+        n *= k
+    if not initialized():
+        raise RuntimeError(f"a {shape} mesh needs a process group of {n} "
+                           "ranks; none is up")
+    if world_size() != n:
+        raise ValueError(f"a {shape} mesh needs {n} ranks; the group has "
+                         f"{world_size()}")
+    if device is None:
+        dev_type = _rank_device.type if _rank_device is not None else (
+            "cuda" if str(dist.get_backend()) == "nccl" else "cpu")
+    else:
+        dev_type = torch.device(device).type
+    return init_device_mesh(dev_type, shape, mesh_dim_names=axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device="cuda"):
+    """The reference's production mesh: ``("data", "model")`` 16 x 16, or
+    ``("pod", "data", "model")`` 2 x 16 x 16 with ``multi_pod``."""
+    if multi_pod:
+        return make_mesh((2, 16, 16), ("pod", "data", "model"), device)
+    return make_mesh((16, 16), ("data", "model"), device)
+
+
+def make_host_mesh(device=None):
+    """A ``("data", "model")`` mesh of 1 x world over the group's ranks."""
+    return make_mesh((1, world_size()), ("data", "model"), device)
+
+
+def axis_size(mesh, name: str, default: Optional[int] = None) -> int:
+    """The size of ``mesh``'s axis ``name`` (``mesh.shape[name]`` in the
+    reference); ``default`` where the mesh has no such axis (the
+    reference's ``mesh.shape.get("pod", 1)``)."""
+    names = tuple(mesh.mesh_dim_names)
+    if name not in names:
+        if default is None:
+            raise KeyError(f"mesh {names} has no axis {name!r}")
+        return default
+    return int(mesh.mesh.shape[names.index(name)])

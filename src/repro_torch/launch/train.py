@@ -26,8 +26,10 @@ every rank has a card, ``gloo`` when ranks share one or run on the CPU;
       --client-exec sharded --fedtune
 
 A single process falls back to ``batched``, as the reference does on one
-device.  ``--mode mesh`` (the LM half of the multi-GPU slice, ROADMAP.md
-queue 1, item 15b) raises ``NotImplementedError``.
+device.  ``--mode mesh`` runs the federated LM round of ``--arch``
+(``launch/distributed_fl``, as the reference delegates to
+``examples/distributed_fl``): on a ``("data", "model")`` mesh under
+``torchrun``, on one device in one process.
 """
 
 from __future__ import annotations
@@ -82,9 +84,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     if args.mode == "mesh":
-        raise NotImplementedError(
-            "--mode mesh is not ported yet: it comes with the LM half of the "
-            "multi-GPU slice (ROADMAP.md queue 1, item 15b)")
+        from repro_torch.launch import distributed_fl   # the shared driver
+        distributed_fl.main(["--arch", args.arch, "--device", args.device])
+        return
 
     import numpy as np
 

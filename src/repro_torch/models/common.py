@@ -2,8 +2,9 @@
 
 Port of ``repro.models.common``.  The initializers draw from an explicit
 ``torch.Generator`` on the target device (``jax.random`` cannot be
-reproduced).  The reference's sharding constraints do nothing on one
-device and are left out.
+reproduced).  The sharding shortcuts at the end constrain an activation to
+its logical layout on a device mesh (``repro_torch.sharding``); on one
+device, or on a plain tensor, they return their argument.
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.sharding.ctx import logical_constraint
 
 
 # ---------------------------------------------------------------------------
@@ -90,11 +93,8 @@ def causal_conv(x: torch.Tensor, conv_w: torch.Tensor,
     cw = conv_w.shape[0]
     out = torch.zeros_like(x)
     for i in range(cw):
-        if i == 0:
-            shifted = x
-        else:
-            shifted = torch.zeros_like(x)
-            shifted[:, i:] = x[:, :-i]
+        shifted = x if i == 0 else torch.cat(
+            [torch.zeros_like(x[:, :i]), x[:, :-i]], dim=1)
         out = out + shifted * conv_w[cw - 1 - i]
     return out + conv_b
 
@@ -122,3 +122,16 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# logical sharding shortcuts for common activation layouts
+# ---------------------------------------------------------------------------
+
+def shard_bse(x):   # (batch, seq, embed)
+    return logical_constraint(x, ("batch", "seq", "embed"))
+
+
+def shard_bshd(x):  # (batch, seq, heads, head_dim)
+    return logical_constraint(x, ("batch", None, "heads", None))
+

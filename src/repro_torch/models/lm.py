@@ -27,6 +27,15 @@ patches, features) for the VLM, whose logits and positions then cover the
 prefix as well.  The full-sequence forward runs the MoE as ``moe_ffn``
 (capacity dispatch by default); prefill and decode run it drop-free
 (``moe_ffn_dense``), as the reference serves it.
+
+On a device mesh (``repro_torch.sharding``) the reference's constraints
+place the residual stream (``shard_bse``), the logits and the decoded
+token's state.  Where DTensor has no usable rule the collective is stated
+(``_gathered_seq``, ``_residual``, ``_embed_tokens``, ``_chunk_stats``):
+a block's normed input is gathered over the sequence, a sublayer's output
+is placed as the residual stream before the add, each rank looks up its
+own tokens in the whole embedding table, and a CE chunk's logits are
+gathered over the vocabulary for the target's gather and the argmax.
 """
 
 from __future__ import annotations
@@ -45,7 +54,11 @@ from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import recurrent as rec_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.common import (dense_init, embed_init, rmsnorm,
-                                       softcap)
+                                       shard_bse, softcap)
+from repro_torch.sharding.ctx import (activation_rules, current_mesh,
+                                      current_rules, is_dtensor,
+                                      logical_constraint, rows_local,
+                                      unshard)
 from repro_torch.tree import leaves
 
 _MIXER_INIT = {
@@ -126,18 +139,34 @@ def param_count(params) -> int:
 # blocks
 # ---------------------------------------------------------------------------
 
+def _residual(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``x + y``.  On a mesh ``y`` is first placed as the residual stream
+    ``x`` is, by an explicit redistribution, so that its gradient goes back
+    to ``y``'s own placement before the products that made it."""
+    if is_dtensor(y) and tuple(y.placements) != tuple(x.placements):
+        y = y.redistribute(x.device_mesh, x.placements)
+    return x + y
+
+
+def _gathered_seq(h: torch.Tensor) -> torch.Tensor:
+    """A block's normed input with its sequence whole on every rank (the
+    all-gather of sequence parallelism, before the products that flatten
+    batch and sequence); a plain tensor as it is."""
+    return unshard(h, (1,))
+
+
 def _ffn(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor, *,
          serving: bool):
     """The FFN's residual step and the MoE's aux loss (None for a dense
     FFN or none); the MoE drop-free when ``serving``."""
     if spec.ffn == FFN_NONE:
         return x, None
-    h2 = rmsnorm(x, p["ln2"], cfg.norm_eps)
+    h2 = _gathered_seq(rmsnorm(x, p["ln2"], cfg.norm_eps))
     if spec.ffn == FFN_DENSE:
-        return x + ffn_mod.mlp(p["ffn"], h2, cfg.act), None
+        return _residual(x, ffn_mod.mlp(p["ffn"], h2, cfg.act)), None
     moe = ffn_mod.moe_ffn_dense if serving else ffn_mod.moe_ffn
     out, aux = moe(p["ffn"], h2, cfg.moe, cfg.act)
-    return x + out, aux
+    return _residual(x, out), aux
 
 
 def _cross(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
@@ -146,15 +175,16 @@ def _cross(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
     encoder)."""
     if enc_out is None:
         return x
-    hc = rmsnorm(x, p["ln_cross"], cfg.norm_eps)
-    return x + attn_mod.attention(p["cross"], cfg, spec, hc, causal=False,
-                                  kv_input=enc_out, rope=False)
+    hc = _gathered_seq(rmsnorm(x, p["ln_cross"], cfg.norm_eps))
+    return _residual(x, attn_mod.attention(
+        p["cross"], cfg, spec, hc, causal=False, kv_input=enc_out,
+        rope=False))
 
 
 def _block(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
            enc_out: Optional[torch.Tensor] = None):
     """One block over the full sequence: (x, the MoE's aux loss or None)."""
-    h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+    h = _gathered_seq(rmsnorm(x, p["ln1"], cfg.norm_eps))
     if spec.mixer == MIX_ATTN:
         mix = attn_mod.attention(p["mixer"], cfg, spec, h)
     elif spec.mixer == MIX_RGLRU:
@@ -163,8 +193,9 @@ def _block(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
         mix = xlstm_mod.mlstm_block(p["mixer"], h, cfg)
     else:
         mix = xlstm_mod.slstm_block(p["mixer"], h, cfg)
-    x = _cross(p, cfg, spec, x + mix, enc_out)
-    return _ffn(p, cfg, spec, x, serving=False)
+    x = _cross(p, cfg, spec, _residual(x, mix), enc_out)
+    x, aux = _ffn(p, cfg, spec, x, serving=False)
+    return shard_bse(x), aux
 
 
 def _encode(params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
@@ -186,6 +217,11 @@ def _embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor):
     # sqrt(d) rounded in f32, as the reference computes it
     scale = torch.sqrt(torch.tensor(float(cfg.d_model), dtype=torch.float32,
                                     device=emb.device)).to(emb.dtype)
+    if is_dtensor(tokens):
+        # each rank looks up its own tokens in the whole table (DTensor's
+        # rule for the lookup's gradient is not usable on every version)
+        return rows_local(lambda t, e: e[t.long()], 1, tokens,
+                          whole=emb) * scale
     return emb[tokens.long()] * scale
 
 
@@ -199,7 +235,7 @@ def _embed_inputs(params, cfg: ModelConfig, tokens: torch.Tensor,
             raise ValueError(f"{cfg.name} needs frontend patch embeddings")
         fx = frontend @ params["frontend_proj"]
         x = torch.cat([fx.to(x.dtype), x], dim=1)
-    return x
+    return shard_bse(x)
 
 
 def _encoder_output(params, cfg: ModelConfig,
@@ -215,7 +251,8 @@ def _unembed(params, cfg: ModelConfig, x: torch.Tensor):
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = x @ head
-    return softcap(logits.to(torch.float32), cfg.final_softcap)
+    logits = softcap(logits.to(torch.float32), cfg.final_softcap)
+    return logical_constraint(logits, ("batch", "seq", "vocab"))
 
 
 # ---------------------------------------------------------------------------
@@ -234,14 +271,26 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     return _unembed(params, cfg, x)
 
 
+@contextlib.contextmanager
+def _replay(impl: str, rows: int, mesh, rules):
+    with ffn_mod.moe_impl(impl, rows):
+        if mesh is None:
+            yield
+        else:
+            with activation_rules(mesh, rules):
+                yield
+
+
 def remat_call(fn, *args):
     """``fn(*args)`` under ``torch.utils.checkpoint``: its activations are
-    recomputed in the backward, which runs outside the caller's
-    ``moe_impl`` block, so the recompute re-enters the forward's impl."""
-    impl = ffn_mod.current_moe_impl()
+    recomputed in the backward, which may run outside the caller's
+    ``moe_impl`` and ``activation_rules`` blocks, so the recompute
+    re-enters the forward's."""
+    impl, rows = ffn_mod.current_moe_impl()
+    mesh, rules = current_mesh(), current_rules()
     return checkpoint(fn, *args, use_reentrant=False,
                       context_fn=lambda: (contextlib.nullcontext(),
-                                          ffn_mod.moe_impl(impl)))
+                                          _replay(impl, rows, mesh, rules)))
 
 
 def run_block(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
@@ -298,7 +347,9 @@ def loss_fn(params, cfg: ModelConfig, batch, *, remat: bool = False):
 def _chunk_stats(xc, head, lc, wc, mc, final_cap):
     """One chunk's (sum of w * nll, correct, sum of w, counted)."""
     logits = softcap((xc @ head).to(torch.float32), final_cap)
+    logits = logical_constraint(logits, (None, "vocab"))
     logz = torch.logsumexp(logits, dim=-1)
+    logits = unshard(logits, (-1,))    # the gather and argmax over vocab
     safe = torch.clamp_min(lc, 0).long()
     tgt = torch.gather(logits, 1, safe[:, None])[:, 0]
     nll = logz - tgt
@@ -315,7 +366,7 @@ def chunked_ce(params, cfg: ModelConfig, x: torch.Tensor,
     reference pads), and each chunk's logits are recomputed in the
     backward (``torch.utils.checkpoint``).  Returns (ce, acc)."""
     b, s, d = x.shape
-    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    x = _gathered_seq(rmsnorm(x, params["final_norm"], cfg.norm_eps))
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     t = b * s
     xf = x.reshape(t, d)
@@ -393,8 +444,8 @@ def _prefill_block(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
         mix, st = xlstm_mod.mlstm_sequence(p["mixer"], h, cfg)
     else:
         mix, st = xlstm_mod.slstm_sequence(p["mixer"], h, cfg)
-    x = _cross(p, cfg, spec, x + mix, enc_out)
-    return _ffn(p, cfg, spec, x, serving=True)[0], st
+    x = _cross(p, cfg, spec, _residual(x, mix), enc_out)
+    return shard_bse(_ffn(p, cfg, spec, x, serving=True)[0]), st
 
 
 @torch.no_grad()
@@ -422,6 +473,7 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, pos: int,
     prefix counted).  Returns (logits (B, V), new cache).  Attention caches
     are updated in place (see ``attention.decode_attention``)."""
     x = _embed_tokens(params, cfg, token)[:, None]              # (B,1,d)
+    x = logical_constraint(x, ("batch", None, "embed"))
     enc_out = cache.get("enc_out")
     new_layers = []
     for p, spec, st in zip(params["layers"], cfg.layers, cache["layers"]):
@@ -435,11 +487,11 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, pos: int,
             mix, st = xlstm_mod.mlstm_decode_step(p["mixer"], h, st, cfg)
         else:
             mix, st = xlstm_mod.slstm_decode_step(p["mixer"], h, st, cfg)
-        x = x + mix
+        x = _residual(x, mix)
         if enc_out is not None:
             hc = rmsnorm(x, p["ln_cross"], cfg.norm_eps)
-            x = x + attn_mod.cross_decode_attention(p["cross"], cfg, spec,
-                                                    hc, int(pos), enc_out)
+            x = _residual(x, attn_mod.cross_decode_attention(
+                p["cross"], cfg, spec, hc, int(pos), enc_out))
         x = _ffn(p, cfg, spec, x, serving=True)[0]
         new_layers.append(st)
     logits = _unembed(params, cfg, x)

@@ -8,6 +8,11 @@ reference uses ``jax.lax.associative_scan``; under autograd its backward is
 the reverse scan (plain on the CPU, the kernel on CUDA), where the reference
 differentiates the associative scan.  Decode carries (h, conv tail).
 
+On a device mesh the conv input is constrained to ("batch", None, "ff") as
+in the reference, and the scan runs on each rank's local shard through
+``local_map``: its batch shard and its ``ff`` channels.  The recurrence is
+channel-wise, so a channel shard is exact.
+
 As in the reference, the recurrence and input gates use per-channel
 (diagonal) weights rather than Griffin's block-diagonal maps.
 """
@@ -21,6 +26,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.common import causal_conv, dense_init, gelu, softplus
+from repro_torch.sharding.ctx import (PartitionSpec as P, current_mesh,
+                                      current_rules, is_dtensor,
+                                      logical_constraint, to_placements)
 
 _C = 8.0  # Griffin's recurrence sharpness constant
 
@@ -62,7 +70,19 @@ def _gates(params, u: torch.Tensor):
 
 def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Diagonal linear recurrence h_t = a_t h_{t-1} + b_t over axis 1, from
-    h_0 = 0.  a, b: (B, S, W) f32."""
+    h_0 = 0.  a, b: (B, S, W) f32; on a mesh, DTensors scanned shard by
+    shard (batch and channels)."""
+    mesh = current_mesh()
+    if mesh is not None and is_dtensor(a):
+        from repro_torch.sharding.specs import fit_spec
+        from torch.distributed.tensor.experimental import local_map
+        rules = current_rules()
+        pl = to_placements(fit_spec(P(rules.get("batch"), None,
+                                      rules.get("ff")), a.shape, mesh), mesh)
+        return local_map(lambda al, bl: ops.rglru_scan(al.contiguous(),
+                                                       bl.contiguous()),
+                         out_placements=list(pl), in_placements=(pl, pl),
+                         device_mesh=mesh, redistribute_inputs=True)(a, b)
     return ops.rglru_scan(a.contiguous(), b.contiguous())
 
 
@@ -89,6 +109,7 @@ def rglru_sequence(params, x: torch.Tensor
     same inputs, so the port takes h from this one."""
     gate = gelu(x @ params["w_gate_branch"])
     u = x @ params["w_in"]
+    u = logical_constraint(u, ("batch", None, "ff"))
     uc = causal_conv(u, params["conv_w"], params["conv_b"])
     a, b = _gates(params, uc)
     h = rglru_scan(a.to(torch.float32), b.to(torch.float32))

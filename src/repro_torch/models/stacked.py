@@ -28,7 +28,8 @@ from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import lm as lm_mod
-from repro_torch.models.common import rmsnorm
+from repro_torch.models.common import rmsnorm, shard_bse
+from repro_torch.sharding.ctx import unshard
 from repro_torch.tree import leaves, tree_stack, unflatten_like
 
 
@@ -51,8 +52,10 @@ def find_cycle(cfg: ModelConfig) -> Tuple[int, int, int]:
 
 def _unstack(tree) -> List[Any]:
     """A stacked tree -> its slices along the leading axis, one tree each
-    (views: one ``unbind`` per leaf)."""
-    cols = [x.unbind(0) for x in leaves(tree)]
+    (views: one ``unbind`` per leaf).  On a mesh a leaf split along its
+    layer axis (the reference's cache specs split a stacked ``slot_pos``
+    on the batch's axes) is gathered on that axis first."""
+    cols = [unshard(x, (0,)).unbind(0) for x in leaves(tree)]
     return [unflatten_like(tree, list(xs)) for xs in zip(*cols)]
 
 
@@ -181,7 +184,7 @@ def loss_fn(params_st, cfg: ModelConfig, batch, *, remat: bool = True):
     x = lm_mod._embed_inputs(params_st, cfg, batch["tokens"], frontend)
     x, aux_total = _apply_blocks(params_st, cfg, x, enc_out=enc_out,
                                  remat=remat)
-    x = lm_mod.text_states(x, labels)
+    x = lm_mod.text_states(shard_bse(x), labels)
     tok_w = lm_mod.token_weights(labels, batch.get("weight"))
     ce, acc = lm_mod.chunked_ce(params_st, cfg, x, labels, tok_w)
     return ce + aux_total, {"ce": ce, "aux": aux_total, "acc": acc}

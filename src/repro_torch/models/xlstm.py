@@ -32,6 +32,7 @@ from torch.profiler import record_function
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import causal_conv, dense_init, softplus
+from repro_torch.sharding.ctx import logical_constraint
 
 DEFAULT_MLSTM_CHUNK = 128
 CONV_WIDTH = 4
@@ -101,6 +102,7 @@ def _mlstm_qkvif(params, x: torch.Tensor, h: int, hd: int):
     pre-activations (B,H,S) f32; the output gate z (B,S,W); the
     up-projection xu (B,S,W)."""
     xu = x @ params["w_up"]
+    xu = logical_constraint(xu, ("batch", None, "ff"))
     xc = F.silu(causal_conv(xu, params["conv_w"], params["conv_b"]))
     b, s, w = xc.shape
     xh = xc.reshape(b, s, h, hd).transpose(1, 2)                # (B,H,S,hd)

@@ -5,6 +5,9 @@ the reference starts takes the reference's initial params (as numpy, e.g.
 ``jax.tree.map(np.asarray, model.init(key))``) through
 ``params_from_numpy``.  ``params_to_numpy`` carries the port's params back.
 Both keep the nested dict/list shape and check every leaf's shape and dtype.
+``params_to_mesh`` places such a tree on a device mesh by
+``param_shardings`` (each rank keeps its shard of the same params) and
+``params_from_mesh`` gathers it back to numpy.
 
 numpy has no bfloat16.  A bf16 leaf crosses as its raw 2-byte pattern: a
 ``uint16`` array, or the void ``|V2`` array numpy reads back for the
@@ -94,3 +97,23 @@ def params_to_numpy(params: Any) -> Any:
                             "tensor")
         out.append(tensor_to_numpy(t)[0])
     return unflatten_like(params, out)
+
+
+def params_to_mesh(tree: Any, mesh, rules, device,
+                   template: Optional[Any] = None,
+                   dtype_names: Optional[Sequence[Optional[str]]] = None
+                   ) -> Any:
+    """Numpy leaves (the same on every rank) -> DTensors on ``mesh``,
+    placed by ``sharding.specs.param_shardings`` under ``rules``; each
+    rank keeps only its shard (no collective).  ``device``, ``template``
+    and ``dtype_names`` as in ``params_from_numpy``."""
+    from repro_torch.sharding.specs import place_params
+    return place_params(params_from_numpy(tree, device, template,
+                                          dtype_names), mesh, rules)
+
+
+def params_from_mesh(params: Any) -> Any:
+    """The inverse of ``params_to_mesh``: every DTensor leaf gathered whole
+    (a collective on every rank of its mesh), then ``params_to_numpy``."""
+    from repro_torch.sharding.specs import gather_tree
+    return params_to_numpy(gather_tree(params))

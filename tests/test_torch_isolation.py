@@ -27,6 +27,11 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 for name in names:
     importlib.import_module(name)
+# the sharding package (DTensor meshes) imports torch.distributed.tensor
+# lazily; import it here so its imports are checked too
+import torch.distributed.tensor  # noqa: F401
+assert {"repro_torch.sharding", "repro_torch.sharding.ctx",
+        "repro_torch.sharding.specs"} <= set(names), names
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro.")

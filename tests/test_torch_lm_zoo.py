@@ -183,17 +183,21 @@ def test_moe_ffn_dispatch_matches_reference(capacity_factor):
 
 
 def test_moe_impl_selects_the_path():
-    moe, _, p, _ = _moe(4, 2, 48, seed=4)
-    x = _t(_randn(np.random.default_rng(4), (2, 9, 64)))
+    moe, jmoe, p, jp = _moe(4, 2, 48, seed=4)
+    xn = _randn(np.random.default_rng(4), (2, 9, 64))
+    x = _t(xn)
     y = ffn.moe_ffn(p, x, moe)[0]
     assert torch.equal(y, ffn.moe_ffn_dispatch(p, x, moe)[0])
     with ffn.moe_impl("dense"):
         assert torch.equal(ffn.moe_ffn(p, x, moe)[0],
                            ffn.moe_ffn_dense(p, x, moe)[0])
     assert torch.equal(ffn.moe_ffn(p, x, moe)[0], y)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        with ffn.moe_impl("hierarchical"):
-            pass
+    # the hierarchical impl runs over its rows, as the reference's does
+    with ffn.moe_impl("hierarchical", rows=2):
+        yh, auxh = ffn.moe_ffn(p, x, moe)
+    jy, jaux = jffn.moe_ffn_hierarchical(jp, jnp.asarray(xn), jmoe, rows=2)
+    _close(yh, jy, MODULE_TOL)
+    _close(auxh, jaux, MODULE_TOL)
 
 
 # ---------------------------------------------------------------------------

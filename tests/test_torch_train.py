@@ -441,11 +441,53 @@ def test_fl_train_step_matches_reference(case):
     assert not any(x.requires_grad for x in leaves(p))
 
 
-def test_train_step_contract():
+def _hierarchical_step_matches_reference(tmp_path):
+    """One round of reduced dbrx-132b with ``moe_mode="hierarchical"``
+    against the reference's step on its 1 x 1 mesh: the port's step on a
+    (1, 1) mesh of a 1-rank gloo group in this process, so both take the
+    mesh's one data shard as the MoE's one row."""
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.weights import params_from_mesh, params_to_mesh
+    cfg, jcfg = _cfgs("dbrx-132b", 2)
+    b, s = 4, 32
+    jfn, _ = jsteps.make_fl_train_step(
+        jcfg, _jmesh(), JShape("t", seq_len=s, global_batch=b, kind="train"),
+        dtype=jnp.float32, lr=1e-2, moe_mode="hierarchical")
+    jp = jstacked.stack_params(jlm.init_params(jcfg, jax.random.PRNGKey(0)),
+                               jcfg)
+    jm = jax.tree.map(lambda x: jnp.zeros(x.shape, jnp.float32), jp)
+    nb = _batch(cfg, b, s, np.random.default_rng(33), ignore=False)
+    mesh_mod.join(0, 1, device="cpu",
+                  init_method=f"file://{tmp_path / 'rendezvous'}")
+    try:
+        mesh = mesh_mod.make_mesh((1, 1), ("data", "model"), "cpu")
+        fn, _ = steps.make_fl_train_step(
+            cfg, InputShape("t", seq_len=s, global_batch=b, kind="train"),
+            mesh=mesh, lr=1e-2, dtype=torch.float32,
+            moe_mode="hierarchical")
+        tmpl = stacked.stack_params(build_model(cfg).init(0, "cpu"), cfg)
+        p = params_to_mesh(jax.tree.map(np.asarray, jp), mesh,
+                           steps.train_step_rules(), "cpu", template=tmpl)
+        m = tree_map(torch.zeros_like, p)
+        p, m, loss, _ = fn(p, m, {k: _t(v) for k, v in nb.items()})
+        p, m = params_from_mesh(p), params_from_mesh(m)
+    finally:
+        mesh_mod.leave()
+    with _jmesh():
+        jp, jm, jloss, _ = _compiled(jfn, jp, jm, {
+            k: jnp.asarray(v) for k, v in nb.items()})(
+            jp, jm, {k: jnp.asarray(v) for k, v in nb.items()})
+    assert _rel(loss, jloss) <= MODEL_TOL
+    _close_trees(p, jp, MODEL_TOL, "hierarchical params")
+    _close_trees(m, jm, MODEL_TOL, "hierarchical momentum")
+
+
+def test_train_step_contract(tmp_path):
     """The structs are on the meta device with the full config's shapes
     (nothing allocated), in bf16 by default as the reference's, f32 when
-    asked; the hierarchical MoE raises; the prefill and decode shapes
-    dispatch to their steps; the STE is the reference's bits."""
+    asked; the hierarchical MoE runs and matches the reference's step;
+    the prefill and decode shapes dispatch to their steps; the STE is the
+    reference's bits."""
     from repro_torch.configs.shapes import get_shape
 
     cfg = get_config(GEMMA)
@@ -459,9 +501,7 @@ def test_train_step_contract():
     _, (p32, _, _) = steps.make_fl_train_step(cfg, get_shape("train_4k"),
                                               dtype=torch.float32)
     assert {x.dtype for x in leaves(p32)} == {torch.float32}
-    with pytest.raises(NotImplementedError, match="item 15"):
-        steps.make_fl_train_step(cfg, get_shape("train_4k"),
-                                 moe_mode="hierarchical")
+    _hierarchical_step_matches_reference(tmp_path)
     fn, (pp, tok) = steps.step_for_shape(cfg, get_shape("prefill_32k"))
     assert callable(fn) and tok.shape == (32, 32768)
     assert {x.dtype for x in leaves(pp)} == {torch.bfloat16}

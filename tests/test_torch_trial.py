@@ -157,7 +157,8 @@ def test_params_on_another_device_are_refused():
 def test_unported_paths_raise(capsys):
     """``client_exec="sharded"`` in one process (no process group) prints
     the reference's fallback and gives the batched run's records; the
-    LM half's ``--mode mesh`` still raises."""
+    LM half's ``--mode mesh``, which once raised here, now runs the
+    federated LM round and prints the launcher's losses."""
     runs = {}
     for exec_ in ("batched", "sharded"):
         srv = t_server("sync", None, 3)
@@ -171,8 +172,17 @@ def test_unported_paths_raise(capsys):
     assert got.total_cost.as_tuple() == want.total_cost.as_tuple()
     for a, b in zip(leaves(got.params), leaves(want.params)):
         assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        t_train.main(["--mode", "mesh", "--device", "cpu"])
+    # --mode mesh runs the federated LM round (launch.distributed_fl), as
+    # the reference's delegates to its example: the same losses
+    from repro_torch.launch import distributed_fl
+    t_train.main(["--mode", "mesh", "--device", "cpu",
+                  "--arch", "granite-moe-1b-a400m"])
+    mesh_out = capsys.readouterr().out
+    distributed_fl.main(["--arch", "granite-moe-1b-a400m", "--device", "cpu"])
+    direct = capsys.readouterr().out
+    losses = [[ln.split("loss=")[1].split()[0] for ln in o.splitlines()
+               if "loss=" in ln] for o in (mesh_out, direct)]
+    assert len(losses[0]) == 3 and losses[0] == losses[1]
 
 
 def test_launcher_trace_and_checkpoint(tmp_path):
