@@ -264,6 +264,33 @@ pre-pass and the kernel alone timed as well) and without.
      paths are not run here.  Two ranks sharing the card are not run:
      DTensor's all-gather of a CUDA tensor over gloo kills the rank
      (ROADMAP.md, departure 14).
+ 16. The paper's tables and the other three examples' launchers.  16a:
+     each launcher's ``main`` (``launch/quickstart``,
+     ``preference_sweep``, ``heterogeneous_fl --rounds 15``,
+     ``paper_tables --table 5 --rounds 6`` and ``--table 6 --rounds 6``
+     at the examples' reduced federations) with ``--device cuda`` and then
+     ``--device cpu``: (M, E) per round and the four costs equal, accuracy
+     within 0.01 (ROADMAP.md, departure 7), or, where the CPU's own
+     one-ulp twin of the run leaves 0.01 no later, within twice that
+     twin's largest gap (departure 16), both rendered tables and
+     whether they are equal, wall seconds and the card run's
+     ``fed_reduce`` and ``fed_aggregate`` launches.  16b: the launcher's
+     ``build_sweep`` for Table 4 (``--prefs all``: 15 FedTune trials and
+     one fixed baseline on the 2,112-client speech federation), Table 5
+     (speech, emnist, cifar100) and Table 6 (five aggregators) with the
+     base spec's ``reduced=False``, 15 rounds each through ``run_sweep``
+     on the card: ``fed_reduce`` launched once per model group per sweep
+     round (every launch shape recorded), finite accuracies and costs, a
+     cell for every (preference, aggregator, dataset) of the grid, the
+     rendered tables, trial-rounds/s.  16c: ``fed_reduce`` at the first
+     fused launch of the speech group (Table 4: T=16, N=50,915) and of
+     the cifar100 group (Table 5: T=2, N=152,404), bitwise, with phase
+     2's columns and bound.
+
+Every bound takes the card's rates from ``repro_torch.roofline.hardware``
+(NVIDIA H100 SXM5 80GB data sheet, 700 W), and every ``fed_reduce`` case
+its bytes from ``repro_torch.roofline``'s ``fed_reduce_traffic`` (plus the
+weights, segments and int8 mask it leaves out; ``fed_reduce_bytes``).
 
 The last three lines are the card's name and power limit (as nvidia-smi
 gives them), the kernels' JSON summary (six entries: ``fed_reduce``,
@@ -272,7 +299,8 @@ gives them), the kernels' JSON summary (six entries: ``fed_reduce``,
 path's, phase 11's training steps and phase 12's and 13's trials (both
 ranks) included; each entry's ``launches_bf16`` counts its bf16 kernel's
 launches in phases 14 and 15, and ``bf16`` holds that kernel's source, phase-2e
-numbers and parity) and
+numbers and parity; ``fed_reduce``'s ``paper_tables`` holds phase 16c's
+cases) and
 ``{"ok": true, "device": {...}}``.  Without a GPU, or without the port's sources beside this file,
 it exits 1 and prints no result.
 
@@ -305,10 +333,18 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
-HBM_BYTES_PER_S = 3.35e12           # H100 SXM HBM3 (NVIDIA data sheet)
-F32_FLOPS_PER_S = 67e12             # H100 SXM f32 outside the tensor cores
-TF32_FLOPS_PER_S = 495e12           # H100 SXM TF32 tensor cores, dense
-BF16_FLOPS_PER_S = 989e12           # H100 SXM bf16 tensor cores, dense
+sys.path.insert(0, str(SRC))
+try:
+    from repro_torch.roofline import fed_reduce_traffic, hardware
+except ImportError as exc:
+    sys.exit(f"chip_smoke: FAIL: the port's sources are not beside this "
+             f"script ({SRC}): {exc}")
+# the card's rates (NVIDIA H100 SXM5 80GB data sheet, 700 W): HBM3, f32
+# outside the tensor cores, TF32 and bf16 tensor cores (dense)
+HBM_BYTES_PER_S = hardware.H100.hbm_bandwidth
+F32_FLOPS_PER_S = hardware.H100_F32_FLOPS_PER_S
+TF32_FLOPS_PER_S = hardware.H100_TF32_FLOPS_PER_S
+BF16_FLOPS_PER_S = hardware.H100.peak_flops_bf16
 N_PARAMS = 169_462                  # MLP_EMNIST: 784 -> 200 -> 62
 
 
@@ -326,7 +362,8 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def bound(nbytes: float, flops: float, flops_per_s: float = F32_FLOPS_PER_S):
+def bound(nbytes: float, flops: float,
+          flops_per_s: float = F32_FLOPS_PER_S):
     """The least time (ms) the card could take, and what sets it: the
     bytes over HBM bandwidth or the operations over their peak rate (f32
     outside the tensor cores unless another rate is given)."""
@@ -405,6 +442,15 @@ def old_vs_new(torch, flush, old, new, check_old):
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+def fed_reduce_bytes(m: int, n: int, t_seg: int, quant: bool,
+                     base: bool) -> int:
+    """The bytes one ``fed_reduce`` launch must move: the roofline's
+    (``fed_reduce_traffic``: rows, base, out, quant_ref) plus what it
+    leaves out, the (M,) weights and segments and the (M,) int8 mask."""
+    traffic = fed_reduce_traffic(m, n, t_seg, quant=quant, base=base)
+    return int(traffic.bytes_hbm) + 8 * m + (m if quant else 0)
+
+
 def fed_reduce_case(torch, card, flush, floor, name, w, rows, seg, t_seg,
                     base, normalize, quant=None, leaf_sizes=None,
                     old_lib=None):
@@ -438,11 +484,9 @@ def fed_reduce_case(torch, card, flush, floor, name, w, rows, seg, t_seg,
     acc0 = base if base is not None else torch.zeros(
         (t_seg, n), dtype=torch.float32, device=dev)
     seg_l = seg.long()
-    nbytes = 4 * (m * n + 2 * m + t_seg * n * (2 if base is not None
-                                               else 1))
+    nbytes = fed_reduce_bytes(m, n, t_seg, quant is not None,
+                              base is not None)
     flops = 2 * m * n + (t_seg * n if base is not None else 0)
-    if quant is not None:
-        nbytes += 4 * t_seg * n + m         # quant_ref, quant mask
     bound_ms, bound_by = bound(nbytes, flops)
     rec = dict(
         phase="kernel_check", kernel="fed_reduce", case=name,
@@ -3454,6 +3498,13 @@ def kernel_summary(cases, launches):
             **{k: head[k] for k in ("bound_route", "bound_f32_simt_ms",
                                     "bound_tf32x3_ms", "launch_floor_ms")
                if k in head}))
+    # fed_reduce at the paper tables' own launches (phase 16c)
+    summary[0]["paper_tables"] = [dict(
+        case=c["case"], shape=c["shape"], max_abs_err=c["max_abs_err"],
+        ms=c["ms"], plain_ms=c["plain_ms"], library_ms=c["library_ms"],
+        bound_ms=c["bound_ms"], bound_by=c["bound_by"],
+        launch_floor_ms=c["launch_floor_ms"])
+        for c in cases if c.get("case") in TABLE_GROUPS.values()]
     return summary
 
 
@@ -3701,6 +3752,320 @@ def mesh_phase_1rank(torch, card, beside):
     return totals
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the paper's tables and the other examples' launchers
+# ---------------------------------------------------------------------------
+
+# phase 16a's launcher calls: label, module in repro_torch.launch, argv
+LAUNCHERS = (("quickstart", "quickstart", []),
+             ("preference_sweep", "preference_sweep", []),
+             ("heterogeneous_fl", "heterogeneous_fl", ["--rounds", "15"]),
+             ("paper_table_5", "paper_tables", ["--table", "5",
+                                                "--rounds", "6"]),
+             ("paper_table_6", "paper_tables", ["--table", "6",
+                                                "--rounds", "6"]))
+
+
+def rendered_table(text: str) -> str:
+    """The ``paper_table`` a launcher printed: everything from its title."""
+    return text[text.index("## Paper Table"):].strip()
+
+
+def run_launcher(torch, mod, label, argv, dev, init_params=None):
+    """One launcher ``main`` on ``dev`` with its stdout captured (a table's
+    store fresh under ``runs/``): its result, text, wall seconds and the
+    kernels' launches."""
+    import contextlib
+    import io
+    from repro_torch.kernels import fed_aggregate as fa_mod
+    from repro_torch.kernels import fed_reduce as fr_mod
+
+    extra = []
+    if mod.__name__.endswith("paper_tables"):
+        store = ROOT / "runs" / f"chip_smoke_{label}_{dev}.jsonl"
+        store.unlink(missing_ok=True)
+        extra = ["--out", str(store)]
+    text = io.StringIO()
+    torch.cuda.synchronize()
+    fr_mod.launches = 0
+    fa_mod.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        res = mod.main(argv + extra + ["--device", dev],
+                       init_params=init_params)
+    torch.cuda.synchronize()
+    return dict(res=res, text=text.getvalue(),
+                wall=time.perf_counter() - t0,
+                launches={"fed_reduce": fr_mod.launches,
+                          "fed_aggregate": fa_mod.launches})
+
+
+def ulp_twin_init(np, mod_name):
+    """The launcher's own initial params (the port's seeded init, drawn on
+    the CPU) with every value moved up by one ulp, as its ``init_params``
+    hook takes them: one tree for the 784-48-16 MLP of the three FLServer
+    launchers, a function of the trial for ``paper_tables``."""
+    from repro_torch.configs.paper_models import MLPConfig
+    from repro_torch.experiments import runner
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_map
+    from repro_torch.weights import params_to_numpy
+
+    def up(params):
+        return tree_map(lambda x: np.nextafter(x, np.float32(np.inf)),
+                        params_to_numpy(params))
+    if mod_name == "paper_tables":
+        return lambda spec: up(runner._model_for(spec)[0].init(spec.seed,
+                                                                "cpu"))
+    return up(build_model(MLPConfig(name="mlp", in_dim=784, hidden=(48,),
+                                    n_classes=16)).init(0, "cpu"))
+
+
+# how far a chaotic run's card accuracy may stray from the CPU's, as a
+# multiple of the largest gap of the CPU's own one-ulp twin (ROADMAP.md
+# departure 16)
+TWIN_GAP_MULTIPLE = 2.0
+
+
+def first_apart(accs, ref, limit=0.01):
+    """The first round at which two accuracy histories differ by more than
+    ``limit`` (None if they never do)."""
+    return next((i for i, (a, b) in enumerate(zip(accs, ref))
+                 if abs(a - b) > limit), None)
+
+
+def launchers_card_vs_cpu(torch, np, card):
+    """Phase 16a: each launcher's ``main`` with ``--device cuda`` and then
+    ``--device cpu``, from the same initial params (the port's init is
+    drawn on the CPU for every device).  Departure 7's rule for every
+    FedTune run: (M, E) per round and the costs equal, accuracy within
+    0.01.  A run whose card accuracy leaves 0.01 of the CPU's is run once
+    more on the CPU from its initial params moved by one ulp: it passes
+    only if that twin keeps the CPU run's (M, E) and costs, leaves 0.01 of
+    the CPU's accuracy no later than the card does, and the card's largest
+    gap is at most ``TWIN_GAP_MULTIPLE`` times the twin's (the trial is
+    chaotic in rounding, ROADMAP.md departure 16).
+    The tables as rendered, and whether they are equal.  Returns the card
+    runs' kernel launches."""
+    import importlib
+
+    launches = {"fed_reduce": 0, "fed_aggregate": 0}
+    for label, mod_name, argv in LAUNCHERS:
+        mod = importlib.import_module(f"repro_torch.launch.{mod_name}")
+        out = {dev: run_launcher(torch, mod, label, argv, dev)
+               for dev in ("cuda", "cpu")}
+        card_runs, cpu_runs = (launcher_results(out[d]["res"])
+                               for d in ("cuda", "cpu"))
+        check(list(card_runs) == list(cpu_runs),
+              f"16a {label}: runs {list(card_runs)} against "
+              f"{list(cpu_runs)}")
+        runs, twin = {}, None
+        for run, (m_e, costs, accs) in card_runs.items():
+            cpu_m_e, cpu_costs, cpu_accs = cpu_runs[run]
+            check(m_e == cpu_m_e, f"16a {label} {run}: (M, E) per round "
+                                  f"differ: {m_e} against {cpu_m_e}")
+            check(costs == cpu_costs, f"16a {label} {run}: costs differ: "
+                                      f"{costs} against {cpu_costs}")
+            runs[run] = dict(rounds=len(m_e), m_e_last=m_e[-1],
+                             max_acc_diff=max(abs(a - b) for a, b in
+                                              zip(accs, cpu_accs)))
+            apart = first_apart(accs, cpu_accs)
+            if apart is None:
+                continue
+            if twin is None:
+                twin = launcher_results(run_launcher(
+                    torch, mod, label + "_twin", argv, "cpu",
+                    ulp_twin_init(np, mod_name))["res"])
+            twin_m_e, twin_costs, twin_accs = twin[run]
+            twin_apart = first_apart(twin_accs, cpu_accs)
+            twin_diff = max(abs(a - b) for a, b in zip(twin_accs, cpu_accs))
+            check(twin_m_e == cpu_m_e and twin_costs == cpu_costs,
+                  f"16a {label} {run}: the CPU's one-ulp twin changes "
+                  f"(M, E) or the costs: {twin_m_e} {twin_costs} against "
+                  f"{cpu_m_e} {cpu_costs}")
+            check(twin_apart is not None and twin_apart <= apart
+                  and runs[run]["max_acc_diff"] <= TWIN_GAP_MULTIPLE
+                  * twin_diff,
+                  f"16a {label} {run}: the card's accuracy leaves 0.01 of "
+                  f"the CPU's at round {apart} by at most "
+                  f"{runs[run]['max_acc_diff']}, the CPU's one-ulp twin's "
+                  f"at {twin_apart} by at most {twin_diff}: {accs} "
+                  f"against {cpu_accs}")
+            runs[run].update(card_apart_round=apart,
+                             twin_apart_round=twin_apart,
+                             twin_max_acc_diff=twin_diff)
+        on_card = out["cuda"]["launches"]
+        for k, v in on_card.items():
+            launches[k] += v
+        rec = dict(phase="launchers_card_vs_cpu", launcher=label,
+                   argv=argv, runs=runs, costs_equal=True,
+                   card_wall_s=out["cuda"]["wall"],
+                   cpu_wall_s=out["cpu"]["wall"], launches=on_card,
+                   card=card)
+        if mod_name == "paper_tables":
+            tables = [rendered_table(out[d]["text"]) for d in ("cuda", "cpu")]
+            check(tables[0] == tables[1],
+                  f"16a {label}: the card's table differs from the CPU's")
+            rec.update(table_card=tables[0], table_cpu=tables[1],
+                       tables_equal=True)
+            for dev, t in zip(("card", "cpu"), tables):
+                print(f"16a {label} rendered on the {dev}:\n{t}", flush=True)
+        check(on_card["fed_reduce"] > 0,
+              f"16a {label}: fed_reduce never launched on the card")
+        if label == "heterogeneous_fl":
+            check(on_card["fed_aggregate"] > 0,
+                  "16a heterogeneous_fl: the async mode launched no "
+                  "fed_aggregate")
+        emit(rec)
+    return launches
+
+
+def launcher_results(res):
+    """A launcher's return value as {run: ((M, E) per round, the four
+    costs, accuracy per round)}: one FLResult (``quickstart``), a dict of
+    them (``heterogeneous_fl``) or of (FLResult, tuner) pairs
+    (``preference_sweep``), or ``paper_tables``' TrialResults by key."""
+    def of(r):
+        return ([(h.m, h.e) for h in r.history], r.total_cost.as_tuple(),
+                [h.accuracy for h in r.history])
+    if isinstance(res, list):
+        return {r.spec.key(): (list(zip(r.history_m, r.history_e)),
+                               tuple(r.cost), list(r.history_acc))
+                for r in res}
+    if isinstance(res, dict):
+        return {k: of(v[0] if isinstance(v, tuple) else v)
+                for k, v in res.items()}
+    return {"run": of(res)}
+
+
+def full_table_sweeps():
+    """Phase 16b's grids: the launcher's own ``build_sweep`` for Tables 4
+    (``--prefs all``), 5 and 6, one seed, 15 rounds, with the base spec's
+    ``reduced`` set to False (the full federations)."""
+    import dataclasses
+    from repro_torch.launch.paper_tables import build_sweep
+
+    out = {}
+    for table in (4, 5, 6):
+        sweep = build_sweep(table, "all", 1, 15, 0.5)
+        out[table] = dataclasses.replace(
+            sweep, base=dataclasses.replace(sweep.base, reduced=False))
+    return out
+
+
+def paper_tables_full(torch, card):
+    """Phase 16b: the paper's Tables 4, 5 and 6 at the full federations
+    through ``run_sweep`` on the card.  Every ``_fused_sync_reduce`` call is
+    watched: it must launch ``fed_reduce`` once per model group with live
+    FedAvg trials, and the first call of each group keeps its inputs for
+    16c.  Returns the launches and those inputs by N."""
+    from repro_torch.experiments import (aggregate_over_seeds, paper_table,
+                                         pair_with_baselines, run_sweep,
+                                         runner)
+    from repro_torch.kernels import fed_aggregate as fa_mod
+    from repro_torch.kernels import fed_reduce as fr_mod
+    from repro_torch.kernels import ops
+
+    launches = {"fed_reduce": 0, "fed_aggregate": 0}
+    captured, inputs = {}, {}
+    inner_fused, inner_op = runner._fused_sync_reduce, ops.fed_reduce
+    for table, sweep in full_table_sweeps().items():
+        specs = sweep.expand()
+        fused, shapes = [], {}
+
+        def op_spy(w, rows, seg, t, base=None, **kw):
+            shape = f"T={t},M={rows.shape[0]},N={rows.shape[1]}"
+            shapes[shape] = shapes.get(shape, 0) + 1
+            if "in_fused" in captured:
+                captured["in_fused"].append(shape)
+                inputs.setdefault(rows.shape[1], (
+                    w.clone(), rows.clone(), seg.clone(), t, kw))
+            return inner_op(w, rows, seg, t, base, **kw)
+
+        def fused_spy(live):
+            groups = {id(tr.srv.model) for tr in live
+                      if tr.cohort is not None and tr.cohort.cids
+                      and tr.cohort.agg_params is None
+                      and tr.srv.aggregator.name == "fedavg"}
+            captured["in_fused"] = []
+            before = fr_mod.launches
+            inner_fused(live)
+            fused.append(dict(groups=len(groups),
+                              launches=fr_mod.launches - before,
+                              calls=captured.pop("in_fused")))
+
+        ops.fed_reduce, runner._fused_sync_reduce = op_spy, fused_spy
+        try:
+            torch.cuda.synchronize()
+            fr_mod.launches = 0
+            fa_mod.launches = 0
+            t0 = time.perf_counter()
+            res = run_sweep(specs, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = {"fed_reduce": fr_mod.launches,
+                      "fed_aggregate": fa_mod.launches}
+        finally:
+            ops.fed_reduce, runner._fused_sync_reduce = inner_op, inner_fused
+        for k, v in counts.items():
+            launches[k] += v
+        check(len(res) == len(specs),
+              f"16b table {table}: {len(res)} results for {len(specs)}")
+        check(all(math.isfinite(a) for r in res for a in r.history_acc),
+              f"16b table {table}: accuracy not finite")
+        check(all(math.isfinite(c) and c > 0 for r in res for c in r.cost),
+              f"16b table {table}: costs not finite and positive")
+        check(len(fused) == max(r.rounds for r in res) and all(
+            f["launches"] == f["groups"] == len(f["calls"]) for f in fused),
+              f"16b table {table}: fed_reduce launches per fused reduce "
+              f"{[(f['launches'], f['groups']) for f in fused]}, wanted one "
+              "per model group")
+        records = [r.to_record() for r in res]
+        cells = {(a["dataset"], a["aggregator"], tuple(a["preference"]))
+                 for a in aggregate_over_seeds(pair_with_baselines(records))}
+        want = {(s.dataset, s.aggregator, tuple(s.preference))
+                for s in specs if s.tuner == "fedtune"}
+        check(cells == want, f"16b table {table}: cells {sorted(cells)} "
+                             f"against the grid's {sorted(want)}")
+        text = paper_table(records, title=f"Paper Table {table} (full "
+                                          "federations, 15 rounds)")
+        check("| — |" not in text, f"16b table {table}: an empty cell")
+        print(text, flush=True)
+        trial_rounds = sum(r.rounds for r in res)
+        emit(dict(phase="paper_tables_full", table=table, trials=len(res),
+                  sweep_rounds=len(fused), trial_rounds=trial_rounds,
+                  wall_s=wall, trial_rounds_per_s=trial_rounds / wall,
+                  local_steps=sum(r.local_steps for r in res),
+                  fused_per_round=[f["calls"] for f in fused],
+                  fed_reduce_every_launch=shapes, launches=counts,
+                  reached=sum(r.reached for r in res), card=card))
+    return launches, inputs
+
+
+TABLE_GROUPS = {50_915: "tables_speech_fedavg",       # 1024-48-35
+                152_404: "tables_cifar100_fedavg"}    # 3072-48-100
+
+
+def tables_reduce_cases(torch, card, floor, inputs):
+    """Phase 16c: ``fed_reduce`` at the tables' own launches: the first
+    fused launch of the speech group (Table 4's) and of the cifar100
+    group (Table 5's) from 16b, bitwise against the plain version, with
+    the roofline's bound on the H100."""
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32,
+                        device="cuda")
+    out = []
+    for n, name in TABLE_GROUPS.items():
+        check(n in inputs, f"16c: no fused launch at N={n} in 16b "
+                           f"({sorted(inputs)})")
+        w, rows, seg, t_seg, kw = inputs[n]
+        check(kw.get("quant_ref") is None and kw.get("normalize"),
+              f"16c {name}: the tables' launch is not a plain FedAvg one")
+        out.append(fed_reduce_case(torch, card, flush, floor, name, w, rows,
+                                   seg, t_seg, None, True))
+    del flush
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--baseline", type=Path, default=None,
@@ -3708,9 +4073,6 @@ def main():
                          "fed_reduce, fed_aggregate, flash_attention_bwd "
                          "and bf16 attention kernels beside this one's")
     args = ap.parse_args()
-    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
-        fail(f"the port's sources are not beside this script ({SRC})")
-    sys.path.insert(0, str(SRC))
     import numpy as np
     import torch
 
@@ -3832,6 +4194,18 @@ def main():
     for k, v in mesh_phase_1rank(torch, card, bf16_recs).items():
         launches[k] = launches.get(k, 0) + v
     emit(dict(phase="mesh_steps", seconds=time.perf_counter() - t15))
+
+    # phase 16: the paper's tables and the other examples' launchers
+    torch.cuda.empty_cache()
+    t16 = time.perf_counter()
+    for k, v in launchers_card_vs_cpu(torch, np, card).items():
+        launches[k] += v
+    table_launches, table_inputs = paper_tables_full(torch, card)
+    for k, v in table_launches.items():
+        launches[k] += v
+    cases += tables_reduce_cases(torch, card, floor, table_inputs)
+    del table_inputs
+    emit(dict(phase="paper_tables", seconds=time.perf_counter() - t16))
 
     for k in ("flash_attention_bf16", "flash_attention_bwd_bf16"):
         check(launches.get(k, 0) > 0, f"{k}: no launch on the bf16 path")

@@ -31,7 +31,11 @@ for name in names:
 # lazily; import it here so its imports are checked too
 import torch.distributed.tensor  # noqa: F401
 assert {"repro_torch.sharding", "repro_torch.sharding.ctx",
-        "repro_torch.sharding.specs"} <= set(names), names
+        "repro_torch.sharding.specs", "repro_torch.roofline",
+        "repro_torch.roofline.hardware", "repro_torch.roofline.kernels",
+        "repro_torch.roofline.analytic", "repro_torch.launch.paper_tables",
+        "repro_torch.launch.quickstart", "repro_torch.launch.preference_sweep",
+        "repro_torch.launch.heterogeneous_fl"} <= set(names), names
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro.")
