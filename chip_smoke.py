@@ -14,10 +14,16 @@ exits non-zero on failure:
      name and power limit.
   2. Hold each FedTune kernel against its plain PyTorch version on the card
      at the main path's shapes: ``fed_reduce`` bitwise (FedAvg, FedBuff
-     flush, a packed T=8 cohort with the int8 round trip, and two packed
+     flush, a packed T=8 cohort with the int8 round trip, the round trip's
+     edges ``quant_edges``: T=4 interleaved with a per-row mask, leaves of
+     1, 35, 62 and 8,300 columns and an all-zero one, and two packed
      sweeps of T=32 lanes at full width: ``packed_sweep`` with M=2,880 and
      ``rows_over_3000`` with M=3,200, 1.97 and 2.19 GB), ``fed_aggregate``
-     bitwise at M=1 and M=16.  One JSON line per case with the kernel's,
+     bitwise at M=1 and M=16.  An int8 case runs the whole call through
+     ``fed_reduce_quant_f32`` (the absmax pass, then the fold with the
+     round trip in its loads) and times the absmax pass alone, the fold
+     alone on rows rounded beforehand and the old plain pre-pass beside
+     it.  One JSON line per case with the kernel's,
      the plain version's and one PyTorch library call's median time (CUDA
      events, L2 flushed before each launch) and the bound: the larger of
      the bytes at 3.35 TB/s and the f32 operations at 67 TFLOP/s.  First,
@@ -106,7 +112,9 @@ exits non-zero on failure:
      ``emnist_like`` federation with the sweep's 40,718-param MLP.  Every
      trial must finish its rounds with its params on the card and positive
      costs, and ``fed_reduce`` must launch exactly once per sweep round for
-     the FedAvg group, int8 lanes in the same launch.  Prints lanes packed
+     the FedAvg group, int8 lanes in the same launch (through
+     ``fed_reduce_quant_f32``: its count must cover every such launch).
+     Prints lanes packed
      per round, the (T, M, N) of every ``fed_reduce`` launch, the wall
      seconds, trial-rounds/s and local steps/s.  Then the async/buffered
      grid (fedavg, preference 14, seeds 0, 1, stragglers fleet, 10
@@ -129,8 +137,9 @@ exits non-zero on failure:
 
 After phase 9, ``fed_reduce`` is held against its plain version at the
 sweep's own launch (phase 7's first FedAvg-group launch: its weights, rows,
-segments and int8 lanes, T=16, N=40,718), with the int8 lanes (the plain
-pre-pass and the kernel alone timed as well) and without.
+segments and int8 lanes, T=16, N=40,718), with the int8 lanes (the
+absmax pass, the fold alone and the old plain pre-pass timed as well) and
+without.
 
   10. Trial serving at full width (``serve_phase``): a staggered queue of 16
      trials (10 sync, 6 async/buffered; the sweep's 40,718-param MLP over
@@ -138,7 +147,9 @@ pre-pass and the kernel alone timed as well) and without.
      lanes on the card.  An uninterrupted drain with a snapshot before
      every step (wall, trials/s, trial-rounds/s, occupancy, snapshot bytes
      and ms, every ``fed_reduce`` (T, M, N) and ``fed_aggregate`` launch,
-     both > 0); the same drain killed half-way and restored on the card
+     both > 0, and the int8 lanes' round trips through
+     ``fed_reduce_quant_f32``, > 0); the same drain killed half-way and
+     restored on the card
      (the store must equal the uninterrupted one row for row, at most one
      step replayed, restore under 1 s); every trial run alone (the same
      records, accuracy exact or within 0.01, eval points that differ
@@ -184,8 +195,9 @@ pre-pass and the kernel alone timed as well) and without.
      sequential on the card: (M, E) and cost totals equal, accuracy
      within 0.01.  12d: ``fed_reduce`` at ResNet's shapes (N = 79,259 at
      M = 5 and 20, N = 336,411 at M = 20, and the int8 round trip over
-     32 and 104 leaves with the plain pre-pass and the kernel timed
-     apart) and ``fed_aggregate`` at M=1, N=79,259, bitwise, with phase
+     32 and 104 leaves with the absmax pass, the fold alone and the old
+     plain pre-pass timed apart) and ``fed_aggregate`` at M=1, N=79,259,
+     bitwise, with phase
      2's columns.
 
   13. The sharded FedTune path on the card: two ranks spawned by
@@ -203,7 +215,8 @@ pre-pass and the kernel alone timed as well) and without.
      0.01; rounds/s beside phase 3's.  13c: the ResNet-10 speech trial,
      int8 uploads, 2 rounds, sharded, against a batched run here; every
      first-round ``fed_reduce`` partial of each rank (32 int8 leaves)
-     bitwise the plain version's.  13d: phase 7's 48-trial grid with
+     bitwise the plain version's, every call of it through
+     ``fed_reduce_quant_f32``.  13d: phase 7's 48-trial grid with
      ``pack="sharded"``, 5 rounds, against phase 7's records.  Then
      ``fed_reduce`` at a rank's shape from 13a (``sharded_rank_fedavg``:
      T=1, M=32, N=169,462) with phase 2's columns.
@@ -299,8 +312,9 @@ gives them), the kernels' JSON summary (six entries: ``fed_reduce``,
 path's, phase 11's training steps and phase 12's and 13's trials (both
 ranks) included; each entry's ``launches_bf16`` counts its bf16 kernel's
 launches in phases 14 and 15, and ``bf16`` holds that kernel's source, phase-2e
-numbers and parity; ``fed_reduce``'s ``paper_tables`` holds phase 16c's
-cases) and
+numbers and parity; ``fed_reduce``'s ``int8`` holds its int8 round trip at
+``sweep_fedavg_int8`` with the round trips of phases 7, 10 and 13 as
+its launches, and ``paper_tables`` phase 16c's cases) and
 ``{"ok": true, "device": {...}}``.  Without a GPU, or without the port's sources beside this file,
 it exits 1 and prints no result.
 
@@ -457,8 +471,13 @@ def fed_reduce_case(torch, card, flush, floor, name, w, rows, seg, t_seg,
     """``fed_reduce`` on (w, rows, seg) held bitwise against its plain
     version, timed beside its plain version and one ``torch.index_add``,
     with its bound.  ``quant`` is (quant_ref, quant_enabled): the int8 round
-    trip of compressed lanes, a plain pre-pass (``ref._quant_rows``) before
-    the kernel, whose time and the kernel's alone are recorded too."""
+    trip of compressed lanes, fused into the call (``fed_reduce_quant_f32``:
+    the absmax pass, then the fold); the whole call is held bitwise, and
+    the absmax pass alone (``absmax_ms``), the fold alone on rows rounded
+    beforehand (``kernel_alone_ms``) and the old plain pre-pass
+    (``plain_prepass_ms``, ``ref._quant_rows``) are timed beside it, and
+    the call through its C entry point alone (``c_entry_ms``: the memset,
+    the absmax pass and the fold, without the wrapper's host work)."""
     from repro_torch.kernels import build
     from repro_torch.kernels import fed_reduce as fr_mod
     from repro_torch.kernels import ref
@@ -506,11 +525,35 @@ def fed_reduce_case(torch, card, flush, floor, name, w, rows, seg, t_seg,
     if quant is not None:
         plain_kw = dict(kw, leaf_sizes=None, quant_ref=None,
                         quant_enabled=None)
+        qref, enabled, off, n_leaves = fr_mod.quant_inputs(
+            rows, t_seg, leaf_sizes, quant[0], quant[1])
+        scratch = torch.empty((m, n_leaves), dtype=torch.int32, device=dev)
+        seg_i = seg.to(torch.int32).contiguous()
+        out_c = torch.empty((t_seg, n), dtype=torch.float32, device=dev)
+        w_f = w.to(torch.float32).contiguous()
         rec.update(
-            prepass_ms=median_ms(torch, lambda: ref._quant_rows(
+            leaves=n_leaves,
+            int8_rows=m if quant[1] is None else int(quant[1].sum()),
+            absmax_ms=median_ms(torch, raw_call(
+                torch, build.library().fed_reduce_quant_absmax_f32,
+                rows.data_ptr(), seg_i.data_ptr(),
+                qref.data_ptr(), None if enabled is None
+                else enabled.data_ptr(), off.data_ptr(), n_leaves,
+                scratch.data_ptr(), m, n, t_seg), flush),
+            c_entry_ms=median_ms(torch, raw_call(
+                torch, build.library().fed_reduce_quant_f32,
+                w_f.data_ptr(), rows.data_ptr(),
+                seg_i.data_ptr(), None if base is None else base.data_ptr(),
+                out_c.data_ptr(), qref.data_ptr(), None if enabled is None
+                else enabled.data_ptr(), off.data_ptr(), n_leaves,
+                scratch.data_ptr(), m, n, t_seg, int(normalize)), flush),
+            plain_prepass_ms=median_ms(torch, lambda: ref._quant_rows(
                 rows, seg, quant[0], quant[1], leaf_sizes), flush),
             kernel_alone_ms=median_ms(torch, lambda: fr_mod.fed_reduce(
                 w, x, seg, t_seg, base, **plain_kw), flush))
+        torch.cuda.synchronize()
+        check(bool(torch.equal(out_c, want)), f"fed_reduce {name}: the C "
+              "entry point's result != plain version")
     if old_lib is not None:
         seg_i = seg.to(torch.int32).contiguous()
         outs = {}
@@ -596,10 +639,10 @@ def kernel_cases(torch, np, card, flush, old_lib=None):
         return torch.from_numpy(np.asarray(a)).to(dev)
 
     def reduce_case(name, m, t_seg, seg, w, rows, base, normalize,
-                    quant=None):
+                    quant=None, sizes=leaf_sizes):
         results.append(fed_reduce_case(
             torch, card, flush, floor, name, w, rows, seg, t_seg, base,
-            normalize, quant, leaf_sizes, old_lib))
+            normalize, quant, sizes, old_lib))
 
     # FedAvg: T=1, M=20 raw counts, normalize, no base
     m = 20
@@ -624,6 +667,23 @@ def kernel_cases(torch, np, card, flush, old_lib=None):
     rows = g[seg] + rng.standard_normal((m, n)).astype(np.float32) * 1e-2
     reduce_case("packed_quant", m, t_seg, t(seg), t(w), t(rows), t(g),
                 True, quant=(t(g), t(np.arange(m) % 3 != 0)))
+    # the round trip's edges: T=4 interleaved with a per-row mask, leaves of
+    # 1, 35, 62 and 8,300 columns (boundaries inside quads and warps), an
+    # all-zero leaf (scale 1e-12), a zero reference lane, N = 2 mod 4
+    sizes = (1, 35, 62, 8300, 40)
+    m, t_seg, nq = 24, 4, sum(sizes)
+    seg = rng.integers(0, t_seg, m).astype(np.int32)
+    g = rng.standard_normal((t_seg, nq)).astype(np.float32) * 0.05
+    g[t_seg - 1] = 0.0
+    scale = np.concatenate([np.full(k, 10.0 ** rng.uniform(-4, -1))
+                            for k in sizes]).astype(np.float32)
+    rows = (g[seg] + rng.standard_normal((m, nq)).astype(np.float32)
+            * scale).astype(np.float32)
+    rows[:, nq - 40:] = g[seg][:, nq - 40:]
+    reduce_case("quant_edges", m, t_seg, t(seg),
+                t(rng.uniform(1.0, 300.0, m).astype(np.float32)), t(rows),
+                t(g), True, quant=(t(g), t(rng.integers(0, 2, m) == 1)),
+                sizes=sizes)
 
     # packed sweeps at full width: T=32 lanes packed lane by lane (the sweep
     # engine's layout), raw counts normalised per lane, no base, no quant;
@@ -1205,7 +1265,7 @@ def main_path(torch, card, init_params):
     from repro_torch.tree import leaves, tree_map
 
     runs, walls = {}, {}
-    launches = {"fed_reduce": 0, "fed_aggregate": 0}
+    launches = {"fed_reduce": 0, "fed_reduce_int8": 0, "fed_aggregate": 0}
     plans = [("sync", dict(m=20, max_rounds=5)),
              ("async", dict(m=10, max_rounds=10, fleet_name="stragglers")),
              ("buffered", dict(m=10, max_rounds=2, buffer_k=8,
@@ -1354,12 +1414,14 @@ def sweep_full_width(torch, card):
     try:
         torch.cuda.synchronize()
         fr_mod.launches = 0
+        fr_mod.quant_launches = 0
         fa_mod.launches = 0
         t0 = time.perf_counter()
         res = run_sweep(specs, device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = {"fed_reduce": fr_mod.launches,
+                  "fed_reduce_int8": fr_mod.quant_launches,
                   "fed_aggregate": fa_mod.launches}
     finally:
         ops.fed_reduce, runner._fused_sync_reduce = inner_op, inner_fused
@@ -1380,6 +1442,9 @@ def sweep_full_width(torch, card):
           f"{[f['launches'] for f in fused]}, wanted 1 each")
     check(all(f["calls"][0]["int8_rows"] > 0 for f in fused),
           "phase 7: the FedAvg group's launch carried no int8 lanes")
+    check(counts["fed_reduce_int8"] >= len(fused),
+          f"phase 7: {counts['fed_reduce_int8']} int8 round trips through "
+          f"fed_reduce_quant_f32 for {len(fused)} int8 FedAvg-group launches")
     trial_rounds = sum(r.rounds for r in res)
     steps = sum(r.local_steps for r in res)
     rec = dict(phase="sweep_full_width", mode="sync", trials=len(res),
@@ -1419,7 +1484,7 @@ def sweep_full_width(torch, card):
               aggregations=aggs, aggregations_per_s=aggs / ev_wall,
               local_steps=ev_steps, local_steps_per_s=ev_steps / ev_wall,
               card=card))
-    launches = {k: counts[k] + ev_counts[k] for k in counts}
+    launches = {k: counts[k] + ev_counts.get(k, 0) for k in counts}
     return res, ev_res, wall, launches, captured["inputs"]
 
 
@@ -1673,12 +1738,14 @@ def serve_phase(torch, card):
     try:
         torch.cuda.synchronize()
         fr_mod.launches = 0
+        fr_mod.quant_launches = 0
         fa_mod.launches = 0
         t0 = time.perf_counter()
         served = sched.drain()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = {"fed_reduce": fr_mod.launches,
+                  "fed_reduce_int8": fr_mod.quant_launches,
                   "fed_aggregate": fa_mod.launches}
     finally:
         ops.fed_reduce = inner_op
@@ -1695,8 +1762,10 @@ def serve_phase(torch, card):
     check(all(p.device.type == "cuda" for r in served
               for p in leaves(r.params)),
           "phase 10: served params are not all on cuda")
-    check(counts["fed_reduce"] > 0 and counts["fed_aggregate"] > 0,
-          f"phase 10: launches {counts}: both kernels must launch")
+    check(counts["fed_reduce"] > 0 and counts["fed_aggregate"] > 0
+          and counts["fed_reduce_int8"] > 0,
+          f"phase 10: launches {counts}: both kernels and the int8 round "
+          "trip must launch")
     trial_rounds = sum(r.rounds for r in served)
 
     # (b) killed after S // 2 steps, restored on the card, drained
@@ -2960,12 +3029,14 @@ def sharded_rank(mesh, init_np, speech_np):
     def run(case, fn):
         torch.cuda.synchronize()
         fr_mod.launches = 0
+        fr_mod.quant_launches = 0
         sharded.rounds = 0
         t0 = time.perf_counter()
         res = fn()
         torch.cuda.synchronize()
         out[case] = dict(wall_s=time.perf_counter() - t0,
                          fed_reduce_launches=fr_mod.launches,
+                         fed_reduce_int8_launches=fr_mod.quant_launches,
                          sharded_rounds=sharded.rounds)
         return res
 
@@ -3028,7 +3099,8 @@ def sharded_phase(torch, np, card, init_params, sync_res, sync_wall,
     ``sharded_rank``'s cases; this process checks them against phase 3's
     and phase 7's records, a batched speech trial and a batched
     ``cohort_fedavg`` on the card, and runs 13a once more in a 1-rank NCCL
-    group.  Returns phase 13's ``fed_reduce`` launches."""
+    group.  Returns phase 13's ``fed_reduce`` launches and, of them, the
+    int8 round trips (``fed_reduce_quant_f32``)."""
     import os
     import tempfile
 
@@ -3053,7 +3125,7 @@ def sharded_phase(torch, np, card, init_params, sync_res, sync_wall,
         args=(to_np(init_params), to_np(speech_init)), threads=4,
         timeout_s=600.0)
     ranks_s = time.perf_counter() - t13
-    launches = 0
+    launches = quant_launches = 0
     for r in ranks:
         check((r["device"], r["backend"], r["size"]) == ("cuda:0", "gloo", 2),
               f"13: rank {r['rank']} ran on {r['device']} over "
@@ -3065,6 +3137,12 @@ def sharded_phase(torch, np, card, init_params, sync_res, sync_wall,
                   f"{case}: rank {r['rank']} ran no sharded round (the "
                   "batched fallback ran)")
             launches += r[case]["fed_reduce_launches"]
+            quant_launches += r[case]["fed_reduce_int8_launches"]
+        check(r["13c"]["fed_reduce_int8_launches"]
+              == r["13c"]["fed_reduce_launches"],
+              f"13c: rank {r['rank']} ran {r['13c']['fed_reduce_launches']} "
+              f"fed_reduce calls, {r['13c']['fed_reduce_int8_launches']} of "
+              "them through fed_reduce_quant_f32: every one must")
     r0, r1 = ranks
 
     # 13a: the ranks against each other and a batched round on the card
@@ -3143,6 +3221,8 @@ def sharded_phase(torch, np, card, init_params, sync_res, sync_wall,
                             for r in ranks],
               batched_rounds_per_s=bat.rounds / bat_wall,
               launches=[r["13c"]["fed_reduce_launches"] for r in ranks],
+              int8_launches=[r["13c"]["fed_reduce_int8_launches"]
+                             for r in ranks],
               sharded_rounds=[r["13c"]["sharded_rounds"] for r in ranks],
               card=card))
 
@@ -3168,8 +3248,9 @@ def sharded_phase(torch, np, card, init_params, sync_res, sync_wall,
               sharded_rounds=[r["13d"]["sharded_rounds"] for r in ranks],
               card=card))
     emit(dict(phase="sharded", ranks_s=ranks_s,
-              seconds=time.perf_counter() - t13, fed_reduce_launches=launches))
-    return launches
+              seconds=time.perf_counter() - t13, fed_reduce_launches=launches,
+              fed_reduce_int8_launches=quant_launches))
+    return launches, quant_launches
 
 
 def sharded_reduce_case(torch, np, card, floor):
@@ -3498,6 +3579,27 @@ def kernel_summary(cases, launches):
             **{k: head[k] for k in ("bound_route", "bound_f32_simt_ms",
                                     "bound_tf32x3_ms", "launch_floor_ms")
                if k in head}))
+    # fed_reduce's int8 round trip (fed_reduce_quant_f32) at the sweep's
+    # own int8 launch, with every int8 case's parity
+    quant = [c for c in cases if c.get("kernel") == "fed_reduce"
+             and c.get("quant")]
+    head = next(c for c in quant if c["case"] == "sweep_fedavg_int8")
+    summary[0]["int8"] = dict(
+        name="fed_reduce_quant", route="cuda", source=f"{csrc}/fed_reduce.cu",
+        replaces="src/repro/kernels/ref.py:42 (_quant_rows, in fed_reduce's "
+                 "jit before src/repro/kernels/fed_reduce.py:88)",
+        launches=launches.get("fed_reduce_int8", 0),
+        max_abs_err=max(c["max_abs_err"] for c in quant),
+        ms=head["ms"], c_entry_ms=head["c_entry_ms"],
+        kernel_alone_ms=head["kernel_alone_ms"], absmax_ms=head["absmax_ms"],
+        plain_prepass_ms=head["plain_prepass_ms"], plain_ms=head["plain_ms"],
+        bound_ms=head["bound_ms"], bound_by=head["bound_by"], library_ms=None,
+        shape=head["shape"], leaves=head["leaves"],
+        int8_rows=head["int8_rows"],
+        cases={c["case"]: dict(ms=c["ms"], c_entry_ms=c["c_entry_ms"],
+            kernel_alone_ms=c["kernel_alone_ms"], absmax_ms=c["absmax_ms"],
+            plain_prepass_ms=c["plain_prepass_ms"], bound_ms=c["bound_ms"],
+            check=c["check"]) for c in quant})
     # fed_reduce at the paper tables' own launches (phase 16c)
     summary[0]["paper_tables"] = [dict(
         case=c["case"], shape=c["shape"], max_abs_err=c["max_abs_err"],
@@ -3823,7 +3925,18 @@ def ulp_twin_init(np, mod_name):
 
 # how far a chaotic run's card accuracy may stray from the CPU's, as a
 # multiple of the largest gap of the CPU's own one-ulp twin (ROADMAP.md
-# departure 16)
+# departure 16; a departure from departure 7's 0.01 not yet agreed). The
+# condition set for agreeing to it: through the first round 0.01 apart, the
+# port's parameter drift from the reference stays within the spread of the
+# reference's two one-ulp twins. It held in 2 of 7 runs
+# (tests/twin_drift.py, CPU). In Table 6's FedAdam seed 0, the run this
+# phase holds, the port crosses a ReLU kink at round 4 that neither the
+# reference nor any of its 12 twins crosses: 0.12, 164x the two twins. The
+# reference itself, run from the port's state after round 3, makes the same
+# round 4 (9.5e-6 from the port's, 0.12 from its own), and each port round
+# run from the reference's state lands within 2.75x of that state moved one
+# ulp, in all 7 runs up to their first 0.01 round (tests/test_torch_twins.py
+# pins both for this run)
 TWIN_GAP_MULTIPLE = 2.0
 
 
@@ -3844,7 +3957,7 @@ def launchers_card_vs_cpu(torch, np, card):
     only if that twin keeps the CPU run's (M, E) and costs, leaves 0.01 of
     the CPU's accuracy no later than the card does, and the card's largest
     gap is at most ``TWIN_GAP_MULTIPLE`` times the twin's (the trial is
-    chaotic in rounding, ROADMAP.md departure 16).
+    chaotic in rounding: ROADMAP.md departure 16, still to be agreed).
     The tables as rendered, and whether they are equal.  Returns the card
     runs' kernel launches."""
     import importlib
@@ -4183,9 +4296,11 @@ def main():
     emit(dict(phase="resnet_phase", seconds=time.perf_counter() - t12))
 
     torch.cuda.empty_cache()
-    launches["fed_reduce"] += sharded_phase(
+    n_sharded, n_sharded_int8 = sharded_phase(
         torch, np, card, init_params, runs["sync"], walls["sync"],
         speech_init, sweep_records)
+    launches["fed_reduce"] += n_sharded
+    launches["fed_reduce_int8"] += n_sharded_int8
     cases.append(sharded_reduce_case(torch, np, card, floor))
 
     # phase 15: the LM steps on ("data", "model") meshes
@@ -4209,6 +4324,8 @@ def main():
 
     for k in ("flash_attention_bf16", "flash_attention_bwd_bf16"):
         check(launches.get(k, 0) > 0, f"{k}: no launch on the bf16 path")
+    check(launches["fed_reduce_int8"] > 0, "fed_reduce_quant_f32: no int8 "
+                                           "round trip on the main path")
     summary = kernel_summary(cases, launches)
     print(card, flush=True)
     emit({"kernels": summary})

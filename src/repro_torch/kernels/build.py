@@ -117,7 +117,11 @@ def _entry_points():
     return {
         "fed_reduce.cu": [("fed_reduce_f32",
                            [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
-                            ptr])],
+                            ptr]),
+                          ("fed_reduce_quant_f32",
+                           [ptr] * 8 + [i32, ptr] + [i32] * 5 + [ptr]),
+                          ("fed_reduce_quant_absmax_f32",
+                           [ptr] * 5 + [i32, ptr] + [i32] * 4 + [ptr])],
         "fed_aggregate.cu": [("fed_aggregate_f32",
                               [ptr, ptr, ptr, ptr, i32, i32, i32, ptr])],
         "rglru_scan.cu": [("rglru_scan_f32",

@@ -9,7 +9,9 @@ The shapes cover every row alignment the kernels meet (N divisible by 4
 and N = 1, 2 and 3 mod 4, so that packed rows start on 16-, 8- and 4-byte
 boundaries, and a masked tail), a misaligned row pointer, interleaved and
 empty segments, more rows than one batch in flight, more rows than a block
-lists at a time (no row limit), and the int8 round trip.  ``fed_reduce``
+lists at a time (no row limit), and the int8 round trip (leaves from 1 to
+more than 8,192 columns wide, an all-zero leaf, a per-row mask, the
+plain pre-pass never run).  ``fed_reduce``
 and ``fed_aggregate`` must be bitwise equal to the plain version.
 ``rglru_scan`` must be bitwise equal (W not a multiple of the
 block, T = 1, T not a multiple of the time chunk, both copy widths);
@@ -87,6 +89,47 @@ def test_fed_reduce_kernel_is_bitwise(cuda, n, mode):
     torch.cuda.synchronize()
     assert fr_mod.launches == before + 1
     assert torch.equal(got, ref.fed_reduce_ref(w, rows, seg, t, b, **kw))
+
+
+@pytest.mark.parametrize("m,t,tail", [(12, 4, 0), (12, 4, 3), (1100, 1, 1),
+                                       (1100, 3, 2)])
+def test_fed_reduce_quant_kernel_is_bitwise(cuda, m, t, tail, monkeypatch):
+    """``fed_reduce_quant_f32``: leaves of widths 1, 35, 62 and more than
+    8,192 (boundaries inside quads and warps), an all-zero leaf (scale
+    1e-12), a zero reference lane, a per-row mask, interleaved segments, N
+    of every residue mod 4 (rows on 16-, 8- and 4-byte boundaries) and more
+    rows than a block lists at a time.  The plain pre-pass is never run."""
+    sizes = (1, 35, 62, 8300, 35, 62 + tail)
+    n = sum(sizes)
+    rng = np.random.default_rng(m * 10 + tail)
+    seg = rng.integers(0, t, m).astype(np.int32)
+    g = rng.standard_normal((t, n)).astype(np.float32)
+    g[t - 1] = 0.0
+    scales = np.concatenate([np.full(s, 10.0 ** rng.uniform(-4, -1))
+                             for s in sizes]).astype(np.float32)
+    rows = (g[seg] + rng.standard_normal((m, n)).astype(np.float32)
+            * scales).astype(np.float32)
+    rows[:, 36:98] = g[seg][:, 36:98]                  # leaf 2: d == 0
+    w = rng.uniform(1.0, 300.0, m).astype(np.float32)
+    w[0] = 0.0
+    en = rng.integers(0, 2, m).astype(bool)
+    w, rows, seg, g, en = (torch.from_numpy(a).to(cuda)
+                           for a in (w, rows, seg, g, en))
+    kw = dict(normalize=True, leaf_sizes=sizes, quant_ref=g)
+    want = {mask: ref.fed_reduce_ref(w, rows, seg, t, quant_enabled=mask,
+                                     **kw) for mask in (None, en)}
+    torch.cuda.synchronize()
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain pre-pass ran on the card")
+    monkeypatch.setattr(ref, "_quant_rows", refuse)
+    for mask, expect in ((None, want[None]), (en, want[en])):
+        before = (fr_mod.launches, fr_mod.quant_launches)
+        got = fr_mod.fed_reduce(w, rows, seg, t, quant_enabled=mask, **kw)
+        torch.cuda.synchronize()
+        assert (fr_mod.launches, fr_mod.quant_launches) == (
+            before[0] + 1, before[1] + 1)
+        assert torch.equal(got, expect)
 
 
 def test_fed_reduce_kernel_misaligned_rows(cuda):
