@@ -16,14 +16,17 @@ exits non-zero on failure:
      at the main path's shapes: ``fed_reduce`` bitwise (FedAvg, FedBuff
      flush, a packed T=8 cohort with the int8 round trip, the round trip's
      edges ``quant_edges``: T=4 interleaved with a per-row mask, leaves of
-     1, 35, 62 and 8,300 columns and an all-zero one, and two packed
+     1, 35, 62 and 8,300 columns and an all-zero one,
+     ``quant_rows_over_1024``: T=3, M=1,100, more rows than a block lists
+     at a time, ``quant_many_leaves``: 300 leaves of mixed widths, T=2,
+     M=24, and two packed
      sweeps of T=32 lanes at full width: ``packed_sweep`` with M=2,880 and
      ``rows_over_3000`` with M=3,200, 1.97 and 2.19 GB), ``fed_aggregate``
      bitwise at M=1 and M=16.  An int8 case runs the whole call through
-     ``fed_reduce_quant_f32`` (the absmax pass, then the fold with the
-     round trip in its loads) and times the absmax pass alone, the fold
-     alone on rows rounded beforehand and the old plain pre-pass beside
-     it.  One JSON line per case with the kernel's,
+     ``fed_reduce_quant_f32`` (one cooperative launch: the zeroing, the
+     absmax phase and the fold with the round trip in its loads) and times
+     the same kernel stopped after its absmax phase, the fold alone on rows
+     rounded beforehand and the old plain pre-pass beside it.  One JSON line per case with the kernel's,
      the plain version's and one PyTorch library call's median time (CUDA
      events, L2 flushed before each launch) and the bound: the larger of
      the bytes at 3.35 TB/s and the f32 operations at 67 TFLOP/s.  First,
@@ -314,7 +317,11 @@ ranks) included; each entry's ``launches_bf16`` counts its bf16 kernel's
 launches in phases 14 and 15, and ``bf16`` holds that kernel's source, phase-2e
 numbers and parity; ``fed_reduce``'s ``int8`` holds its int8 round trip at
 ``sweep_fedavg_int8`` with the round trips of phases 7, 10 and 13 as
-its launches, and ``paper_tables`` phase 16c's cases) and
+its launches, ptxas's report of ``fed_reduce_quant_kernel`` and the device
+kernels ``torch.profiler`` saw one int8 call run at each main-path shape
+(the sweep's launch, ResNet-10's and ResNet-34's; the last phase checks
+that each is that one kernel, no memset), and ``paper_tables`` phase 16c's
+cases) and
 ``{"ok": true, "device": {...}}``.  Without a GPU, or without the port's sources beside this file,
 it exits 1 and prints no result.
 
@@ -324,8 +331,11 @@ also builds another checkout's ``fed_reduce``, ``fed_aggregate``,
 ``flash_attention_bwd`` and, where it has them, bf16 attention kernels
 (``flash_attention_bf16.cu``, ``flash_attention_bwd_bf16.cu`` with its
 own ``attn_bf16.cuh``) and times them beside this checkout's on every
-phase-2 case, every phase-2c attention case and every phase-2e attention
+phase-2 case, the sweep's launches and ResNet's int8 cases, every
+phase-2c attention case and every phase-2e attention
 case, in turns (old, new, new, old), each through its own C entry point
+(an int8 case's through ``fed_reduce_quant_f32`` where the older checkout
+has it, with ``faster_beyond_spread``)
 (an older attention backward takes a (B, H, S) delta buffer where this one
 takes the scratch its planner sizes); each case's line then carries
 ``old_ms`` and ``new_ms`` (two each) and whether the old kernel ran and
@@ -476,8 +486,14 @@ def fed_reduce_case(torch, card, flush, floor, name, w, rows, seg, t_seg,
     the absmax pass alone (``absmax_ms``), the fold alone on rows rounded
     beforehand (``kernel_alone_ms``) and the old plain pre-pass
     (``plain_prepass_ms``, ``ref._quant_rows``) are timed beside it, and
-    the call through its C entry point alone (``c_entry_ms``: the memset,
-    the absmax pass and the fold, without the wrapper's host work)."""
+    the call through its C entry point alone (``c_entry_ms``: one
+    cooperative launch of the zeroing, the absmax phase and the fold,
+    without the wrapper's host work); ``absmax_ms`` is the same kernel
+    stopped after its absmax phase (``fed_reduce_quant_absmax_f32``).
+    With ``old_lib`` the turns (old, new, new, old) are of
+    ``fed_reduce_quant_f32`` for an int8 case where the older checkout has
+    it (``turns_of``), else of ``fed_reduce_f32`` on the rows as given
+    (rounded beforehand for an int8 case)."""
     from repro_torch.kernels import build
     from repro_torch.kernels import fed_reduce as fr_mod
     from repro_torch.kernels import ref
@@ -527,7 +543,7 @@ def fed_reduce_case(torch, card, flush, floor, name, w, rows, seg, t_seg,
                         quant_enabled=None)
         qref, enabled, off, n_leaves = fr_mod.quant_inputs(
             rows, t_seg, leaf_sizes, quant[0], quant[1])
-        scratch = torch.empty((m, n_leaves), dtype=torch.int32, device=dev)
+        scratch = fr_mod.quant_scratch(m, n_leaves, dev)
         seg_i = seg.to(torch.int32).contiguous()
         out_c = torch.empty((t_seg, n), dtype=torch.float32, device=dev)
         w_f = w.to(torch.float32).contiguous()
@@ -557,18 +573,37 @@ def fed_reduce_case(torch, card, flush, floor, name, w, rows, seg, t_seg,
     if old_lib is not None:
         seg_i = seg.to(torch.int32).contiguous()
         outs = {}
+        quant_turns = quant is not None and hasattr(
+            old_lib, "fed_reduce_quant_f32")
 
         def c_call(lib, key):
             out = torch.empty((t_seg, n), dtype=torch.float32, device=dev)
             outs[key] = out
-            return raw_call(torch, lib.fed_reduce_f32, w.data_ptr(),
-                            x.data_ptr(), seg_i.data_ptr(),
-                            None if base is None else base.data_ptr(),
-                            out.data_ptr(), m, n, t_seg, int(normalize))
+            base_ptr = None if base is None else base.data_ptr()
+            if not quant_turns:
+                return raw_call(torch, lib.fed_reduce_f32, w.data_ptr(),
+                                x.data_ptr(), seg_i.data_ptr(), base_ptr,
+                                out.data_ptr(), m, n, t_seg, int(normalize))
+            outs[key + "_scratch"] = sc = fr_mod.quant_scratch(
+                m, n_leaves, dev)
+            return raw_call(torch, lib.fed_reduce_quant_f32, w_f.data_ptr(),
+                            rows.data_ptr(), seg_i.data_ptr(), base_ptr,
+                            out.data_ptr(), qref.data_ptr(),
+                            None if enabled is None else enabled.data_ptr(),
+                            off.data_ptr(), n_leaves, sc.data_ptr(), m, n,
+                            t_seg, int(normalize))
         rec.update(old_vs_new(
             torch, flush, c_call(old_lib, "old"),
             c_call(build.library(), "new"),
-            lambda: bool(torch.equal(outs["old"], want))))
+            lambda: bool(torch.equal(outs["old"], want))),
+            turns_of="fed_reduce_quant_f32" if quant_turns
+            else "fed_reduce_f32")
+        if rec.get("old_ran") and quant_turns:
+            # faster by more than the spread: the slower new turn beats the
+            # faster old one by more than either kernel's two turns differ
+            o, nw = rec["old_ms"], rec["new_ms"]
+            rec["faster_beyond_spread"] = (
+                min(o) - max(nw) > max(abs(o[0] - o[1]), abs(nw[0] - nw[1])))
     emit(rec)
     return rec
 
@@ -684,6 +719,30 @@ def kernel_cases(torch, np, card, flush, old_lib=None):
                 t(rng.uniform(1.0, 300.0, m).astype(np.float32)), t(rows),
                 t(g), True, quant=(t(g), t(rng.integers(0, 2, m) == 1)),
                 sizes=sizes)
+
+    qrng = np.random.default_rng(27)       # the later cases' draws kept
+
+    def quant_case(name, m, t_seg, sizes):
+        """An int8 case with a per-row mask, interleaved segments and
+        each leaf's rows at a scale of their own."""
+        rng = qrng
+        nq = sum(sizes)
+        seg = rng.integers(0, t_seg, m).astype(np.int32)
+        g = rng.standard_normal((t_seg, nq)).astype(np.float32) * 0.05
+        scale = np.concatenate([np.full(k, 10.0 ** rng.uniform(-4, -1))
+                                for k in sizes]).astype(np.float32)
+        rows = (g[seg] + rng.standard_normal((m, nq)).astype(np.float32)
+                * scale).astype(np.float32)
+        reduce_case(name, m, t_seg, t(seg),
+                    t(rng.uniform(1.0, 300.0, m).astype(np.float32)),
+                    t(rows), t(g), True,
+                    quant=(t(g), t(rng.integers(0, 2, m) == 1)), sizes=sizes)
+
+    # more rows than a block lists at a time (the GPU test's leaf split)
+    quant_case("quant_rows_over_1024", 1100, 3, (1, 35, 62, 8300, 35, 64))
+    # more leaves than a block stages (kLeafCap), tiles across many leaves
+    quant_case("quant_many_leaves", 24, 2, tuple(int(k) for k in qrng.choice(
+        [1, 2, 3, 35, 62, 130, 700], 300)))
 
     # packed sweeps at full width: T=32 lanes packed lane by lane (the sweep
     # engine's layout), raw counts normalised per lane, no base, no quant;
@@ -1925,10 +1984,11 @@ def sweep_card_vs_cpu(torch):
               card_wall_s=out["cuda_wall"], cpu_wall_s=out["cpu_wall"]))
 
 
-def sweep_reduce_cases(torch, card, floor, inputs):
+def sweep_reduce_cases(torch, card, floor, inputs, old_lib=None):
     """``fed_reduce`` at the sweep's own launch shape: phase 7's first
     FedAvg-group launch (its weights, rows, segments and int8 lanes), with
-    the int8 lanes and without."""
+    the int8 lanes and without (``old_lib``: in turns with an older
+    checkout's kernels)."""
     w, rows, seg, t_seg, kw = inputs
     n = rows.shape[1]
     leaf_sizes = tuple(kw["leaf_sizes"])
@@ -1939,9 +1999,9 @@ def sweep_reduce_cases(torch, card, floor, inputs):
     out = [fed_reduce_case(torch, card, flush, floor, "sweep_fedavg_int8", w,
                            rows, seg, t_seg, None, True,
                            (kw["quant_ref"], kw["quant_enabled"]),
-                           leaf_sizes),
+                           leaf_sizes, old_lib),
            fed_reduce_case(torch, card, flush, floor, "sweep_fedavg", w,
-                           rows, seg, t_seg, None, True)]
+                           rows, seg, t_seg, None, True, old_lib=old_lib)]
     del flush
     return out
 
@@ -2913,10 +2973,11 @@ def speech_card_vs_cpu(runs, init_params):
                              runs["sync_batched"].history, n_rounds)))
 
 
-def resnet_kernel_cases(torch, np, card, floor):
+def resnet_kernel_cases(torch, np, card, floor, old_lib=None):
     """Phase 12d: ``fed_reduce`` and ``fed_aggregate`` at ResNet's shapes
-    (N = 79,259 and 336,411; the int8 pre-pass over its 32 and 104
-    leaves), each held bitwise against its plain version."""
+    (N = 79,259 and 336,411; the int8 round trip over its 32 and 104
+    leaves), each held bitwise against its plain version (``old_lib``:
+    the int8 cases in turns with an older checkout's kernel)."""
     from repro_torch.configs.paper_models import RESNET10, RESNET34
     from repro_torch.models import build_model
     from repro_torch.tree import leaves
@@ -2947,7 +3008,7 @@ def resnet_kernel_cases(torch, np, card, floor):
             torch, card, flush, floor, f"{tag}_int8",
             t(rng.integers(1, 317, m).astype(np.float32)), t(rows),
             t(np.zeros(m, np.int32)), 1, None, True,
-            (t(g), t(np.ones(m, bool))), sizes)
+            (t(g), t(np.ones(m, bool))), sizes, old_lib)
         rec["leaves"] = len(sizes)
         out.append(rec)
     n = 79_259
@@ -3519,6 +3580,101 @@ def bf16_serve(torch, np, card):
     return totals
 
 
+INT8_SPEC = ROOT / "build" / "int8_one_kernel.json"
+
+
+def int8_one_kernel(card, sweep_inputs):
+    """One ``fed_reduce`` call with the int8 round trip at each main-path
+    shape (phase 7's FedAvg-group launch; ResNet-10's 32 and ResNet-34's
+    104 leaves at M = 20, the speech trial's cohort), counted by
+    ``torch.profiler``: each call must run one device kernel,
+    ``fed_reduce_quant_kernel``, and no memset or copy.  Run in a child
+    process (``int8_one_kernel_child``), given the sweep launch's
+    weights, segments, mask and leaves: in this process, after the earlier
+    phases' sessions, a session saw no device kernels at all on the card
+    (torch 2.11).  Returns each case's device kernels."""
+    w, rows, seg, t_seg, kw = sweep_inputs
+    INT8_SPEC.parent.mkdir(parents=True, exist_ok=True)
+    INT8_SPEC.write_text(json.dumps(dict(
+        card=card, w=w.tolist(), seg=seg.tolist(), t=t_seg, n=rows.shape[1],
+        leaf_sizes=list(kw["leaf_sizes"]),
+        enabled=kw["quant_enabled"].tolist())))
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         "import chip_smoke; chip_smoke.int8_one_kernel_child()"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    print(proc.stdout, end="", flush=True)
+    check(proc.returncode == 0, "the int8 one-kernel check failed: "
+          f"{proc.stderr[-2000:]}")
+    return {r["case"]: r["device_events"] for r in map(
+        json.loads, proc.stdout.splitlines()) if r.get("case")}
+
+
+def int8_one_kernel_child():
+    """``int8_one_kernel``'s child: one ``torch.profiler`` session around
+    the three calls, each ended by a device sync, whose device events in
+    time order must be three ``fed_reduce_quant_kernel`` launches, one a
+    call (each call counts one in ``quant_launches``).  Prints one JSON
+    line a case; exits 1 on a miss."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.paper_models import RESNET10, RESNET34
+    from repro_torch.kernels import fed_reduce as fr_mod
+    from repro_torch.models import build_model
+    from repro_torch.tree import leaves
+
+    spec = json.loads(INT8_SPEC.read_text())
+    rng = np.random.default_rng(28)
+    dev = torch.device("cuda")
+
+    def inputs(w, seg, t_seg, sizes, enabled):
+        n = sum(sizes)
+        g = torch.from_numpy(rng.standard_normal((t_seg, n)).astype(
+            np.float32) * 0.05).to(dev)
+        seg = torch.tensor(seg, dtype=torch.int32, device=dev)
+        x = g[seg.long()] + torch.from_numpy(rng.standard_normal(
+            (len(w), n)).astype(np.float32) * 1e-2).to(dev)
+        return (torch.tensor(w, dtype=torch.float32, device=dev), x, seg,
+                t_seg, dict(normalize=True, leaf_sizes=tuple(sizes),
+                            quant_ref=g, quant_enabled=torch.tensor(
+                                enabled, dtype=torch.bool, device=dev)))
+
+    cases = {"sweep_fedavg_int8": inputs(spec["w"], spec["seg"], spec["t"],
+                                         spec["leaf_sizes"],
+                                         spec["enabled"])}
+    for tag, cfg in (("resnet10", RESNET10), ("resnet34", RESNET34)):
+        sizes = [p.numel() for p in leaves(build_model(cfg).init(0, "cpu"))]
+        cases[f"{tag}_int8"] = inputs(
+            rng.integers(1, 317, 20).astype(float).tolist(), [0] * 20, 1,
+            sizes, [True] * 20)
+
+    def calls():
+        for w, x, seg, t_seg, kw in cases.values():
+            fr_mod.fed_reduce(w, x, seg, t_seg, **kw)
+            torch.cuda.synchronize()
+
+    def device_events():
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            calls()
+        evs = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        return [e.name for e in sorted(evs, key=lambda e: e.time_range.start)]
+
+    calls()                                         # warm: the library loads
+    before = fr_mod.quant_launches
+    got = device_events() or device_events()
+    check(fr_mod.quant_launches - before in (len(cases), 2 * len(cases)),
+          f"int8 calls launched {fr_mod.quant_launches - before} times")
+    for name, ev in zip(cases, got):
+        emit(dict(phase="int8_one_kernel", case=name, device_events=[ev],
+                  card=spec["card"]))
+    check(len(got) == len(cases)
+          and all("fed_reduce_quant_kernel" in e for e in got),
+          f"{len(cases)} int8 fed_reduce calls ran {got} on the card, not "
+          "one fed_reduce_quant_kernel each")
+
+
 # the bf16 kernels' sources and the case each summary entry quotes: the
 # attention's at recurrentgemma's local layer, where SDPA can compute the
 # same function (gemma2's soft cap it cannot), so ``library_ms`` is filled
@@ -3530,10 +3686,14 @@ BF16_MAIN = {"flash_attention": "recurrentgemma_local",
              "rglru_scan": "recurrentgemma_prefill"}
 
 
-def kernel_summary(cases, launches):
+def kernel_summary(cases, launches, ptxas, one_kernel):
     """The kernels' JSON summary: one entry per TPU kernel or gradient (six)
     with its f32 kernel's numbers, and under ``bf16`` its bf16 kernel's
-    (None where it has none), each with the same keys."""
+    (None where it has none), each with the same keys.  ``fed_reduce``
+    carries ptxas's report of its fold, and its ``int8`` entry that of
+    ``fed_reduce_quant_kernel``, the device kernels ``torch.profiler`` saw
+    one call run at each main-path shape (``one_kernel``) and, with
+    ``--baseline``, each int8 case's turns."""
     summary = []
     csrc = "src/repro_torch/kernels/csrc"
     for name, source, replaces, main_case in (
@@ -3584,6 +3744,7 @@ def kernel_summary(cases, launches):
     quant = [c for c in cases if c.get("kernel") == "fed_reduce"
              and c.get("quant")]
     head = next(c for c in quant if c["case"] == "sweep_fedavg_int8")
+    summary[0]["ptxas"] = ptxas_of(ptxas, "fed_reduce_kernel")
     summary[0]["int8"] = dict(
         name="fed_reduce_quant", route="cuda", source=f"{csrc}/fed_reduce.cu",
         replaces="src/repro/kernels/ref.py:42 (_quant_rows, in fed_reduce's "
@@ -3596,10 +3757,14 @@ def kernel_summary(cases, launches):
         bound_ms=head["bound_ms"], bound_by=head["bound_by"], library_ms=None,
         shape=head["shape"], leaves=head["leaves"],
         int8_rows=head["int8_rows"],
+        ptxas=ptxas_of(ptxas, "fed_reduce_quant_kernel"),
+        device_events_per_call=one_kernel,
         cases={c["case"]: dict(ms=c["ms"], c_entry_ms=c["c_entry_ms"],
             kernel_alone_ms=c["kernel_alone_ms"], absmax_ms=c["absmax_ms"],
             plain_prepass_ms=c["plain_prepass_ms"], bound_ms=c["bound_ms"],
-            check=c["check"]) for c in quant})
+            check=c["check"], **{k: c[k] for k in (
+                "turns_of", "old_ms", "new_ms", "faster_beyond_spread")
+                if k in c}) for c in quant})
     # fed_reduce at the paper tables' own launches (phase 16c)
     summary[0]["paper_tables"] = [dict(
         case=c["case"], shape=c["shape"], max_abs_err=c["max_abs_err"],
@@ -4261,7 +4426,7 @@ def main():
                                     r.history_acc, list(r.cost))
                      for r in res}
     del res, ev_res
-    cases += sweep_reduce_cases(torch, card, floor, reduce_inputs)
+    cases += sweep_reduce_cases(torch, card, floor, reduce_inputs, old_lib)
 
     serve_launches, _ = serve_phase(torch, card)
     for k, v in serve_launches.items():
@@ -4292,7 +4457,7 @@ def main():
     for k, v in speech_launches.items():
         launches[k] += v
     speech_card_vs_cpu(speech_runs, speech_init)
-    cases += resnet_kernel_cases(torch, np, card, floor)
+    cases += resnet_kernel_cases(torch, np, card, floor, old_lib)
     emit(dict(phase="resnet_phase", seconds=time.perf_counter() - t12))
 
     torch.cuda.empty_cache()
@@ -4326,7 +4491,8 @@ def main():
         check(launches.get(k, 0) > 0, f"{k}: no launch on the bf16 path")
     check(launches["fed_reduce_int8"] > 0, "fed_reduce_quant_f32: no int8 "
                                            "round trip on the main path")
-    summary = kernel_summary(cases, launches)
+    one_kernel = int8_one_kernel(card, reduce_inputs)
+    summary = kernel_summary(cases, launches, ptxas_fns, one_kernel)
     print(card, flush=True)
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -7,26 +7,37 @@ Replaces the Pallas TPU kernel ``src/repro/kernels/fed_reduce.py::_kernel``
 two pre-passes of the same jit (``kernels/ref.py``): the weight
 normalisation and the int8 upload round trip ``rt`` (``_quant_rows``).
 The Hopper kernels are in ``csrc/fed_reduce.cu``: ``fed_reduce_f32``, and
-``fed_reduce_quant_f32`` when ``quant_ref`` is given (a pass that takes
-each (row, leaf)'s max |row - quant_ref|, then the fold with the round trip
-applied to each enabled row as it is loaded; the rounded rows never touch
-memory).  Their plain version is ``ref.fed_reduce_ref``.
+``fed_reduce_quant_f32`` when ``quant_ref`` is given.  The round trip's
+scale reduces over a whole leaf of a row, across column tiles, so its call
+is one cooperative launch of a persistent grid (the blocks that fit on the
+card at once) in three phases with a grid barrier after each of the first
+two: the blocks zero the (M, L) scratch, take each (row, leaf)'s max
+|row - quant_ref| with the rows streamed through a ``cp.async`` ring and
+flushed by ``atomicMax`` on the bits, then run the fold, each piece of
+listed rows with its scales staged in shared memory and each enabled row
+round-tripped as it leaves the ring (the rounded rows never touch memory).
+No memset and no second kernel; a grid the card cannot hold at once is
+refused and raises here.  The maxes are order-free and the fold keeps pack
+order, so the result is bit for bit the plain version's,
+``ref.fed_reduce_ref``.
 
 What bounds it on the H100: bytes.  Each row element is read once for one
 multiply and one add (0.5 FLOP per byte), so the least time is the bytes
 moved (M*N rows + T*N base read, T*N written; with the round trip also
-T*N of quant_ref) over 3.35 TB/s.  The kernel keeps each thread's rows in
-flight (a batch of rows loaded before any is folded, the next batch issued
-before the current one is folded, row loads first at T = 1), lists a
-segment's rows with warp ballots instead of a serial walk, and takes any
-number of rows: the list is held in pieces (see the source's note).
+T*N of quant_ref) over 3.35 TB/s; the round trip's second read of the
+enabled rows comes from the 50 MB L2 at the main path's sizes.  The
+kernel keeps each thread's rows in flight (a batch of rows loaded before
+any is folded, the next batch issued before the current one is folded,
+row loads first at T = 1), lists a segment's rows with warp ballots
+instead of a serial walk, and takes any number of rows: the list is held
+in pieces (see the source's note).
 Segment ids must lie in [0, num_segments), as for the plain version; at
 T = 1 the kernel does not read them.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel or raises.  ``launches`` counts the fold's launches (with and
 without the round trip), ``quant_launches`` the calls that ran the round
-trip (``fed_reduce_quant_f32``: its absmax pass and its fold).
+trip (``fed_reduce_quant_f32``: one launch of its three phases).
 """
 
 from __future__ import annotations
@@ -126,6 +137,13 @@ def quant_inputs(rows: torch.Tensor, num_segments: int,
             leaf_offsets(sizes, rows.device), len(sizes))
 
 
+def quant_scratch(m: int, n_leaves: int, device) -> torch.Tensor:
+    """The scratch ``fed_reduce_quant_f32`` takes: each (row, leaf)'s max
+    |row - quant_ref| and the fold's item counter after them, M * L + 1
+    words that the kernel zeroes itself."""
+    return torch.empty(m * n_leaves + 1, dtype=torch.int32, device=device)
+
+
 def _launch(weights, rows, segments, num_segments, base, normalize,
             quant=None):
     global launches, quant_launches
@@ -163,8 +181,7 @@ def _launch(weights, rows, segments, num_segments, base, normalize,
             stream)
     else:
         qref, enabled, off, n_leaves = quant
-        # each (row, leaf)'s max |d|, zeroed and filled by the call
-        scratch = torch.empty((m, n_leaves), dtype=torch.int32, device=dev)
+        scratch = quant_scratch(m, n_leaves, dev)
         err = build.library().fed_reduce_quant_f32(
             w.data_ptr(), rows.data_ptr(), seg.data_ptr(), base_ptr,
             out.data_ptr(), qref.data_ptr(),

@@ -9,8 +9,11 @@ here the plain ``_quant_rows`` and ``fed_reduce_ref`` meet the reference's
 f32 reciprocal and contracts ``g + q * scale`` into an FMA: departure 1)
 on the leaf splits the main path gives them, on leaves as narrow as one
 column and on values at exact half-steps of the scale (ties to even) and
-at +-127.
+at +-127.  The kernel's quotient (a staged reciprocal where it provably
+rounds as the IEEE division) is held to the division in emulated float32.
 """
+
+import re
 
 import numpy as np
 import pytest
@@ -237,3 +240,68 @@ def test_wrapper_checks_pass_then_the_launch_needs_a_card(no_launch):
     finally:
         ref._quant_rows = inner
     assert calls == []
+
+
+# ---------------------------------------------------------------------------
+# the kernel's quotient: d * (1/scale) where it rounds as d / scale
+# ---------------------------------------------------------------------------
+
+def _kernel_tie_margin():
+    """``kTieMargin`` as ``csrc/fed_reduce.cu`` defines it (1.0f / k)."""
+    text = (build.CSRC / "fed_reduce.cu").read_text()
+    k = re.search(r"kTieMargin = 1\.0f / (\d+)\.0f;", text)
+    assert k is not None, "kTieMargin not found in fed_reduce.cu"
+    return np.float32(1.0) / np.float32(k.group(1))
+
+
+def test_reciprocal_quotient_rounds_as_the_ieee_division():
+    """The fold's round trip (``csrc/fed_reduce.cu::round_trip``) takes q =
+    rint(d * RN(1/scale)) where that product lies farther than kTieMargin
+    from every half-integer (|quot - rint(quot)| < 0.5 - kTieMargin), and
+    rint(RN(d / scale)) elsewhere.  In float32
+    arithmetic emulated with numpy (each operation rounded to nearest
+    even), that q is the IEEE quotient's on leaves of every magnitude (the
+    1e-12 floor included), on exact ties and one ulp beside them; the
+    product stays within a thirty-second of the margin of the IEEE
+    quotient, and on random values the division is the exception."""
+    rng = np.random.default_rng(27)
+    margin = _kernel_tie_margin()
+    amax = (10.0 ** rng.uniform(-13, 4, 4000)).astype(np.float32)
+    amax[:6] = [127.0 / 128.0, 1e-12, 1.27e-10, 1e-30, 127.0, 65504.0]
+    scale = np.maximum(amax * RECIP_127, np.float32(1e-12))
+    d = (rng.uniform(-1.0, 1.0, (amax.size, 256)) * amax[:, None]).astype(
+        np.float32)
+    d[:, 0], d[:, 1] = amax, -amax
+    halves = (rng.integers(-127, 127, (amax.size, 32)) + 0.5).astype(
+        np.float32)
+    d[:, 2:34] = halves * scale[:, None]           # ties where exact
+    d[:, 34:66] = np.nextafter(d[:, 2:34], np.float32(np.inf))
+    d[:, 66:98] = np.nextafter(d[:, 2:34], np.float32(-np.inf))
+    d = np.clip(d, -amax[:, None], amax[:, None])  # |d| <= the leaf's max
+    assert d.dtype == scale.dtype == np.float32
+
+    ieee = d / scale[:, None]
+    quot = d * (np.float32(1.0) / scale)[:, None]
+    far = np.abs(quot - np.rint(quot)) < np.float32(0.5) - margin
+    q = np.where(far, np.rint(quot), np.rint(ieee))
+    assert np.array_equal(q, np.rint(ieee))
+    assert np.abs(quot - ieee).max() <= margin / 32
+    ties = ieee - np.floor(ieee) == np.float32(0.5)
+    assert ties.sum() >= 32 and not far[ties].any()
+    assert far[:, 98:].mean() > 0.99               # on the random columns
+
+
+def test_profile_quant_stamps_every_phase_edge_of_the_kernel():
+    """``launch/profile_quant`` instruments ``fed_reduce.cu`` at each of the
+    round trip kernel's phase edges (on every path a block takes: a grid
+    barrier in its first absmax unit or after the phase, in its first fold
+    item or after the loop), and refuses a source whose anchors moved."""
+    from repro_torch.launch import profile_quant as pq
+
+    text = (build.CSRC / "fed_reduce.cu").read_text()
+    out = pq.instrumented_source(text)
+    counts = [out.count(f"EDGE({i})") for i in range(len(pq.EDGES))]
+    assert counts == [1, 2, 2, 1, 2, 2, 1]
+    assert "quant_timeline_read" in out and "quant_timeline_reset" in out
+    with pytest.raises(ValueError, match="anchor"):
+        pq.instrumented_source(text.replace("grid_sync();", "grid_sync( );"))

@@ -10,7 +10,8 @@ and N = 1, 2 and 3 mod 4, so that packed rows start on 16-, 8- and 4-byte
 boundaries, and a masked tail), a misaligned row pointer, interleaved and
 empty segments, more rows than one batch in flight, more rows than a block
 lists at a time (no row limit), and the int8 round trip (leaves from 1 to
-more than 8,192 columns wide, an all-zero leaf, a per-row mask, the
+more than 8,192 columns wide, more than 256 leaves, an all-zero leaf, a
+per-row mask, M = 0, a NaN, two calls back to back on one scratch, the
 plain pre-pass never run).  ``fed_reduce``
 and ``fed_aggregate`` must be bitwise equal to the plain version.
 ``rglru_scan`` must be bitwise equal (W not a multiple of the
@@ -91,15 +92,36 @@ def test_fed_reduce_kernel_is_bitwise(cuda, n, mode):
     assert torch.equal(got, ref.fed_reduce_ref(w, rows, seg, t, b, **kw))
 
 
-@pytest.mark.parametrize("m,t,tail", [(12, 4, 0), (12, 4, 3), (1100, 1, 1),
-                                       (1100, 3, 2)])
-def test_fed_reduce_quant_kernel_is_bitwise(cuda, m, t, tail, monkeypatch):
+def _same_bits(got, want):
+    """Bitwise equal, a NaN anywhere the other has one (its payload aside)."""
+    nan = torch.isnan(want)
+    return torch.equal(torch.isnan(got), nan) and torch.equal(got[~nan],
+                                                              want[~nan])
+
+
+@pytest.mark.parametrize("m,t,tail,kind", [
+    (12, 4, 0, ""), (12, 4, 3, ""), (1100, 1, 1, ""), (1100, 3, 2, ""),
+    (24, 2, 1, "many_leaves"), (0, 2, 0, ""), (12, 4, 1, "nan"),
+    (12, 4, 2, "ties")])
+def test_fed_reduce_quant_kernel_is_bitwise(cuda, m, t, tail, kind,
+                                            monkeypatch):
     """``fed_reduce_quant_f32``: leaves of widths 1, 35, 62 and more than
     8,192 (boundaries inside quads and warps), an all-zero leaf (scale
     1e-12), a zero reference lane, a per-row mask, interleaved segments, N
-    of every residue mod 4 (rows on 16-, 8- and 4-byte boundaries) and more
-    rows than a block lists at a time.  The plain pre-pass is never run."""
+    of every residue mod 4 (rows on 16-, 8- and 4-byte boundaries), more
+    rows than a block lists at a time, more than 256 leaves (offsets read
+    from device memory, tiles across many leaves folded in smaller pieces),
+    M = 0, a NaN in an enabled row (its leaf NaN, as in the plain
+    version) and quotients d / scale on and next to half-integers (a leaf
+    of max 127/128, so scale 2^-7: rint's ties and the kernel's
+    reciprocal route's fallback to the IEEE division).  Each case runs both masks back to back with no
+    synchronisation between them, so the second call's scratch is the
+    first's, freed and reused.  The plain pre-pass is never run."""
     sizes = (1, 35, 62, 8300, 35, 62 + tail)
+    if kind == "many_leaves":
+        widths = np.random.default_rng(300).choice([1, 2, 3, 35, 62, 130],
+                                                   299)
+        sizes = tuple(int(x) for x in widths) + (8300 + tail,)
     n = sum(sizes)
     rng = np.random.default_rng(m * 10 + tail)
     seg = rng.integers(0, t, m).astype(np.int32)
@@ -109,27 +131,39 @@ def test_fed_reduce_quant_kernel_is_bitwise(cuda, m, t, tail, monkeypatch):
                              for s in sizes]).astype(np.float32)
     rows = (g[seg] + rng.standard_normal((m, n)).astype(np.float32)
             * scales).astype(np.float32)
-    rows[:, 36:98] = g[seg][:, 36:98]                  # leaf 2: d == 0
+    rows[:, 36:98] = g[seg][:, 36:98]                  # d == 0 there
     w = rng.uniform(1.0, 300.0, m).astype(np.float32)
-    w[0] = 0.0
+    w[:1] = 0.0
     en = rng.integers(0, 2, m).astype(bool)
+    if kind == "nan":
+        rows[np.flatnonzero(en)[0], 5000] = np.nan
+    if kind == "ties":                      # leaf 4: columns 8398-8432, g = 0
+        g[:, 8398:8433] = 0.0
+        half = rng.integers(-127, 127, (m, 34)) + 0.5
+        half[:, 22:] += rng.choice([-1, 1], (m, 12)) * 10.0 ** rng.uniform(
+            -6, -3, (m, 12))
+        rows[:, 8398] = 127.0 / 128.0
+        rows[:, 8399:8433] = half / 128.0
     w, rows, seg, g, en = (torch.from_numpy(a).to(cuda)
                            for a in (w, rows, seg, g, en))
     kw = dict(normalize=True, leaf_sizes=sizes, quant_ref=g)
-    want = {mask: ref.fed_reduce_ref(w, rows, seg, t, quant_enabled=mask,
-                                     **kw) for mask in (None, en)}
+    masks = (None, en)
+    want = [ref.fed_reduce_ref(w, rows, seg, t, quant_enabled=mask, **kw)
+            for mask in masks]
     torch.cuda.synchronize()
+    assert (kind == "nan") == bool(torch.isnan(want[1]).any())
 
     def refuse(*a, **k):
         raise AssertionError("the plain pre-pass ran on the card")
     monkeypatch.setattr(ref, "_quant_rows", refuse)
-    for mask, expect in ((None, want[None]), (en, want[en])):
-        before = (fr_mod.launches, fr_mod.quant_launches)
-        got = fr_mod.fed_reduce(w, rows, seg, t, quant_enabled=mask, **kw)
-        torch.cuda.synchronize()
-        assert (fr_mod.launches, fr_mod.quant_launches) == (
-            before[0] + 1, before[1] + 1)
-        assert torch.equal(got, expect)
+    before = (fr_mod.launches, fr_mod.quant_launches)
+    got = [fr_mod.fed_reduce(w, rows, seg, t, quant_enabled=mask, **kw)
+           for mask in masks]
+    torch.cuda.synchronize()
+    assert (fr_mod.launches, fr_mod.quant_launches) == (
+        before[0] + 2, before[1] + 2)
+    for g_, w_ in zip(got, want):
+        assert _same_bits(g_, w_)
 
 
 def test_fed_reduce_kernel_misaligned_rows(cuda):
