@@ -302,6 +302,14 @@ without.
      fused launch of the speech group (Table 4: T=16, N=50,915) and of
      the cifar100 group (Table 5: T=2, N=152,404), bitwise, with phase
      2's columns and bound.
+ 17. The production-mesh dry run: ``python -m repro_torch.launch.dryrun
+     --mesh pod`` for all ten architectures at ``train_4k``,
+     ``prefill_32k`` and ``decode_32k``, in a child process under the
+     card machine's torch (each combination in a process of its own, 8 at
+     a time): a ``fake`` 256-rank group, the steps run once on ``meta``
+     structs over the 16x16 mesh, nothing on the card.  It prints the
+     seconds and the count of the 30 combinations that ran through; any
+     that did not fails the run.
 
 Every bound takes the card's rates from ``repro_torch.roofline.hardware``
 (NVIDIA H100 SXM5 80GB data sheet, 700 W), and every ``fed_reduce`` case
@@ -4344,6 +4352,49 @@ def tables_reduce_cases(torch, card, floor, inputs):
     return out
 
 
+# phase 17: the production-mesh dry run
+DRYRUN_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+DRYRUN_JOBS = 8
+DRYRUN_TIMEOUT_S = 600
+
+
+def dryrun_phase():
+    """Phase 17: every architecture's steps at ``DRYRUN_SHAPES`` on the
+    16x16 production mesh (``launch/dryrun``), in a child process of its
+    own session, so a timeout stops its children too."""
+    import os
+    import signal
+    from repro_torch.configs import ARCH_NAMES
+    t0 = time.perf_counter()
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--mesh",
+           "pod", "--jobs", str(DRYRUN_JOBS)]
+    for shape in DRYRUN_SHAPES:
+        cmd += ["--shape", shape]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(SRC)] + [p for p in (os.environ.get("PYTHONPATH"),) if p]))
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        fail(f"phase 17: the dry run took over {DRYRUN_TIMEOUT_S} s:\n"
+             f"{out[-3000:]}")
+    seconds = time.perf_counter() - t0
+    lines = out.splitlines()
+    ok = [ln for ln in lines if ln.startswith("[OK ]")]
+    failed = [ln[:300] for ln in lines if ln.startswith("[FAIL]")]
+    n = len(ARCH_NAMES) * len(DRYRUN_SHAPES)
+    emit(dict(phase="dryrun", seconds=seconds, combinations=n,
+              ran_through=len(ok), failed=failed, mesh="16x16",
+              shapes=list(DRYRUN_SHAPES), jobs=DRYRUN_JOBS))
+    check(proc.returncode == 0 and len(ok) == n and not failed,
+          f"phase 17: {len(ok)} of {n} combinations ran through (exit "
+          f"{proc.returncode}):\n" + "\n".join(failed) + f"\n{out[-3000:]}")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--baseline", type=Path, default=None,
@@ -4486,6 +4537,9 @@ def main():
     cases += tables_reduce_cases(torch, card, floor, table_inputs)
     del table_inputs
     emit(dict(phase="paper_tables", seconds=time.perf_counter() - t16))
+
+    # phase 17: the production-mesh dry run
+    dryrun_phase()
 
     for k in ("flash_attention_bf16", "flash_attention_bwd_bf16"):
         check(launches.get(k, 0) > 0, f"{k}: no launch on the bf16 path")

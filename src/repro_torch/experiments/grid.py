@@ -250,7 +250,7 @@ def parse_preferences(text: str) -> List[Tuple[float, float, float, float]]:
     def quads() -> List[Tuple[float, float, float, float]]:
         out = []
         for quad in text.split(";"):
-            vals = tuple(float(v) for v in quad.split(","))
+            vals = tuple(float(v) for v in quad.split(","))  # noqa: REPRO003 -- a string's fields
             if len(vals) != 4:
                 raise ValueError(f"preference {quad!r} is not a quad")
             out.append(vals)

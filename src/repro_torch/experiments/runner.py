@@ -270,8 +270,8 @@ class TrialResult:
             final_e=float(res.final_e), cost=res.total_cost.as_tuple(),
             sim_time=float(res.sim_time), wall=wall, engine=engine,
             history_m=[r.m for r in res.history],
-            history_e=[float(r.e) for r in res.history],
-            history_acc=[float(r.accuracy) for r in res.history],
+            history_e=[float(r.e) for r in res.history],  # noqa: REPRO003 -- round records hold host numbers
+            history_acc=[float(r.accuracy) for r in res.history],  # noqa: REPRO003 -- round records hold host numbers
             dispatch_log=list(res.dispatch_log or []),
             staleness_log=list(res.staleness_log or []),
             params=res.params, local_steps=local_steps)
@@ -296,9 +296,9 @@ def run_trial(spec: TrialSpec, *, device=None,
     """One trial, the single-process way: a full ``FLServer.run()``."""
     srv = build_server(spec, device)
     params = _initial_params(srv, spec, init_params)
-    t0 = time.perf_counter()
+    t0 = time.perf_counter()  # noqa: REPRO004 -- TrialResult.wall is informational; parity compares params/history only
     res = srv.run(params)
-    return TrialResult.from_flresult(spec, res, time.perf_counter() - t0,
+    return TrialResult.from_flresult(spec, res, time.perf_counter() - t0,  # noqa: REPRO004 -- TrialResult.wall is informational
                                      "sequential")
 
 
@@ -452,7 +452,7 @@ def _run_group_sharded(ents: List[Tuple[_LiveTrial, int]], mesh):
 
     trials, slot = _trial_slots(ents)
     n_t = len(trials)
-    totals = [float(sum(tr.cohort.sizes)) for tr in trials]
+    totals = [float(sum(tr.cohort.sizes)) for tr in trials]  # noqa: REPRO003 -- cohort sizes are host ints
     stacked = tree_stack([tr.params for tr in trials])
     flats = [_flatten(tr.params)[0] for tr in trials]
     meta = _flatten(trials[0].params)[1]
@@ -620,7 +620,7 @@ def _reduce_round(tr: _LiveTrial):
     if tr.cohort is not None and tr.cohort.cids:
         co = tr.cohort
         for j, cid in enumerate(co.cids):
-            srv.selector.update(int(cid), co.losses[j], co.sizes[j])
+            srv.selector.update(int(cid), co.losses[j], co.sizes[j])  # noqa: REPRO003 -- a client id from the selector's numpy draw
         if co.agg_params is not None:   # the fused reduce
             tr.params = co.agg_params
         elif srv.aggregator.name == "fedavg":
@@ -631,7 +631,7 @@ def _reduce_round(tr: _LiveTrial):
                     params=(co.trained[j] if co.trained[j] is not None
                             else tr.params),
                     n_examples=co.sizes[j], n_steps=co.n_steps[j],
-                    last_loss=co.losses[j], client_id=int(cid))
+                    last_loss=co.losses[j], client_id=int(cid))  # noqa: REPRO003 -- a client id from the selector's numpy draw
                 for j, cid in enumerate(co.cids)]
             tr.params = srv.aggregator(tr.params, updates)
     tr.round_cost = tr.eng.account_sync_round(tr.plan, tr.hp)
@@ -689,7 +689,7 @@ def _sync_round_step(live: List[_LiveTrial], *, pack: str = "batched",
     over them too.  Trials that end this round come back with ``done``
     set; retiring them is the caller's job.  ``step_idx`` only labels the
     round's metrics.  Returns the number of packed client entries."""
-    t0 = time.perf_counter()
+    t0 = time.perf_counter()  # noqa: REPRO004 -- per-macro-step wall share for TrialResult.wall; round accounting uses virtual clocks
     if obs.enabled():
         obs.registry.sample("lanes_live", len(live), step=step_idx,
                             engine="sync")
@@ -753,7 +753,7 @@ def _sync_round_step(live: List[_LiveTrial], *, pack: str = "batched",
             [(tr.srv.model, tr.srv.dataset, tr.srv.config.eval_points,
               tr.params) for tr in due], mesh=mesh, pad_pow2=True)
     acc_of = {id(tr): a for tr, a in zip(due, accs)}
-    wall = time.perf_counter() - t0
+    wall = time.perf_counter() - t0  # noqa: REPRO004 -- wall shares are informational; parity compares params/history only
     if obs.enabled():
         obs.counter("t_sim", max(tr.eng.clock.now for tr in live))
     for tr in live:
@@ -967,7 +967,7 @@ class _EventEngine:
             on_done(tr)
 
         step_idx = self.n_steps - 1
-        t0 = time.perf_counter()
+        t0 = time.perf_counter()  # noqa: REPRO004 -- per-macro-step wall share for TrialResult.wall; event order uses the merged virtual queue
         if obs.enabled():
             obs.registry.sample("lanes_live", len(live), step=step_idx,
                                 engine="events")
@@ -1028,14 +1028,14 @@ class _EventEngine:
         #    finish/refill per trial.  Evaluation consumes no rng and each
         #    trial's clock is private, so the per-trial operation order is
         #    the standalone loop's.
-        wall = time.perf_counter() - t0
+        wall = time.perf_counter() - t0  # noqa: REPRO004 -- wall shares are informational; parity compares params/history only
         share = wall / max(len(lanes), 1)
         applied = []
         with obs.span("APPLY", phase="apply", n_lanes=len(lanes)):
             for ln in lanes:
                 tr, fl = ln.tr, ln.fl
                 tr.wall += share
-                tr.srv.selector.update(int(fl.client_id), ln.loss,
+                tr.srv.selector.update(int(fl.client_id), ln.loss,  # noqa: REPRO003 -- a client id, a host int
                                        fl.n_examples)
                 aggregated, staleness = tr.eng.apply_event(tr.st, fl,
                                                            ln.params)

@@ -130,7 +130,7 @@ def _engine_state(tr) -> dict:
         "tuner": _tuner_state(tr.srv.tuner),
     }
     if hasattr(tr.srv.selector, "utility"):
-        d["sel_utility"] = [float(u) for u in tr.srv.selector.utility]
+        d["sel_utility"] = [float(u) for u in tr.srv.selector.utility]  # noqa: REPRO003 -- a snapshot's JSON field, a host value
     return d
 
 
@@ -180,7 +180,7 @@ def snapshot_scheduler(sched, path: str) -> str:
         inflight = []
         for j, (cid, fl) in enumerate(st.inflight.items()):
             _collect_leaves(leaves, f"t{i}/if{j}/", fl.params)
-            inflight.append({"cid": int(cid), "version": fl.version,
+            inflight.append({"cid": int(cid), "version": fl.version,  # noqa: REPRO003 -- a snapshot's JSON field, a host value
                              "e": fl.e, "n_examples": fl.n_examples,
                              "comp_time": fl.comp_time,
                              "trans_time": fl.trans_time,
@@ -203,7 +203,7 @@ def snapshot_scheduler(sched, path: str) -> str:
             "dispatch_log": [list(t) for t in st.dispatch_log],
             "staleness_log": list(st.staleness_log),
             "inflight": inflight,
-            "buffer_weights": [float(w) for w in st.buffer._weights],
+            "buffer_weights": [float(w) for w in st.buffer._weights],  # noqa: REPRO003 -- a snapshot's JSON field, a host value
             "engine": _engine_state(tr),
         })
 
@@ -283,7 +283,7 @@ def restore_scheduler(sched, path: str) -> None:
     ev = sched._ev
     ev.n_steps = int(meta["ev"]["n_steps"])
     ev.next_ord = int(meta["ev"]["next_ord"])
-    ev.merged._seq = {int(k): int(v)
+    ev.merged._seq = {int(k): int(v)  # noqa: REPRO003 -- a snapshot's JSON field, a host value
                       for k, v in meta["merged"]["seq"].items()}
 
     for i, td in enumerate(meta["trials"]):
@@ -291,15 +291,15 @@ def restore_scheduler(sched, path: str) -> None:
         eng_d = td["engine"]
         if td["kind"] == "sync":
             tr = _make_live(spec, sched.device, sched.init_params)
-            tr.hp = HyperParams(int(td["hp"][0]), float(td["hp"][1]))
+            tr.hp = HyperParams(int(td["hp"][0]), float(td["hp"][1]))  # noqa: REPRO003 -- a snapshot's JSON field, a host value
             tr.params = restore_tree(arrays, tr.params,
                                      prefix=f"t{i}/params/")
-            tr.round_idx = int(td["round_idx"])
-            tr.accuracy = float(td["accuracy"])
-            tr.reached = bool(td["reached"])
-            tr.done = bool(td["done"])
-            tr.wall = float(td["wall"])
-            tr.local_steps = int(td["local_steps"])
+            tr.round_idx = int(td["round_idx"])  # noqa: REPRO003 -- a snapshot's JSON field, a host value
+            tr.accuracy = float(td["accuracy"])  # noqa: REPRO003 -- a snapshot's JSON field, a host value
+            tr.reached = bool(td["reached"])  # noqa: REPRO003 -- a snapshot's JSON field, a host value
+            tr.done = bool(td["done"])  # noqa: REPRO003 -- a snapshot's JSON field, a host value
+            tr.wall = float(td["wall"])  # noqa: REPRO003 -- a snapshot's JSON field, a host value
+            tr.local_steps = int(td["local_steps"])  # noqa: REPRO003 -- a snapshot's JSON field, a host value
             tr.history = [_record_from_dict(r) for r in td["history"]]
             _set_engine_state(tr, eng_d)
             sched._sync_live.append(tr)
@@ -312,53 +312,53 @@ def restore_scheduler(sched, path: str) -> None:
                                  config=srv.runtime_config
                                  or RuntimeConfig())
         eng.trace_label = spec.key()
-        trial_ord = int(td["trial_ord"])
+        trial_ord = int(td["trial_ord"])  # noqa: REPRO003 -- a snapshot's JSON field, a host value
         view = TrialQueueView(ev.merged, trial_ord)
         tr = _EventTrial(spec=spec, srv=srv, eng=eng, view=view)
         template = srv.model.init(srv.config.seed, sched.device)
         rt = eng.rt
         st = EventLoopState(
-            hp=HyperParams(int(td["hp"][0]), float(td["hp"][1])),
+            hp=HyperParams(int(td["hp"][0]), float(td["hp"][1])),  # noqa: REPRO003 -- a snapshot's JSON field, a host value
             params=restore_tree(arrays, template, prefix=f"t{i}/params/"),
             buffer=FedBuffAggregator(
                 buffer_k=rt.buffer_k, server_lr=rt.server_lr,
                 staleness_alpha=rt.staleness_alpha,
                 staleness_kind=rt.staleness_kind))
-        st.version = int(td["version"])
-        st.accuracy = float(td["accuracy"])
-        st.reached = bool(td["reached"])
-        st.pend_comp = [float(v) for v in td["pend_comp"]]
-        st.pend_trans = [float(v) for v in td["pend_trans"]]
-        st.pend_comp_load = float(td["pend_comp_load"])
-        st.pend_trans_load = float(td["pend_trans_load"])
-        st.last_agg_clock = float(td["last_agg_clock"])
+        st.version = int(td["version"])  # noqa: REPRO003 -- a snapshot's JSON field, a host value
+        st.accuracy = float(td["accuracy"])  # noqa: REPRO003 -- a snapshot's JSON field, a host value
+        st.reached = bool(td["reached"])  # noqa: REPRO003 -- a snapshot's JSON field, a host value
+        st.pend_comp = [float(v) for v in td["pend_comp"]]  # noqa: REPRO003 -- a snapshot's JSON field, a host value
+        st.pend_trans = [float(v) for v in td["pend_trans"]]  # noqa: REPRO003 -- a snapshot's JSON field, a host value
+        st.pend_comp_load = float(td["pend_comp_load"])  # noqa: REPRO003 -- a snapshot's JSON field, a host value
+        st.pend_trans_load = float(td["pend_trans_load"])  # noqa: REPRO003 -- a snapshot's JSON field, a host value
+        st.last_agg_clock = float(td["last_agg_clock"])  # noqa: REPRO003 -- a snapshot's JSON field, a host value
         st.history = [_record_from_dict(r) for r in td["history"]]
         st.dispatch_log = [tuple(t) for t in td["dispatch_log"]]
-        st.staleness_log = [int(s) for s in td["staleness_log"]]
+        st.staleness_log = [int(s) for s in td["staleness_log"]]  # noqa: REPRO003 -- a snapshot's JSON field, a host value
         for j, fd in enumerate(td["inflight"]):
-            st.inflight[int(fd["cid"])] = _InFlight(
-                client_id=int(fd["cid"]),
+            st.inflight[int(fd["cid"])] = _InFlight(  # noqa: REPRO003 -- a snapshot's JSON field, a host value
+                client_id=int(fd["cid"]),  # noqa: REPRO003 -- a snapshot's JSON field, a host value
                 params=restore_tree(arrays, template, prefix=f"t{i}/if{j}/"),
-                version=int(fd["version"]), e=float(fd["e"]),
-                n_examples=int(fd["n_examples"]),
-                comp_time=float(fd["comp_time"]),
-                trans_time=float(fd["trans_time"]),
-                attempt=int(fd["attempt"]))
+                version=int(fd["version"]), e=float(fd["e"]),  # noqa: REPRO003 -- a snapshot's JSON field, a host value
+                n_examples=int(fd["n_examples"]),  # noqa: REPRO003 -- a snapshot's JSON field, a host value
+                comp_time=float(fd["comp_time"]),  # noqa: REPRO003 -- a snapshot's JSON field, a host value
+                trans_time=float(fd["trans_time"]),  # noqa: REPRO003 -- a snapshot's JSON field, a host value
+                attempt=int(fd["attempt"]))  # noqa: REPRO003 -- a snapshot's JSON field, a host value
         for j, w in enumerate(td["buffer_weights"]):
             st.buffer._deltas.append(
                 restore_tree(arrays, template, prefix=f"t{i}/d{j}/"))
-            st.buffer._weights.append(float(w))
+            st.buffer._weights.append(float(w))  # noqa: REPRO003 -- a snapshot's JSON field, a host value
         tr.st = st
-        tr.done = bool(td["done"])
-        tr.wall = float(td["wall"])
-        tr.local_steps = int(td["local_steps"])
+        tr.done = bool(td["done"])  # noqa: REPRO003 -- a snapshot's JSON field, a host value
+        tr.wall = float(td["wall"])  # noqa: REPRO003 -- a snapshot's JSON field, a host value
+        tr.local_steps = int(td["local_steps"])  # noqa: REPRO003 -- a snapshot's JSON field, a host value
         _set_engine_state(tr, eng_d)
         ev.by_ord[trial_ord] = tr
         sched._event_live.append(tr)
 
     # the merged heap: original (time, trial_ord, seq) keys, re-heapified
-    heap = [TaggedEvent(time=float(t), trial_ord=int(o), seq=int(s),
-                        kind=str(k), client_id=int(c))
+    heap = [TaggedEvent(time=float(t), trial_ord=int(o), seq=int(s),  # noqa: REPRO003 -- a snapshot's JSON field, a host value
+                        kind=str(k), client_id=int(c))  # noqa: REPRO003 -- a snapshot's JSON field, a host value
             for t, o, s, k, c in meta["merged"]["events"]]
     heapq.heapify(heap)
     ev.merged._heap = heap

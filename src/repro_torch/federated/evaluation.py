@@ -65,7 +65,7 @@ class Evaluator:
             for bx, by, n in self._batches:
                 logits = self.model.forward(params, bx)
                 acc = (logits.argmax(-1) == by).to(torch.float32).mean()
-                correct += float(acc) * n
+                correct += float(acc) * n  # noqa: REPRO003 -- one sync a batch: the reference's float sequence
                 total += n
         return correct / total
 
@@ -148,7 +148,7 @@ class StackedEvaluator:
         total = 0
         for row, (_, _, n) in zip(accs, batches):
             for i in range(t):
-                correct[i] += float(row[i]) * n
+                correct[i] += float(row[i]) * n  # noqa: REPRO003 -- a numpy row: the accuracies came over once, above
             total += n
         return [c / total for c in correct]
 

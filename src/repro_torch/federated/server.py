@@ -169,13 +169,13 @@ class FLServer:
         reached = False
 
         for r in range(cfg.max_rounds):
-            t0 = time.perf_counter()
+            t0 = time.perf_counter()  # noqa: REPRO004 -- measures the RoundRecord.wall info field only; costs come from the cost model
             m = min(hp.m, self.dataset.n_clients)
             participants = self.selector.select(m)
             updates: List[ClientUpdate] = []
             examples = []
             for cid in participants:
-                upd, n = self._client_update(params, int(cid), hp.e)
+                upd, n = self._client_update(params, int(cid), hp.e)  # noqa: REPRO003 -- a client id from the selector's numpy draw
                 updates.append(upd)
                 examples.append(n)
             params = self.aggregator(params, updates)
@@ -185,7 +185,7 @@ class FLServer:
 
             if eval_due(r, cfg.eval_every, cfg.max_rounds):
                 accuracy = self._evaluate(params)
-            wall = time.perf_counter() - t0
+            wall = time.perf_counter() - t0  # noqa: REPRO004 -- RoundRecord.wall is informational; parity ignores it
             history.append(RoundRecord(r, hp.m, hp.e, accuracy,
                                        round_cost, wall))
             if cfg.log_every and (r + 1) % cfg.log_every == 0:

@@ -52,10 +52,11 @@ atomics).  q, k and v share one dtype, float32 or bfloat16; fp16 and mixed
 dtypes raise ``ValueError``.  Rows are 16-byte aligned: 4 f32 or 8 bf16
 values.
 
-Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
-kernel of its dtype (f32: the split pass and the attention kernel, one
-entry point) or raises.  ``launches`` counts the f32 kernel's launches and
-``launches_bf16`` the bf16 kernel's, one a call.
+Dispatch: a CPU tensor takes the plain version, and so does a ``meta``
+tensor, which computes nothing (the dry run's structs); a CUDA tensor
+launches the kernel of its dtype (f32: the split pass and the attention
+kernel, one entry point) or raises.  ``launches`` counts the f32
+kernel's launches and ``launches_bf16`` the bf16 kernel's, one a call.
 
 Training (``ops.flash_attention`` under autograd) asks the forward for the
 rows' log-sum-exp as well (``return_lse``; serving passes a null pointer and
@@ -99,7 +100,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     cap: Optional[float] = None, return_lse: bool = False):
     """q: (B, H, S, D); k, v: (B, Kh, T, D), H % Kh == 0 -> (B, H, S, D),
     and with ``return_lse`` also the rows' log-sum-exp (B, H, S) f32."""
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        cap=cap, return_lse=return_lse)
     return _launch(q, k, v, causal, window, cap, return_lse)
@@ -110,7 +111,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
                         cap: Optional[float] = None):
     """The gradient (dq, dk, dv) of ``flash_attention`` from its output
     ``out``, its ``lse`` (B, H, S) and the output's gradient ``dout``."""
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return ref.flash_attention_bwd_ref(q, k, v, out, lse, dout,
                                            causal=causal, window=window,
                                            cap=cap)

@@ -21,9 +21,12 @@ reverse scan stays f32: the models scan in f32 (the reference's
 ``lm.py:339-340`` and ``recurrent.py:107``, the port's
 ``models/recurrent.py``), so no bf16 scan gradient is on any path.
 
-Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
-kernel of its dtype or raises.  ``launches`` counts the f32 kernel's
-launches and ``launches_bf16`` the bf16 kernel's.
+Dispatch: a CPU tensor takes the plain version, and so does a ``meta``
+tensor, which computes nothing (the dry run's structs; the plain loops
+walk one step there, ``sharding.ctx.steps_for``); a CUDA tensor launches
+the kernel of its dtype or raises.
+``launches`` counts the f32 kernel's launches and ``launches_bf16`` the
+bf16 kernel's.
 
 Training takes the gradient from ``rglru_scan_bwd``: the reverse scan
 (entry point ``rglru_scan_bwd_f32`` of the same source), one lane per
@@ -47,7 +50,7 @@ launches_bf16 = 0
 
 def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a, b: (B, T, W) -> h: (B, T, W), h_0 = 0."""
-    if a.device.type == "cpu":
+    if a.device.type in ("cpu", "meta"):
         return ref.rglru_scan_ref(a, b)
     return _launch(a, b)
 
@@ -55,7 +58,7 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def rglru_scan_bwd(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor):
     """The scan's gradient: a, h (the forward's output), dh: (B, T, W) ->
     (da, db)."""
-    if a.device.type == "cpu":
+    if a.device.type in ("cpu", "meta"):
         return ref.rglru_scan_bwd_ref(a, h, dh)
     return _launch_bwd(a, h, dh)
 

@@ -2,7 +2,7 @@
 
 Port of ``repro.models.attention`` for serving.  Three execution paths:
   * ``naive_attention`` materialises the (S, T) scores: the plain path,
-    which a CPU tensor takes;
+    which a CPU tensor takes (and a ``meta`` one, which computes nothing);
   * on a CUDA tensor every full-sequence core is ``ops.flash_attention``,
     the Hopper kernel, whatever the sequence length (the reference's naive
     and blocked paths compute the same function): causal self-attention,
@@ -20,9 +20,16 @@ when they divide, else the query groups over them with k and v
 replicated (MQA on a wider ``model`` axis), else all heads on every rank.
 A CUDA shard runs the kernel, a CPU shard the plain path.  The output
 projection takes each rank's heads (``local_map``) and leaves the sum
-over heads pending; decode gathers the heads before the scores (its
-products flatten dims DTensor cannot flatten split) and writes the new
-cache entry into the local shard that holds its slot.
+over heads pending; decode and cross-attention's decode gather the heads
+before the scores (their products flatten dims DTensor cannot flatten
+split) and decode writes the new cache entry into the local shard that
+holds its slot.  Where the heads do not divide the heads' axes (8 heads
+on a 16-wide ``model`` axis, as on the production meshes), the q, k and
+v projections take each rank's rows of x with the weight whole
+(``_head_proj``): DTensor's einsum would split the flattened (H, D)
+product and could not view it back.  The local cores' gradients are made
+contiguous: ``local_map`` hands them back under contiguous global
+strides, and the projections' backward views them.
 
 Full-sequence positions are ``arange(S)`` (keys: ``arange(T)``), as every
 caller of the reference passes them.
@@ -43,11 +50,12 @@ import torch
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF
-from repro_torch.models.common import (apply_rope, dense_init, shard_bshd,
-                                       softcap)
+from repro_torch.models.common import (apply_rope, dense_init, map_grad,
+                                       shard_bshd, softcap)
 from repro_torch.sharding.ctx import (PartitionSpec as P, current_mesh,
-                                      current_rules, is_dtensor,
-                                      to_placements, unshard)
+                                      current_rules, is_dtensor, split_dim,
+                                      to_placements, unshard,
+                                      unshard_for_local)
 
 
 # ---------------------------------------------------------------------------
@@ -81,6 +89,42 @@ def init_attention_params(gen: torch.Generator, cfg: ModelConfig, *,
     return p
 
 
+def _heads_unfit(n_heads: int) -> bool:
+    """True on a mesh whose heads' axes do not divide ``n_heads`` (8 heads
+    over a 16-wide ``model`` axis): ``fit_spec`` leaves such heads whole,
+    as GSPMD replicates what it cannot split.  A single head is never
+    split, so it always fits."""
+    rules, mesh = current_rules(), current_mesh()
+    if mesh is None or n_heads == 1:
+        return False
+    from repro_torch.sharding.specs import fit_spec
+    spec = P(None, rules.get("heads"), None)
+    return spec[1] is not None and \
+        fit_spec(spec, (1, n_heads, 1), mesh)[1] != spec[1]
+
+
+def _head_proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (B,S,E) x w (E,H,D) -> (B,S,H,D).  Where the heads do not fit the
+    mesh (``_heads_unfit``), each rank takes the product of its own rows
+    of x with w whole (``local_map``) and the heads come out whole on every
+    rank: DTensor's einsum would split the flattened (H, D) product over
+    the heads' axes and then cannot view it back into H heads."""
+    if not (is_dtensor(x) and is_dtensor(w)) or not _heads_unfit(w.shape[1]):
+        return torch.einsum("bse,ehd->bshd", x, w)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    x = unshard_for_local(x, (2,))
+    rep = [Replicate()] * x.device_mesh.ndim
+    # each rank's w gradient sums over its own rows
+    w_grad = [Partial() if isinstance(p, Shard) else Replicate()
+              for p in x.placements]
+    return local_map(
+        lambda a, b: torch.einsum("bse,ehd->bshd", a, b),
+        out_placements=list(x.placements), in_placements=(x.placements, rep),
+        in_grad_placements=(x.placements, w_grad),
+        device_mesh=x.device_mesh, redistribute_inputs=True)(x, w)
+
+
 def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig,
                  positions: torch.Tensor, *, rope: bool = True,
                  kv_input: Optional[torch.Tensor] = None,
@@ -88,9 +132,9 @@ def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig,
     """Returns q:(B,S,K,G,D), k,v:(B,T,K,D); keys and values come from
     ``kv_input`` (cross-attention) when it is given."""
     kv_x = x if kv_input is None else kv_input
-    q = torch.einsum("bse,ehd->bshd", x, params["wq"])
-    k = torch.einsum("bte,ekd->btkd", kv_x, params["wk"])
-    v = torch.einsum("bte,ekd->btkd", kv_x, params["wv"])
+    q = _head_proj(x, params["wq"])
+    k = _head_proj(kv_x, params["wk"])
+    v = _head_proj(kv_x, params["wv"])
     if "bq" in params:
         q = q + params["bq"]
         k = k + params["bk"]
@@ -104,8 +148,8 @@ def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig,
         k = apply_rope(k, kv_pos, cfg.rope_theta)
     n_kv = k.shape[2]
     g = q.shape[2] // n_kv
-    if g > 1 and is_dtensor(q) and _splits_badly(q, 2, n_kv):
-        q = unshard(q, (2,))     # heads split where the kv groups are not
+    if g > 1:
+        q = split_dim(q, 2, n_kv)   # heads split where the kv groups are not
     q = q.reshape(q.shape[0], q.shape[1], n_kv, g, q.shape[3])
     return q, k, v
 
@@ -141,18 +185,6 @@ def _out_proj(out: torch.Tensor, params) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # full-sequence paths
 # ---------------------------------------------------------------------------
-
-def _splits_badly(x, dim: int, lead: int) -> bool:
-    """True when a mesh dim shards ``x``'s ``dim`` in a way that splitting
-    that dim into (``lead``, rest) cannot keep: ``lead`` is not a multiple
-    of the shards."""
-    from torch.distributed.tensor import Shard
-    n = 1
-    for i, p in enumerate(x.placements):
-        if isinstance(p, Shard) and p.dim == dim:
-            n *= x.device_mesh.size(i)
-    return lead % n != 0
-
 
 def _mask(q_pos, k_pos, *, causal: bool, window: Optional[int]):
     m = torch.ones((q_pos.shape[-1], k_pos.shape[-1]), dtype=torch.bool,
@@ -221,6 +253,10 @@ def _attend_sharded(q, k, v, mesh, *, causal: bool, window: Optional[int],
                     else kp for qp, kp in zip(q_pl, kv_pl))
 
     def local(ql, kl, vl):
+        # local_map hands the local gradients back under contiguous global
+        # strides, and the projections' backward views them
+        ql, kl, vl = (map_grad(x, torch.Tensor.contiguous)
+                      for x in (ql, kl, vl))
         s, t = ql.shape[1], kl.shape[1]
         out = _attend(ql, kl, vl, torch.arange(s, device=ql.device),
                       torch.arange(t, device=ql.device), causal=causal,
@@ -247,7 +283,7 @@ def _attend(q, k, v, q_pos, k_pos, *, causal: bool, window: Optional[int],
     if mesh is not None and is_dtensor(q):
         return _attend_sharded(q, k, v, mesh, causal=causal, window=window,
                                cap=cap)
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return naive_attention(q, k, v, q_pos=q_pos, k_pos=k_pos,
                                causal=causal, window=window, cap=cap)
     if q.shape[1] != k.shape[1] and (causal or window is not None):
@@ -287,6 +323,10 @@ def cross_decode_attention(params, cfg: ModelConfig, spec: LayerSpec,
     k_pos = torch.arange(enc_out.shape[1], device=x.device)
     q, k, v = _project_qkv(params, x, cfg, q_pos, rope=False,
                            kv_input=enc_out)
+    if is_dtensor(q):
+        # the scores batch over (B, K): the kv heads whole, as decode's
+        q = unshard(q, (2, 3))
+        k, v = unshard(k, (2,)), unshard(v, (2,))
     out = naive_attention(q, k, v, q_pos=q_pos, k_pos=k_pos, causal=False,
                           window=spec.window, cap=cfg.attn_softcap)
     return _out_proj(out, params)

@@ -135,3 +135,20 @@ def shard_bse(x):   # (batch, seq, embed)
 def shard_bshd(x):  # (batch, seq, heads, head_dim)
     return logical_constraint(x, ("batch", None, "heads", None))
 
+
+class _MapGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, fn):
+        ctx.fn = fn
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.fn(g), None
+
+
+def map_grad(x: torch.Tensor, fn) -> torch.Tensor:
+    """``x`` itself, its gradient passed through ``fn`` on the way back:
+    the collective or layout a DTensor gradient needs before the backward
+    of the op that made ``x`` (a view) can take it."""
+    return _MapGrad.apply(x, fn)

@@ -201,15 +201,24 @@ def _block(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
 def _encode(params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
     """The encoder over (stub) frontend frames: (B, T, F) -> (B, T, d_enc).
     Non-causal self-attention with rope over positions ``arange(T)``."""
-    x = frames @ params["frontend_proj"]
-    enc_spec = LayerSpec()
+    # on a mesh the stream is placed as the decoder's and gathered as its
+    # before each product: a sum left pending may be scattered over a dim
+    # the mesh does not divide
+    x = shard_bse(frames @ params["frontend_proj"])
     for lp in params["encoder"]["layers"]:
-        h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
-        x = x + attn_mod.attention(lp["mixer"], cfg, enc_spec, h,
-                                   causal=False)
-        h2 = rmsnorm(x, lp["ln2"], cfg.norm_eps)
-        x = x + ffn_mod.mlp(lp["ffn"], h2, cfg.act)
-    return rmsnorm(x, params["encoder"]["final_norm"], cfg.norm_eps)
+        x = enc_layer(lp, cfg, x)
+    return _gathered_seq(rmsnorm(x, params["encoder"]["final_norm"],
+                                 cfg.norm_eps))
+
+
+def enc_layer(lp, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """One encoder layer: non-causal self-attention and the MLP, each a
+    residual step as the decoder's."""
+    h = _gathered_seq(rmsnorm(x, lp["ln1"], cfg.norm_eps))
+    x = _residual(x, attn_mod.attention(lp["mixer"], cfg, LayerSpec(), h,
+                                        causal=False))
+    h2 = _gathered_seq(rmsnorm(x, lp["ln2"], cfg.norm_eps))
+    return _residual(x, ffn_mod.mlp(lp["ffn"], h2, cfg.act))
 
 
 def _embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor):

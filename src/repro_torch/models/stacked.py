@@ -25,8 +25,6 @@ from typing import Any, Dict, List, Tuple
 import torch
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
-from repro_torch.models import attention as attn_mod
-from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import lm as lm_mod
 from repro_torch.models.common import rmsnorm, shard_bse
 from repro_torch.sharding.ctx import unshard
@@ -148,24 +146,16 @@ def _apply_blocks(params_st, cfg: ModelConfig, x: torch.Tensor, *,
     return x, aux_total
 
 
-def _enc_layer(lp, cfg: ModelConfig, x):
-    h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
-    x = x + attn_mod.attention(lp["mixer"], cfg, LayerSpec(), h,
-                               causal=False)
-    h2 = rmsnorm(x, lp["ln2"], cfg.norm_eps)
-    return x + ffn_mod.mlp(lp["ffn"], h2, cfg.act)
-
-
 def _encode_scanned(params_st, cfg: ModelConfig, frames: torch.Tensor, *,
                     remat: bool = True) -> torch.Tensor:
     """The encoder over stacked layers (one checkpoint per layer under
     ``remat``): (B, T, F) -> (B, T, d_enc)."""
     enc = params_st["encoder"]
-    x = frames @ params_st["frontend_proj"]
+    x = shard_bse(frames @ params_st["frontend_proj"])   # as lm._encode
     for lp in _unstack(enc["stacked"][0]):
-        x = lm_mod.remat_call(_enc_layer, lp, cfg, x) if remat \
-            else _enc_layer(lp, cfg, x)
-    return rmsnorm(x, enc["final_norm"], cfg.norm_eps)
+        x = lm_mod.remat_call(lm_mod.enc_layer, lp, cfg, x) if remat \
+            else lm_mod.enc_layer(lp, cfg, x)
+    return lm_mod._gathered_seq(rmsnorm(x, enc["final_norm"], cfg.norm_eps))
 
 
 def _encoder_output(params_st, cfg: ModelConfig, frontend, remat: bool):

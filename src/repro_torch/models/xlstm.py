@@ -16,6 +16,20 @@ softplus (``common.softplus``), not ``F.logsigmoid``.
     PyTorch: the reference has no TPU kernel for it).  The four gates'
     head-wise recurrent products run as one batched product a step.
 
+On a device mesh (DTensors), a view that splits the inner width into
+heads first gathers that dim where its split does not divide the heads
+(4 heads over a 16-wide ``model`` axis; ``sharding.ctx.split_dim``), in
+the backward too (``common.map_grad``); the sLSTM steps walk each rank's
+batch rows with every other dim whole (``rows_local``); the mLSTM chunk's
+``cumsum`` and ``cummax`` run on each rank's shard (``_scan``: torch
+2.11's DTensor has no rule for ``cummax`` nor for ``cumsum``'s backward);
+the gates' pre-activations reduce their sums over a split width at once
+(``_gate_pre``), so DTensor never scatters them over heads that do not
+divide the axis.
+On ``meta`` tensors (the dry run's), which compute nothing, the chunk and
+step loops walk one iteration (``sharding.ctx.steps_for``), as the
+reference's scans trace their body once.
+
 ``mlstm_sequence`` and ``slstm_sequence`` return the block's output and
 the state decode carries on (the reference's ``lm._mlstm_prefill`` and
 ``_slstm_prefill``); the mLSTM conv tail comes from the block's own
@@ -31,8 +45,11 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import causal_conv, dense_init, softplus
-from repro_torch.sharding.ctx import logical_constraint
+from repro_torch.models.common import (causal_conv, dense_init, map_grad,
+                                       softplus)
+from repro_torch.sharding.ctx import (is_dtensor, logical_constraint,
+                                      rows_local, split_dim, steps_for,
+                                      unshard, unshard_for_local)
 
 DEFAULT_MLSTM_CHUNK = 128
 CONV_WIDTH = 4
@@ -97,6 +114,14 @@ def init_mlstm_state(cfg: ModelConfig, batch: int, dtype=torch.float32,
     )
 
 
+def _gate_pre(params, xc: torch.Tensor, gate: str) -> torch.Tensor:
+    """A gate's pre-activation (..., H) in f32, its sum over a split W
+    reduced here: left pending, DTensor may scatter it over the heads,
+    which need not divide the axis."""
+    return unshard(xc @ params[f"w_{gate}"] + params[f"b_{gate}"]).to(
+        torch.float32)
+
+
 def _mlstm_qkvif(params, x: torch.Tensor, h: int, hd: int):
     """Shared projections.  x: (B,S,d) -> q, k, v (B,H,S,hd) f32; i, f
     pre-activations (B,H,S) f32; the output gate z (B,S,W); the
@@ -105,12 +130,11 @@ def _mlstm_qkvif(params, x: torch.Tensor, h: int, hd: int):
     xu = logical_constraint(xu, ("batch", None, "ff"))
     xc = F.silu(causal_conv(xu, params["conv_w"], params["conv_b"]))
     b, s, w = xc.shape
-    xh = xc.reshape(b, s, h, hd).transpose(1, 2)                # (B,H,S,hd)
+    xh = split_dim(xc, 2, h).reshape(b, s, h, hd).transpose(1, 2)  # (B,H,S,hd)
     q = torch.matmul(xh, params["w_q"])
     k = torch.matmul(xh, params["w_k"]) * (hd ** -0.5)
     v = torch.matmul(xh, params["w_v"])
-    i_pre = (xc @ params["w_i"] + params["b_i"]).to(torch.float32)
-    f_pre = (xc @ params["w_f"] + params["b_f"]).to(torch.float32)
+    i_pre, f_pre = _gate_pre(params, xc, "i"), _gate_pre(params, xc, "f")
     z = F.silu(x @ params["w_z"])
     f32 = torch.float32
     return (q.to(f32), k.to(f32), v.to(f32), i_pre.transpose(1, 2),
@@ -131,6 +155,20 @@ def _mlstm_step(carry, inp):
     hq = torch.matmul(C, q[..., None])[..., 0]
     denom = torch.maximum(torch.abs((n * q).sum(-1)), torch.exp(-m_new))
     return (C, n, m_new), hq / denom[..., None]
+
+
+def _scan(fn, u: torch.Tensor, dim: int) -> torch.Tensor:
+    """``fn(u, dim)``, a scan along ``dim``; of a DTensor on each rank's
+    local shard, ``dim`` whole first (``local_map``: torch 2.11's DTensor
+    has no sharding rule for ``cummax``, nor for the ``flip`` in
+    ``cumsum``'s backward)."""
+    if not is_dtensor(u):
+        return fn(u, dim)
+    from torch.distributed.tensor.experimental import local_map
+    u = unshard_for_local(u, (dim,))
+    return local_map(lambda t: fn(t, dim), out_placements=list(u.placements),
+                     in_placements=(u.placements,),
+                     device_mesh=u.device_mesh)(u)
 
 
 def mlstm_chunkwise(q, k, v, i_pre, f_pre, *,
@@ -155,14 +193,14 @@ def mlstm_chunkwise(q, k, v, i_pre, f_pre, *,
     tri = torch.tril(torch.ones((l, l), dtype=torch.bool, device=dev))
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     hs = []
-    for j in range(nc):
+    for j in range(steps_for(nc, dev)):
         cut = slice(j * l, (j + 1) * l)
         qc, kc, vc = q[:, :, cut], k[:, :, cut], v[:, :, cut]
         ic, lfc = i_pre[:, :, cut], logf[:, :, cut]
-        b_cum = torch.cumsum(lfc, dim=-1)                      # (B,H,L)
+        b_cum = _scan(torch.cumsum, lfc, 2)                    # (B,H,L)
         u = ic - b_cum
-        m_run = torch.maximum(m_st[..., None],
-                              torch.cummax(u, dim=2).values)   # M_t
+        m_run = torch.maximum(m_st[..., None], _scan(
+            lambda t, d: torch.cummax(t, d).values, u, 2))        # M_t
         # intra-chunk decay-masked scores
         w_decay = torch.exp(u[:, :, None, :] - m_run[..., None])
         w_decay = torch.where(tri, w_decay, zero)              # (B,H,Lq,Ls)
@@ -188,6 +226,7 @@ def mlstm_chunkwise(q, k, v, i_pre, f_pre, *,
         n_st = (decay[..., None] * n_st
                 + torch.matmul(w_end[..., None, :], kc)[..., 0, :])
         m_st = b_cum[..., -1] + m_end
+    hs += hs[-1:] * (nc - len(hs))
     h = hs[0] if nc == 1 else torch.cat(hs, dim=2)
     return h, (c_st, n_st, m_st)
 
@@ -200,6 +239,8 @@ def mlstm_sequence(params, x: torch.Tensor, cfg: ModelConfig
     b, s = x.shape[:2]
     hs, (C, n, m) = mlstm_chunkwise(q, k, v, i_pre, f_pre)
     hs = hs.transpose(1, 2).reshape(b, s, w).to(x.dtype)
+    if is_dtensor(hs):      # the merge's backward splits W into heads
+        hs = map_grad(hs, lambda g: split_dim(g, 2, nh))
     y = (hs * z) @ params["w_down"]
     tail = xu[:, -(CONV_WIDTH - 1):].to(x.dtype)
     return y, MLSTMState(C=C, n=n, m=m, conv_tail=tail)
@@ -218,13 +259,12 @@ def mlstm_decode_step(params, x: torch.Tensor, state: MLSTMState,
     conv_in = torch.cat([state.conv_tail, xu], dim=1)           # (B,4,W)
     xc = (conv_in[:, -CONV_WIDTH:] * params["conv_w"]).sum(dim=1)
     xc = F.silu(xc + params["conv_b"])                          # (B,W)
-    xh = xc.reshape(-1, nh, 1, hd)
+    xh = split_dim(xc, 1, nh).reshape(-1, nh, 1, hd)
     f32 = torch.float32
     q = torch.matmul(xh, params["w_q"])[:, :, 0].to(f32)
     k = (torch.matmul(xh, params["w_k"])[:, :, 0] * (hd ** -0.5)).to(f32)
     v = torch.matmul(xh, params["w_v"])[:, :, 0].to(f32)
-    i_pre = (xc @ params["w_i"] + params["b_i"]).to(f32)
-    f_pre = (xc @ params["w_f"] + params["b_f"]).to(f32)
+    i_pre, f_pre = _gate_pre(params, xc, "i"), _gate_pre(params, xc, "f")
     (C, n, m), h_t = _mlstm_step((state.C, state.n, state.m),
                                  (q, k, v, i_pre, f_pre))
     z = F.silu(x @ params["w_z"])[:, 0]
@@ -297,7 +337,7 @@ def _slstm_steps(rw: torch.Tensor, n_heads: int, state: SLSTMState,
     hd = d // n_heads
     zero = torch.zeros((), dtype=torch.float32, device=c.device)
     hs = []
-    for x_t in xs:
+    for x_t in xs[:steps_for(len(xs), c.device)]:
         # the gates' recurrent products in one batched product:
         # (H, B, hd) @ (H, hd, 4*hd) -> (B, 4, H, hd)
         r = torch.bmm(h.view(b, n_heads, hd).transpose(0, 1), rw)
@@ -316,7 +356,30 @@ def _slstm_steps(rw: torch.Tensor, n_heads: int, state: SLSTMState,
         n = f_g * n + i_g
         h = o.reshape(b, d) * (c / torch.clamp_min(n, 1e-6))
         hs.append(h)
+    hs += hs[-1:] * (len(xs) - len(hs))
     return SLSTMState(c=c, n=n, m=m, h=h), torch.stack(hs, dim=1)
+
+
+def _slstm_steps_rows(rw, n_heads: int, state: SLSTMState, xs):
+    """``_slstm_steps`` of DTensors: each rank walks its own batch rows,
+    every other dim whole and the recurrent weights gathered
+    (``rows_local``).  A step's head-wise views split d into heads, which
+    d's split over the heads' axes need not keep (4 heads on a 16-wide
+    ``model`` axis), and each step is then a few dozen ops on local
+    tensors."""
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = xs.device_mesh
+    rep = [Replicate()] * mesh.ndim
+    st = [t if is_dtensor(t) else DTensor.from_local(t, mesh, rep)
+          for t in state]
+
+    def local(xs_b, c, n, m, h, w):
+        st, hs = _slstm_steps(w, n_heads, SLSTMState(c, n, m, h),
+                              xs_b.transpose(0, 1))
+        return (*st, hs)
+
+    *st, hs = rows_local(local, 5, xs.transpose(0, 1), *st, whole=rw)
+    return SLSTMState(*st), hs
 
 
 def slstm_sequence(params, x: torch.Tensor, cfg: ModelConfig,
@@ -329,8 +392,9 @@ def slstm_sequence(params, x: torch.Tensor, cfg: ModelConfig,
         state = init_slstm_state(cfg, b, device=x.device)
     xs = _slstm_gate_inputs(params, x)
     rw = _slstm_recurrent(params, cfg.n_heads)
+    steps = _slstm_steps_rows if is_dtensor(xs) else _slstm_steps
     with record_function(SLSTM_RANGE):
-        state, hs = _slstm_steps(rw, cfg.n_heads, state, xs)
+        state, hs = steps(rw, cfg.n_heads, state, xs)
     out = hs.to(x.dtype) * F.silu(x @ params["w_z_gate"])
     return out @ params["w_down"], state
 

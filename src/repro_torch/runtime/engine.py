@@ -239,7 +239,7 @@ class EventDrivenRuntime:
             if len(tried) >= srv.dataset.n_clients:
                 return None
             k = min(srv.dataset.n_clients, len(tried) + 1)
-            for cid in (int(c) for c in srv.selector.select(k)):
+            for cid in (int(c) for c in srv.selector.select(k)):  # noqa: REPRO003 -- client ids from the selector's numpy draw
                 if cid in tried:
                     continue
                 tried.add(cid)
@@ -270,7 +270,7 @@ class EventDrivenRuntime:
         if obs.enabled() and self.fleet.churn is not None:
             obs.registry.sample("fleet_size", self.fleet.n_active(t0))
         m = min(hp.m, srv.dataset.n_clients)
-        participants = [int(c) for c in srv.selector.select(m)]
+        participants = [int(c) for c in srv.selector.select(m)]  # noqa: REPRO003 -- client ids from the selector's numpy draw
         active = [c for c in participants
                   if self._is_active(c, t0) and self._available(c)]
         # replace unavailable clients (bounded retries)
@@ -279,7 +279,7 @@ class EventDrivenRuntime:
             if len(active) >= m or len(tried) >= srv.dataset.n_clients:
                 break
             k = min(srv.dataset.n_clients, m + len(tried))
-            for cid in (int(c) for c in srv.selector.select(k)):
+            for cid in (int(c) for c in srv.selector.select(k)):  # noqa: REPRO003 -- client ids from the selector's numpy draw
                 if len(active) >= m:
                     break
                 if cid in tried:
@@ -288,7 +288,7 @@ class EventDrivenRuntime:
                 if self._is_active(cid, t0) and self._available(cid):
                     active.append(cid)
 
-        sizes = [int(srv.dataset.client_sizes[c]) for c in active]
+        sizes = [int(srv.dataset.client_sizes[c]) for c in active]  # noqa: REPRO003 -- client sizes are a numpy array
         comp = [self._comp_time(c, n, hp.e) for c, n in zip(active, sizes)]
         trans = [self._trans_time(c) for c in active]
         total = [c + t for c, t in zip(comp, trans)]
@@ -315,12 +315,12 @@ class EventDrivenRuntime:
                         obs.record("failure", phase="failure",
                                    trial=self.trace_label,
                                    virtual=(t0 + offsets[i], t0 + detect),
-                                   cid=int(cid), attempt=attempts[i])
+                                   cid=int(cid), attempt=attempts[i])  # noqa: REPRO003 -- a client id from the selector's numpy draw
                     if attempts[i] < rt.max_retries:
                         backoff = rt.retry_backoff * (comp[i] + trans[i])
                         rep = self._pick_replacement(tried, t0)
                         if rep is not None:
-                            n = int(srv.dataset.client_sizes[rep])
+                            n = int(srv.dataset.client_sizes[rep])  # noqa: REPRO003 -- client sizes are a numpy array
                             active.append(rep)
                             sizes.append(n)
                             comp.append(self._comp_time(rep, n, hp.e))
@@ -335,7 +335,7 @@ class EventDrivenRuntime:
                                     trial=self.trace_label,
                                     virtual=(t0 + detect,
                                              t0 + detect + backoff),
-                                    cid=int(rep),
+                                    cid=int(rep),  # noqa: REPRO003 -- a client id from the selector's numpy draw
                                     attempt=attempts[i] + 1)
                 i += 1
             total = [o + c + t
@@ -351,7 +351,7 @@ class EventDrivenRuntime:
                            kind="stable") if total else []
         chosen = set()             # indices into active, by arrival order
         for i in order:
-            i = int(i)
+            i = int(i)  # noqa: REPRO003 -- an index from np.argsort
             if survived[i] and (total[i] <= deadline
                                 or len(chosen) < rt.min_updates):
                 chosen.add(i)
@@ -404,7 +404,7 @@ class EventDrivenRuntime:
         reached = False
 
         for r in range(cfg.max_rounds):
-            t0 = time.perf_counter()
+            t0 = time.perf_counter()  # noqa: REPRO004 -- measures the RoundRecord.wall info field only; results use self.clock virtual time
             v0 = self.clock.now
             plan = self.plan_sync_round(hp)
             self.clock.advance_to(self.clock.now + plan.round_time)
@@ -428,7 +428,7 @@ class EventDrivenRuntime:
 
             if eval_due(r, cfg.eval_every, cfg.max_rounds):
                 accuracy = srv._evaluate(params)
-            t1 = time.perf_counter()
+            t1 = time.perf_counter()  # noqa: REPRO004 -- RoundRecord.wall is informational; parity ignores it
             wall = t1 - t0
             if obs.enabled():
                 obs.record("round", phase="round", trial=self.trace_label,
@@ -485,7 +485,7 @@ class EventDrivenRuntime:
             rng=srv.rng, prox_mu=srv.config.prox_mu, client_ids=active,
             compression=srv.config.compression)
         for cid, loss, n in zip(active, res.last_losses, res.n_examples):
-            srv.selector.update(int(cid), float(loss), n)
+            srv.selector.update(int(cid), float(loss), n)  # noqa: REPRO003 -- ids and losses are numpy arrays
         return res.params
 
     # ------------------------------------------------------------------
@@ -564,8 +564,8 @@ class EventDrivenRuntime:
             if need <= 0:
                 return
             k = min(srv.dataset.n_clients, need + len(st.inflight))
-            candidates = [int(c) for c in srv.selector.select(k)
-                          if int(c) not in st.inflight]
+            candidates = [int(c) for c in srv.selector.select(k)  # noqa: REPRO003 -- client ids from the selector's numpy draw
+                          if int(c) not in st.inflight]  # noqa: REPRO003 -- client ids from the selector's numpy draw
             for cid in candidates:
                 if len(st.inflight) >= target:
                     return
@@ -575,7 +575,7 @@ class EventDrivenRuntime:
                     self.dispatch_event(st, cid, now, queue)
         # deadlock guard: nothing in flight and nothing queued
         if not st.inflight and not queue:
-            cohort = [int(c) for c in srv.selector.select(1)]
+            cohort = [int(c) for c in srv.selector.select(1)]  # noqa: REPRO003 -- client ids from the selector's numpy draw
             if cohort:
                 self.dispatch_event(st, cohort[0], now, queue)
 
@@ -697,7 +697,7 @@ class EventDrivenRuntime:
     def _run_event_loop(self, params) -> FLResult:
         srv, cfg = self.srv, self.srv.config
         st = self.init_event_state(params)
-        last_wall = time.perf_counter()
+        last_wall = time.perf_counter()  # noqa: REPRO004 -- per-round wall info field; event ordering uses the virtual clock
 
         while self.queue and len(st.history) < cfg.max_rounds \
                 and not st.reached:
@@ -714,7 +714,7 @@ class EventDrivenRuntime:
             upd, _n = srv._client_update(fl.params, fl.client_id, fl.e)
             aggregated, staleness = self.apply_event(st, fl, upd.params)
             if aggregated:
-                now_wall = time.perf_counter()
+                now_wall = time.perf_counter()  # noqa: REPRO004 -- per-round wall info field; event ordering uses the virtual clock
                 self.finish_event_round(st, staleness, now_wall - last_wall)
                 last_wall = now_wall
                 if st.reached:

@@ -165,6 +165,52 @@ def unshard(x, dims: Sequence[int] = ()):
     return x.redistribute(x.device_mesh, pl)
 
 
+def unshard_for_local(x, dims: Sequence[int] = ()):
+    """``unshard(x, dims)`` with every unevenly split dim whole as well (4
+    heads over 3 ranks): ``local_map`` takes each rank's shard as an equal
+    part of the whole."""
+    from torch.distributed.tensor import Shard
+    if not is_dtensor(x):
+        return x
+    n = [1] * x.dim()
+    for i, p in enumerate(x.placements):
+        if isinstance(p, Shard):
+            n[p.dim] *= x.device_mesh.size(i)
+    return unshard(x, tuple(dims) + tuple(
+        d for d in range(x.dim()) if x.shape[d] % n[d]))
+
+
+def steps_for(n: int, device) -> int:
+    """How many of a loop's ``n`` like steps to run on ``device``: all of
+    them, or one on ``meta``, which computes nothing (the dry run's
+    structs).  One step there runs every op of every step, as a scan's
+    body is traced once; the loop's result op stays the same, on that
+    step's output repeated."""
+    return 1 if device.type == "meta" else n
+
+
+def _splits_badly(x, dim: int, lead: int) -> bool:
+    """True when a mesh dim shards the DTensor ``x``'s ``dim`` in a way that
+    splitting that dim into (``lead``, rest) cannot keep: ``lead`` is not a
+    multiple of the shards."""
+    from torch.distributed.tensor import Shard
+    n = 1
+    for i, p in enumerate(x.placements):
+        if isinstance(p, Shard) and p.dim == dim:
+            n *= x.device_mesh.size(i)
+    return lead % n != 0
+
+
+def split_dim(x, dim: int, lead: int):
+    """``x`` ready for its ``dim`` to be viewed as (``lead``, rest): the
+    argument itself, or, where the dim's shards do not divide ``lead``
+    (4 heads of a 16-way split), that dim whole on every rank, as GSPMD
+    replicates what it cannot split.  A plain tensor passes through."""
+    if is_dtensor(x) and _splits_badly(x, dim, lead):
+        return unshard(x, (dim,))
+    return x
+
+
 def rows_local(fn, n_out: int, *xs, whole=None):
     """``fn(*xs[, whole])`` on each rank's local rows (dim 0) of the
     DTensors ``xs``, every other dim whole, and ``whole`` gathered whole on
@@ -176,7 +222,7 @@ def rows_local(fn, n_out: int, *xs, whole=None):
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
     mesh = xs[0].device_mesh
-    x0 = unshard(xs[0], range(1, xs[0].dim()))
+    x0 = unshard_for_local(xs[0], range(1, xs[0].dim()))
     rows = [p if isinstance(p, Shard) else Replicate() for p in x0.placements]
     rep = [Replicate()] * mesh.ndim
     ins = [x0] + [x.redistribute(mesh, rows) for x in xs[1:]]

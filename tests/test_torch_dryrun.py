@@ -1,0 +1,166 @@
+"""The port's production-mesh dry run (``repro_torch.launch.dryrun``).
+
+Each case joins a ``fake`` process group of 256 ranks in a subprocess of
+its own and runs the steps on ``meta`` structs over the 16x16 mesh:
+
+  * the head counts that 16 does not divide (gemma2-2b's 8 query and kv
+    heads, qwen2-7b's 28, xlstm-350m's 4, granite-moe's 8 kv heads) and
+    the RG-LRU and MoE blocks run through ``train_4k`` and
+    ``prefill_32k``, each at one cycle of its layer pattern (widths,
+    heads and experts full), and gemma2-2b through ``decode_32k``: every
+    one of these stopped before the repair;
+  * gemma2-2b's ``train_4k`` at full depth: one rank's arguments (bf16
+    params, f32 momentum, the batch) are the reference's
+    ``memory_analysis().argument_size_in_bytes``, and so are its
+    ``decode_32k`` arguments (params, cache, token, position);
+  * the records' roofline fields are the analytic model's on the H100;
+  * a combination that fails exits 1 and names the op that stopped it.
+"""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+from torch_threads import one_torch_thread  # noqa: E402,F401
+
+from repro.configs import get_config as j_get_config  # noqa: E402
+from repro.configs.shapes import get_shape as j_get_shape  # noqa: E402
+from repro.roofline import analytic as j_analytic  # noqa: E402
+from repro_torch.roofline.hardware import H100  # noqa: E402
+
+REPO = Path(__file__).resolve().parents[1]
+
+# The reference's ``run_one`` on a 16x16 ``jax.sharding.Mesh`` of 256 XLA
+# CPU devices (Auto axes, in place of ``jax.make_mesh``'s Explicit ones,
+# which its sharding constraints refuse under this JAX): gemma2-2b's
+# ``compiled.memory_analysis().argument_size_in_bytes`` per device.
+REF_ARGUMENT_SIZE = {"train_4k": 191_917_632, "decode_32k": 1_045_384_740}
+
+# (arch, shape, layers): one cycle of each pattern, gemma2-2b at full depth
+CASES = [
+    ("gemma2-2b", "train_4k", 2), ("gemma2-2b", "prefill_32k", 2),
+    ("qwen2-7b", "train_4k", 1), ("qwen2-7b", "prefill_32k", 1),
+    ("xlstm-350m", "train_4k", 2), ("xlstm-350m", "prefill_32k", 2),
+    ("granite-moe-1b-a400m", "train_4k", 1),
+    ("granite-moe-1b-a400m", "prefill_32k", 1),
+    ("recurrentgemma-9b", "train_4k", 3),
+    ("recurrentgemma-9b", "prefill_32k", 3),
+    ("gemma2-2b", "train_4k", None), ("gemma2-2b", "decode_32k", None),
+]
+
+_RUN = r"""
+import json, sys
+import torch
+torch.set_num_threads(1)
+from repro_torch.launch import dryrun
+out = []
+for arch, shape, layers in json.loads(sys.argv[1]):
+    try:
+        out.append(dryrun.run_one(arch, shape, False, verbose=False,
+                                  save=False, layers=layers))
+    except dryrun.DryRunError as e:
+        out.append({"arch": arch, "shape": shape, "status": "fail",
+                    "error": str(e)})
+print(json.dumps(out))
+"""
+
+# the parent's projection: DTensor's einsum over 8 heads on 16 ranks
+_PLANTED = r"""
+import sys
+import torch
+torch.set_num_threads(1)
+from repro_torch.launch import dryrun
+from repro_torch.models import attention
+dryrun.OUT_DIR = __import__("pathlib").Path(sys.argv[1])
+attention._head_proj = lambda x, w: torch.einsum("bse,ehd->bshd", x, w)
+dryrun.main(["--arch", "gemma2-2b", "--shape", "prefill_32k"])
+"""
+
+
+def _env():
+    return dict(os.environ, PYTHONPATH=str(REPO / "src"))
+
+
+def _halves(cases):
+    return [cases[0::2], cases[1::2]]
+
+
+@pytest.fixture(scope="module")
+def records():
+    """{(arch, shape, layers): record}, the cases split over two
+    subprocesses run side by side."""
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _RUN, json.dumps(half)], env=_env(),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for half in _halves(CASES)]
+    out = {}
+    for proc, half in zip(procs, _halves(CASES)):
+        stdout, stderr = proc.communicate(timeout=600)
+        assert proc.returncode == 0, stderr[-4000:]
+        for case, rec in zip(half, json.loads(stdout.splitlines()[-1])):
+            out[tuple(case)] = rec
+    return out
+
+
+@pytest.mark.parametrize("case", CASES[:-2], ids=lambda c: f"{c[0]}-{c[1]}")
+def test_steps_run_through_on_the_16x16_mesh(records, case):
+    rec = records[case]
+    assert rec["status"] == "ok", rec.get("error")
+    assert rec["mesh"] == "16x16" and rec["n_devices"] == 256
+    assert rec["n_layers"] == case[2]
+    assert rec["memory_analysis"]["argument_size"] > 0
+    assert rec["t_run_s"] >= 0 and rec["t_build_s"] >= 0
+
+
+@pytest.mark.parametrize("shape", ["train_4k", "decode_32k"])
+def test_full_depth_argument_size_equals_the_references(records, shape):
+    rec = records[("gemma2-2b", shape, None)]
+    assert rec["status"] == "ok", rec.get("error")
+    assert rec["n_layers"] == 26
+    mem = rec["memory_analysis"]
+    assert mem["argument_size"] == REF_ARGUMENT_SIZE[shape]
+    # a PyTorch program has no compiled memory analysis (departure 17)
+    assert mem["output_size"] is None and mem["temp_size"] is None
+    assert rec["peak_memory_bytes"] is None
+
+
+def test_roofline_fields_are_the_analytic_models_on_the_h100(records):
+    for (arch, shape, layers), rec in records.items():
+        if layers is not None:
+            continue
+        rep = j_analytic.analyze(j_get_config(arch), j_get_shape(shape),
+                                 n_devices=256)
+        terms = rep.terms(H100)
+        assert rec["flops"] == rep.flops
+        assert rec["hbm_bytes"] == rep.hbm_bytes
+        assert rec["coll_bytes"] == rep.coll_bytes
+        assert (rec["t_compute"], rec["t_memory"], rec["t_collective"]) == \
+            (terms["compute"], terms["memory"], terms["collective"])
+        assert rec["bottleneck"] == rep.bottleneck(H100)
+        cfg, s = j_get_config(arch), j_get_shape(shape)
+        n = cfg.active_param_count()
+        model_flops = {"train": 6.0 * n * s.global_batch * s.seq_len,
+                       "decode": 2.0 * n * s.global_batch}[s.kind]
+        assert rec["model_flops"] == model_flops
+        assert rec["useful_ratio"] == model_flops / (rep.flops * 256)
+
+
+def test_a_failing_combination_exits_1_and_names_its_op(tmp_path):
+    proc = subprocess.run([sys.executable, "-c", _PLANTED, str(tmp_path)],
+                          env=_env(), capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 1, proc.stdout[-2000:] + proc.stderr[-2000:]
+    assert "failures: 1" in proc.stdout
+    rec = json.loads((tmp_path / "gemma2-2b__prefill_32k__16x16.json")
+                     .read_text())
+    assert rec["status"] == "fail"
+    assert rec["op"] == "aten.view.default"
+    assert "unevenly sharded" in rec["error"]
+    assert "[FAIL] gemma2-2b prefill_32k 16x16 at aten.view.default" \
+        in proc.stdout
