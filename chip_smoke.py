@@ -307,14 +307,27 @@ without.
      ``prefill_32k`` and ``decode_32k``, in a child process under the
      card machine's torch (each combination in a process of its own, 8 at
      a time): a ``fake`` 256-rank group, the steps run once on ``meta``
-     structs over the 16x16 mesh, nothing on the card.  It prints the
-     seconds and the count of the 30 combinations that ran through; any
-     that did not fails the run.
+     structs over the 16x16 mesh under ``roofline.analysis``, nothing on
+     the card.  It prints the seconds, the count of the 30 combinations
+     that ran through and each one's analysed peak a rank (GiB) and FLOPs
+     over the analytic model's; a combination that did not run through,
+     or whose record has no positive peak, fails the run.
+     17b: ``analyze_traced`` on the card's own steps: phase 14a's bf16
+     gemma2-2b ``fl_train_step`` (B=2 x S=4,096, 26 layers) and 14c's
+     bf16 prefills of gemma2-2b and recurrentgemma-9b (4,096 tokens at
+     B=2 into 32,768 positions), each run on the card (launching the bf16
+     kernels) and on ``meta`` copies of its arguments: FLOPs, bytes and
+     collectives must be equal; the predicted peak is printed beside
+     ``torch.cuda.max_memory_allocated`` for the step with the same
+     arguments live.  First it holds the analysis's scratch of the
+     attention backward to the kernels' planners at gemma2-2b's shape.
 
 Every bound takes the card's rates from ``repro_torch.roofline.hardware``
-(NVIDIA H100 SXM5 80GB data sheet, 700 W), and every ``fed_reduce`` case
-its bytes from ``repro_torch.roofline``'s ``fed_reduce_traffic`` (plus the
-weights, segments and int8 mask it leaves out; ``fed_reduce_bytes``).
+(NVIDIA H100 SXM5 80GB data sheet, 700 W), and each kernel's bytes and
+operations from its one formula in ``repro_torch.roofline.kernels``
+(``fed_reduce_launch_traffic``, ``fed_aggregate_traffic``,
+``attention_traffic`` over ``live_pairs``, ``rglru_scan_traffic``), the
+formulas the dry run's analysis counts each launch by.
 
 The last three lines are the card's name and power limit (as nvidia-smi
 gives them), the kernels' JSON summary (six entries: ``fed_reduce``,
@@ -367,7 +380,11 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 sys.path.insert(0, str(SRC))
 try:
-    from repro_torch.roofline import fed_reduce_traffic, hardware
+    from repro_torch.roofline import hardware
+    from repro_torch.roofline.kernels import (attention_traffic,
+                                              fed_aggregate_traffic,
+                                              fed_reduce_launch_traffic,
+                                              live_pairs, rglru_scan_traffic)
 except ImportError as exc:
     sys.exit(f"chip_smoke: FAIL: the port's sources are not beside this "
              f"script ({SRC}): {exc}")
@@ -474,15 +491,6 @@ def old_vs_new(torch, flush, old, new, check_old):
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def fed_reduce_bytes(m: int, n: int, t_seg: int, quant: bool,
-                     base: bool) -> int:
-    """The bytes one ``fed_reduce`` launch must move: the roofline's
-    (``fed_reduce_traffic``: rows, base, out, quant_ref) plus what it
-    leaves out, the (M,) weights and segments and the (M,) int8 mask."""
-    traffic = fed_reduce_traffic(m, n, t_seg, quant=quant, base=base)
-    return int(traffic.bytes_hbm) + 8 * m + (m if quant else 0)
-
-
 def fed_reduce_case(torch, card, flush, floor, name, w, rows, seg, t_seg,
                     base, normalize, quant=None, leaf_sizes=None,
                     old_lib=None):
@@ -527,9 +535,9 @@ def fed_reduce_case(torch, card, flush, floor, name, w, rows, seg, t_seg,
     acc0 = base if base is not None else torch.zeros(
         (t_seg, n), dtype=torch.float32, device=dev)
     seg_l = seg.long()
-    nbytes = fed_reduce_bytes(m, n, t_seg, quant is not None,
-                              base is not None)
-    flops = 2 * m * n + (t_seg * n if base is not None else 0)
+    traffic = fed_reduce_launch_traffic(m, n, t_seg, quant=quant is not None,
+                                        base=base is not None)
+    nbytes, flops = int(traffic.bytes_hbm), int(traffic.flops)
     bound_ms, bound_by = bound(nbytes, flops)
     rec = dict(
         phase="kernel_check", kernel="fed_reduce", case=name,
@@ -633,8 +641,8 @@ def fed_aggregate_case(torch, card, flush, floor, name, w, d, base,
     err = float((got - want).abs().max())
     check(equal, f"fed_aggregate {name}: kernel != plain version "
                  f"(max abs err {err})")
-    nbytes = 4 * (m * n + m + 2 * n)
-    flops = 2 * m * n + n
+    traffic = fed_aggregate_traffic(m, n)
+    nbytes, flops = int(traffic.bytes_hbm), int(traffic.flops)
     bound_ms, bound_by = bound(nbytes, flops)
     dt = d.t()
     rec = dict(
@@ -784,17 +792,6 @@ def kernel_cases(torch, np, card, flush, old_lib=None):
 # phase 2b: the LM kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def live_pairs(s: int, t: int, causal: bool, window) -> int:
-    """(query, key) pairs the mask keeps, query i at key i + (t - s)."""
-    total = 0
-    for i in range(s):
-        qk = i + t - s
-        hi = min(t - 1, qk) if causal else t - 1
-        lo = max(0, qk - window + 1) if window is not None else 0
-        total += max(0, hi - lo + 1)
-    return total
-
-
 def lm_kernel_cases(torch, np, card, flush):
     import torch.nn.functional as F
 
@@ -819,8 +816,8 @@ def lm_kernel_cases(torch, np, card, flush):
         err = float((got - want).abs().max())
         check(equal, f"rglru_scan {name}: kernel != plain version "
                      f"(max abs err {err})")
-        n = b * t_len * w
-        nbytes, flops = 12 * n, 2 * n
+        traffic = rglru_scan_traffic(b, t_len, w, esize=4)
+        nbytes, flops = int(traffic.bytes_hbm), int(traffic.flops)
         bound_ms, bound_by = bound(nbytes, flops)
         rec = dict(
             phase="kernel_check", kernel="rglru_scan", case=name,
@@ -867,8 +864,9 @@ def lm_kernel_cases(torch, np, card, flush):
         check(ok, f"flash_attention {name}: kernel vs plain version beyond "
                   f"rtol=atol=2e-5 (max abs err {err})")
         pairs = live_pairs(s_len, t_len, causal, window) * b * h
-        flops = 4 * d * pairs
-        nbytes = 4 * d * (2 * b * h * s_len + 2 * b * kh * t_len)
+        traffic = attention_traffic(b, h, kh, s_len, t_len, d, causal=causal,
+                                    window=window, esize=4)
+        nbytes, flops = int(traffic.bytes_hbm), int(traffic.flops)
         # the kernel's route: every product is three TF32 tensor-core passes
         bound_ms, bound_by = bound(nbytes, 3 * flops, TF32_FLOPS_PER_S)
         simt_ms, _ = bound(nbytes, flops)
@@ -1110,8 +1108,9 @@ def bf16_kernel_cases(torch, np, card, flush, ptxas, old_lib=None):
                            f"version {ulps} bf16 ulps beyond "
                            f"{BF16_ROW_FLOOR} of the row's max-abs")
         pairs = live_pairs(s_len, t_len, causal, window) * b * h
-        flops = 4 * d * pairs
-        nbytes = 2 * d * (2 * b * h * s_len + 2 * b * kh * t_len)
+        traffic = attention_traffic(b, h, kh, s_len, t_len, d, causal=causal,
+                                    window=window, esize=2)
+        nbytes, flops = int(traffic.bytes_hbm), int(traffic.flops)
         bound_ms, bound_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
         lib = None
         if cap is None:
@@ -1211,9 +1210,9 @@ def bf16_kernel_cases(torch, np, card, flush, ptxas, old_lib=None):
               f"planted fault ({faults})")
         del dv_bad, dq_bad, vz
         pairs = live_pairs(s_len, t_len, causal, window) * b * h
-        flops = 10 * d * pairs
-        nbytes = 2 * d * (4 * b * h * s_len + 4 * b * kh * t_len) \
-            + 4 * b * h * s_len
+        traffic = attention_traffic(b, h, kh, s_len, t_len, d, causal=causal,
+                                    window=window, esize=2, backward=True)
+        nbytes, flops = int(traffic.bytes_hbm), int(traffic.flops)
         bound_ms, bound_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
         lib = None
         if cap is None:
@@ -1297,8 +1296,8 @@ def bf16_kernel_cases(torch, np, card, flush, ptxas, old_lib=None):
         equal = bool(torch.equal(got, want))
         check(equal, f"rglru_scan bf16 {name}: kernel != plain version "
                      f"(max abs err {rel_err(got, want)} of max-abs)")
-        n = b * t_len * w
-        nbytes, flops = 6 * n, 2 * n
+        traffic = rglru_scan_traffic(b, t_len, w, esize=2)
+        nbytes, flops = int(traffic.bytes_hbm), int(traffic.flops)
         bound_ms, bound_by = bound(nbytes, flops)
         ms = median_ms(torch, lambda: sc_mod.rglru_scan(a, x), flush)
         rec = dict(
@@ -2140,10 +2139,10 @@ def train_kernel_cases(torch, np, card, flush, ptxas, old_lib=None):
                                 f"off by {rel} of their max-abs (> 1e-4)")
         del again, want
         pairs = live_pairs(s_len, t_len, causal, window) * b * h
-        flops = 10 * d * pairs
         # reads q, k, v, out, dout, lse; writes dq, dk, dv
-        nbytes = 4 * (d * (4 * b * h * s_len + 4 * b * kh * t_len)
-                      + b * h * s_len)
+        traffic = attention_traffic(b, h, kh, s_len, t_len, d, causal=causal,
+                                    window=window, esize=4, backward=True)
+        nbytes, flops = int(traffic.bytes_hbm), int(traffic.flops)
         # the kernel's route: every product is three TF32 tensor-core passes
         bound_ms, bound_by = bound(nbytes, 3 * flops, TF32_FLOPS_PER_S)
         simt_ms, _ = bound(nbytes, flops)
@@ -2229,8 +2228,8 @@ def train_kernel_cases(torch, np, card, flush, ptxas, old_lib=None):
         err = max(float((g - c).abs().max()) for g, c in zip(got, want))
         check(equal, f"rglru_scan_bwd {name}: kernel != plain version "
                      f"(max abs err {err})")
-        n = b * t_len * w
-        nbytes, flops = 20 * n, 3 * n
+        traffic = rglru_scan_traffic(b, t_len, w, esize=4, backward=True)
+        nbytes, flops = int(traffic.bytes_hbm), int(traffic.flops)
         bound_ms, bound_by = bound(nbytes, flops)
         rec = dict(
             phase="train_kernel_check", kernel="rglru_scan_bwd", case=name,
@@ -4361,10 +4360,17 @@ DRYRUN_TIMEOUT_S = 600
 def dryrun_phase():
     """Phase 17: every architecture's steps at ``DRYRUN_SHAPES`` on the
     16x16 production mesh (``launch/dryrun``), in a child process of its
-    own session, so a timeout stops its children too."""
+    own session, so a timeout stops its children too; then each
+    combination's record: its peak and its FLOPs against the analytic
+    model's."""
     import os
     import signal
     from repro_torch.configs import ARCH_NAMES
+    from repro_torch.launch.dryrun import OUT_DIR
+    combos = [(a, sh) for a in ARCH_NAMES for sh in DRYRUN_SHAPES]
+    paths = {c: OUT_DIR / f"{c[0]}__{c[1]}__16x16.json" for c in combos}
+    for path in paths.values():
+        path.unlink(missing_ok=True)
     t0 = time.perf_counter()
     cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--mesh",
            "pod", "--jobs", str(DRYRUN_JOBS)]
@@ -4386,13 +4392,153 @@ def dryrun_phase():
     lines = out.splitlines()
     ok = [ln for ln in lines if ln.startswith("[OK ]")]
     failed = [ln[:300] for ln in lines if ln.startswith("[FAIL]")]
-    n = len(ARCH_NAMES) * len(DRYRUN_SHAPES)
-    emit(dict(phase="dryrun", seconds=seconds, combinations=n,
-              ran_through=len(ok), failed=failed, mesh="16x16",
-              shapes=list(DRYRUN_SHAPES), jobs=DRYRUN_JOBS))
+    n = len(combos)
     check(proc.returncode == 0 and len(ok) == n and not failed,
           f"phase 17: {len(ok)} of {n} combinations ran through (exit "
           f"{proc.returncode}):\n" + "\n".join(failed) + f"\n{out[-3000:]}")
+    rows = []
+    for (arch, shape), path in paths.items():
+        check(path.exists(), f"phase 17: no record {path.name}")
+        rec = json.loads(path.read_text())
+        peak = rec.get("peak_memory_bytes")
+        check(bool(peak), f"phase 17 {arch} {shape}: peak {peak}")
+        rows.append(dict(arch=arch, shape=shape, peak_gib=peak / 2**30,
+                         flops_over_analytic=rec["flops"]
+                         / rec["analytic"]["flops"],
+                         bottleneck=rec["bottleneck"],
+                         memory_analysis=rec["memory_analysis"],
+                         run_s=rec["t_run_s"]))
+        print(f"phase 17 {arch:22s} {shape:12s} peak "
+              f"{peak / 2**30:9.2f} GiB  flops / analytic "
+              f"{rows[-1]['flops_over_analytic']:7.3f}", flush=True)
+    emit(dict(phase="dryrun", seconds=seconds, combinations=n,
+              ran_through=len(ok), failed=failed, mesh="16x16",
+              shapes=list(DRYRUN_SHAPES), jobs=DRYRUN_JOBS, records=rows))
+
+
+# phase 17b: the analysis of the card's own steps against meta's
+# (cell, arch, batch, sequence or prompt, cache positions)
+ANALYSIS_CELLS = (("train", "gemma2-2b", 2, 4096, None),
+                  ("prefill", "gemma2-2b", 2, 4096, 32768),
+                  ("prefill", "recurrentgemma-9b", 2, 4096, 32768))
+
+
+def analysis_phase(torch, card):
+    """Phase 17b: ``roofline.analysis.analyze_traced`` on phase 14a's bf16
+    gemma2-2b training step and 14c's bf16 prefills, once on the card (the
+    bf16 kernels launched, the peak measured beside it) and once on
+    ``meta`` copies of the same arguments: FLOPs, bytes and collectives
+    equal, and the predicted peak beside ``max_memory_allocated`` for the
+    step with the same arguments live."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.kernels import flash_attention as fl_mod
+    from repro_torch.kernels import rglru_scan as sc_mod
+    from repro_torch.launch.distributed_fl import round_batch
+    from repro_torch.launch.steps import make_fl_train_step, make_prefill_step
+    from repro_torch.models import stacked
+    from repro_torch.roofline.analysis import analyze_traced
+    from repro_torch.tree import tree_map
+
+    import ctypes
+
+    from repro_torch.kernels import build
+    from repro_torch.roofline.kernels import attention_scratch_bytes
+
+    # the analysis's scratch of the attention backward against the kernels'
+    # planners, at gemma2-2b's training shape (global and local layers)
+    info = (ctypes.c_longlong * 5)()
+    for window in (0, 4096):
+        for dt, esize in (("f32", 4), ("bf16", 2)):
+            planned = getattr(build.library(),
+                              f"flash_attention_bwd_plan_{dt}")(
+                2, 8, 4, 4096, 4096, 256, window, info)
+            formula = attention_scratch_bytes(2, 8, 4, 4096, 4096, 256,
+                                              esize=esize, backward=True)
+            check(planned == formula, f"phase 17b: the {dt} backward's "
+                  f"scratch is {planned} bytes, the analysis counts "
+                  f"{formula}")
+
+    bf = torch.bfloat16
+    t_phase = time.perf_counter()
+    out = []
+    for cell, arch, b, s_len, max_len in ANALYSIS_CELLS:
+        cfg = get_config(arch)
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = stacked.init_params_stacked(cfg, gen, bf)
+        if cell == "train":
+            step, _ = make_fl_train_step(cfg, InputShape(
+                "train_4k_cut", seq_len=s_len, global_batch=b, kind="train"))
+            momentum = tree_map(lambda x: torch.zeros(
+                x.shape, dtype=torch.float32, device=x.device), params)
+            args = (params, momentum, round_batch(cfg, b, s_len, gen, "cuda"))
+        else:
+            step, _ = make_prefill_step(cfg, InputShape(
+                "prefill_32k_cut", seq_len=max_len, global_batch=b,
+                kind="prefill"))
+            args = (params, torch.randint(0, cfg.vocab_size, (b, s_len),
+                                          generator=gen, device="cuda"))
+        meta_args = tree_map(lambda x: torch.empty_like(x, device="meta"),
+                             args)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        train_counts(fl_mod, sc_mod, reset=True)
+        kw = dict(arch=arch, shape=f"{cell}_{b}x{s_len}", mesh="1",
+                  n_devices=1)
+        t0 = time.perf_counter()
+        rep_card, mem_card = analyze_traced(step, args, **kw)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        measured = torch.cuda.max_memory_allocated() - before
+        launched = {k: v for k, v in train_counts(fl_mod, sc_mod).items()
+                    if v}
+        del args, params, step
+        torch.cuda.empty_cache()
+        if cell == "train":
+            step, _ = make_fl_train_step(cfg, InputShape(
+                "train_4k_cut", seq_len=s_len, global_batch=b, kind="train"))
+        else:
+            step, _ = make_prefill_step(cfg, InputShape(
+                "prefill_32k_cut", seq_len=max_len, global_batch=b,
+                kind="prefill"))
+        t0 = time.perf_counter()
+        rep_meta, mem_meta = analyze_traced(step, meta_args, **kw)
+        meta_s = time.perf_counter() - t0
+        same = {k: getattr(rep_card, k) == getattr(rep_meta, k)
+                for k in ("flops", "hbm_bytes", "coll_bytes")}
+        predicted = rep_meta.peak_memory_bytes
+        rec = dict(phase="analysis", cell=cell, arch=arch, layers=cfg.n_layers,
+                   dtype="bfloat16", batch=b, seq_len=s_len,
+                   cache_positions=max_len, launched=launched,
+                   kernels_counted=json.loads(rep_card.notes)["kernels"],
+                   flops=rep_card.flops, hbm_bytes=rep_card.hbm_bytes,
+                   coll_bytes=rep_card.coll_bytes, card_equals_meta=same,
+                   predicted_peak_gib=predicted / 2**30,
+                   card_analysis_peak_gib=rep_card.peak_memory_bytes / 2**30,
+                   measured_peak_gib=measured / 2**30,
+                   predicted_over_measured=predicted / measured,
+                   memory_analysis=mem_meta, card_memory_analysis=mem_card,
+                   card_s=card_s, meta_s=meta_s, card=card)
+        emit(rec)
+        print(f"phase 17b {arch} {cell}: predicted peak "
+              f"{predicted / 2**30:.2f} GiB, max_memory_allocated "
+              f"{measured / 2**30:.2f} GiB ({predicted / measured:.3f})",
+              flush=True)
+        check(all(same.values()), f"phase 17b {arch} {cell}: the card's "
+              f"analysis and meta's differ ({same}): card "
+              f"{(rep_card.flops, rep_card.hbm_bytes, rep_card.coll_bytes)},"
+              f" meta {(rep_meta.flops, rep_meta.hbm_bytes)}, "
+              f"{rep_meta.coll_bytes}")
+        check(launched.get("flash_attention_bf16", 0) > 0,
+              f"phase 17b {arch} {cell}: no bf16 attention launch "
+              f"({launched})")
+        out.append(rec)
+        del step, meta_args
+    emit(dict(phase="analysis", seconds=time.perf_counter() - t_phase))
+    return out
 
 
 def main():
@@ -4538,8 +4684,11 @@ def main():
     del table_inputs
     emit(dict(phase="paper_tables", seconds=time.perf_counter() - t16))
 
-    # phase 17: the production-mesh dry run
+    # phase 17: the production-mesh dry run, and 17b: the analysis of the
+    # card's own steps
     dryrun_phase()
+    torch.cuda.empty_cache()
+    analysis_phase(torch, card)
 
     for k in ("flash_attention_bf16", "flash_attention_bwd_bf16"):
         check(launches.get(k, 0) > 0, f"{k}: no launch on the bf16 path")

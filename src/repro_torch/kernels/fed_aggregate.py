@@ -25,11 +25,15 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.roofline.analysis import kernel_op
+from repro_torch.roofline.kernels import fed_aggregate_traffic
 
 # Launches of the CUDA kernel in this process (set it to 0 to start a count).
 launches = 0
 
 
+@kernel_op(lambda weights, deltas, base=None: (fed_aggregate_traffic(
+    *deltas.shape, base=base is not None), 0))
 def fed_aggregate(weights: torch.Tensor, deltas: torch.Tensor,
                   base: Optional[torch.Tensor] = None) -> torch.Tensor:
     """weights: (M,); deltas: (M, N); base: (N,) or None -> (N,)."""

@@ -48,6 +48,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.roofline.analysis import kernel_op
+from repro_torch.roofline.kernels import fed_reduce_launch_traffic
 
 # Launches of the CUDA kernels in this process (set them to 0 to start a
 # count): the fold, and the calls of it that ran the int8 round trip.
@@ -55,6 +57,18 @@ launches = 0
 quant_launches = 0
 
 
+def _cost(weights, rows, segments, num_segments, base=None, *,
+          leaf_sizes=None, quant_ref=None, **_):
+    """A launch's traffic and the int8 round trip's scratch of M x L + 1
+    words (``quant_scratch``; ``roofline.analysis.kernel_op``)."""
+    m, n = rows.shape
+    quant = quant_ref is not None
+    return (fed_reduce_launch_traffic(m, n, int(num_segments), quant=quant,
+                                      base=base is not None),
+            4 * (m * len(leaf_sizes) + 1) if quant and leaf_sizes else 0)
+
+
+@kernel_op(_cost)
 def fed_reduce(weights: torch.Tensor, rows: torch.Tensor,
                segments: torch.Tensor, num_segments: int,
                base: Optional[torch.Tensor] = None, *,

@@ -52,11 +52,16 @@ atomics).  q, k and v share one dtype, float32 or bfloat16; fp16 and mixed
 dtypes raise ``ValueError``.  Rows are 16-byte aligned: 4 f32 or 8 bf16
 values.
 
-Dispatch: a CPU tensor takes the plain version, and so does a ``meta``
-tensor, which computes nothing (the dry run's structs); a CUDA tensor
-launches the kernel of its dtype (f32: the split pass and the attention
-kernel, one entry point) or raises.  ``launches`` counts the f32
-kernel's launches and ``launches_bf16`` the bf16 kernel's, one a call.
+Dispatch: a CPU tensor takes the plain version, its results laid out as
+the kernel lays them out (q's strides, and k's and v's for their
+gradients); a ``meta`` tensor (the dry run's structs) computes nothing and
+returns empty tensors of those shapes; a CUDA tensor launches the kernel
+of its dtype (f32: the split pass and the attention kernel, one entry
+point) or raises.  ``launches`` counts the f32 kernel's launches and
+``launches_bf16`` the bf16 kernel's, one a call.  Under
+``roofline.analysis`` each call is one op, whatever the device: its
+FLOPs and bytes are ``roofline.kernels.attention_traffic`` (the bounds'
+count) and it allocates its outputs and the kernel's scratch.
 
 Training (``ops.flash_attention`` under autograd) asks the forward for the
 rows' log-sum-exp as well (``return_lse``; serving passes a null pointer and
@@ -83,6 +88,9 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.roofline.analysis import kernel_op
+from repro_torch.roofline.kernels import (attention_scratch_bytes,
+                                          attention_traffic)
 
 HEAD_DIMS = (32, 64, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
@@ -95,26 +103,67 @@ launches_bf16 = 0
 bwd_launches_bf16 = 0
 
 
+def _cost(q, k, backward, causal, window, lse=False):
+    """A call's traffic and scratch (``roofline.analysis.kernel_op``)."""
+    b, h, s, d = q.shape
+    kh, t = k.shape[1], k.shape[2]
+    esize = q.element_size()
+    return (attention_traffic(b, h, kh, s, t, d, causal=causal,
+                              window=window, esize=esize, backward=backward,
+                              lse=lse),
+            attention_scratch_bytes(b, h, kh, s, t, d, esize=esize,
+                                    backward=backward))
+
+
+def _fwd_cost(q, k, v, *, causal=True, window=None, cap=None,
+              return_lse=False):
+    return _cost(q, k, False, causal, window, return_lse)
+
+
+def _bwd_cost(q, k, v, out, lse, dout, *, causal=True, window=None,
+              cap=None):
+    return _cost(q, k, True, causal, window)
+
+
+def _like(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``x`` in ``like``'s layout (``empty_like``'s, as the kernels write)."""
+    if x.stride() == like.stride():
+        return x
+    return torch.empty_like(like).copy_(x)
+
+
+@kernel_op(_fwd_cost)
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     cap: Optional[float] = None, return_lse: bool = False):
     """q: (B, H, S, D); k, v: (B, Kh, T, D), H % Kh == 0 -> (B, H, S, D),
     and with ``return_lse`` also the rows' log-sum-exp (B, H, S) f32."""
-    if q.device.type in ("cpu", "meta"):
-        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                       cap=cap, return_lse=return_lse)
+    if q.device.type == "meta":
+        out = torch.empty_like(q)
+        lse = torch.empty(q.shape[:3], dtype=torch.float32, device="meta")
+        return (out, lse) if return_lse else out
+    if q.device.type == "cpu":
+        got = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                      cap=cap, return_lse=return_lse)
+        if return_lse:
+            return _like(got[0], q), got[1]
+        return _like(got, q)
     return _launch(q, k, v, causal, window, cap, return_lse)
 
 
+@kernel_op(_bwd_cost)
 def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
                         window: Optional[int] = None,
                         cap: Optional[float] = None):
     """The gradient (dq, dk, dv) of ``flash_attention`` from its output
     ``out``, its ``lse`` (B, H, S) and the output's gradient ``dout``."""
-    if q.device.type in ("cpu", "meta"):
-        return ref.flash_attention_bwd_ref(q, k, v, out, lse, dout,
-                                           causal=causal, window=window,
-                                           cap=cap)
+    if q.device.type == "meta":
+        return tuple(torch.empty_like(x) for x in (q, k, v))
+    if q.device.type == "cpu":
+        got = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout,
+                                          causal=causal, window=window,
+                                          cap=cap)
+        return tuple(_like(g, x) for g, x in zip(got, (q, k, v)))
     return _launch_bwd(q, k, v, out, lse, dout, causal, window, cap)
 
 

@@ -33,7 +33,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.sharding.ctx import steps_for
+from repro_torch.sharding.ctx import steps
 
 # XLA rewrites a division by the constant 127 into a multiply by its f32
 # reciprocal; the port multiplies by the same f32 value.
@@ -255,7 +255,7 @@ def rglru_scan_ref(a: torch.Tensor, b: torch.Tensor,
     h = (torch.zeros((bsz, w), dtype=torch.float32, device=a.device)
          if h0 is None else h0.to(torch.float32))
     out = torch.empty((bsz, t, w), dtype=torch.float32, device=a.device)
-    for i in range(steps_for(t, a.device)):
+    for i in steps(t, a.device):
         h = af[:, i] * h + bf[:, i]
         out[:, i] = h
     return out.to(a.dtype)
@@ -276,7 +276,8 @@ def rglru_scan_bwd_ref(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor):
     zero = torch.zeros_like(g)
     da = torch.empty((bsz, t, w), dtype=f32, device=a.device)
     db = torch.empty_like(da)
-    for i in range(t - 1, t - 1 - steps_for(t, a.device), -1):
+    for j in steps(t, a.device):
+        i = t - 1 - j
         g = dhf[:, i] + a_next * g
         db[:, i] = g
         da[:, i] = g * (hf[:, i - 1] if i > 0 else zero)

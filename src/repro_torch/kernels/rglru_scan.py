@@ -21,10 +21,11 @@ reverse scan stays f32: the models scan in f32 (the reference's
 ``lm.py:339-340`` and ``recurrent.py:107``, the port's
 ``models/recurrent.py``), so no bf16 scan gradient is on any path.
 
-Dispatch: a CPU tensor takes the plain version, and so does a ``meta``
-tensor, which computes nothing (the dry run's structs; the plain loops
-walk one step there, ``sharding.ctx.steps_for``); a CUDA tensor launches
-the kernel of its dtype or raises.
+Dispatch: a CPU tensor takes the plain version; a ``meta`` tensor (the
+dry run's structs) computes nothing and returns empty tensors of the
+outputs' shapes; a CUDA tensor launches the kernel of its dtype or raises.
+Under ``roofline.analysis`` each call is one op, whatever the device, its
+FLOPs and bytes ``roofline.kernels.rglru_scan_traffic``.
 ``launches`` counts the f32 kernel's launches and ``launches_bf16`` the
 bf16 kernel's.
 
@@ -40,6 +41,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.roofline.analysis import kernel_op
+from repro_torch.roofline.kernels import rglru_scan_traffic
 
 # Launches of the CUDA kernels in this process (set them to 0 to start a
 # count): the forward scan and the reverse scan.
@@ -48,17 +51,29 @@ bwd_launches = 0
 launches_bf16 = 0
 
 
+def _cost(a, backward=False):
+    """A call's traffic, and no scratch (``roofline.analysis.kernel_op``)."""
+    return rglru_scan_traffic(*a.shape, esize=a.element_size(),
+                              backward=backward), 0
+
+
+@kernel_op(lambda a, b: _cost(a))
 def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a, b: (B, T, W) -> h: (B, T, W), h_0 = 0."""
-    if a.device.type in ("cpu", "meta"):
+    if a.device.type == "meta":
+        return torch.empty_like(a)
+    if a.device.type == "cpu":
         return ref.rglru_scan_ref(a, b)
     return _launch(a, b)
 
 
+@kernel_op(lambda a, h, dh: _cost(a, backward=True))
 def rglru_scan_bwd(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor):
     """The scan's gradient: a, h (the forward's output), dh: (B, T, W) ->
     (da, db)."""
-    if a.device.type in ("cpu", "meta"):
+    if a.device.type == "meta":
+        return torch.empty_like(a), torch.empty_like(a)
+    if a.device.type == "cpu":
         return ref.rglru_scan_bwd_ref(a, h, dh)
     return _launch_bwd(a, h, dh)
 

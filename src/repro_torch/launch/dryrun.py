@@ -1,35 +1,37 @@
 """Production-mesh dry run (port of ``repro.launch.dryrun``): build every
-(architecture x input shape x mesh) step on the production meshes and run
-it once on ``meta`` tensors.
+(architecture x input shape x mesh) step on the production meshes, run
+it once on ``meta`` tensors and record one rank's analysis of it.
 
 The reference lowers and compiles each step (``.lower().compile()``) on
-256 or 512 devices.  Here the process joins a ``fake`` process group of 256
-(16x16) or 512 (2x16x16) ranks as rank 0, builds
-``make_production_mesh`` over it and takes the step and its structs from
-``step_for_shape``.  Running the step once on those structs is the
-counterpart of the compile: every op's DTensor sharding rule at the
-production mesh is exercised (each collective a fake one, on tensors that
-hold no data) and nothing is allocated.  A loop that stands for one of the
-reference's scans walks one iteration on ``meta``, as a scan's body is
-traced once (``sharding.ctx.steps_for``).  The decode
-step takes its position as a host scalar, ``seq_len - 1``: a ``meta``
-tensor holds no value to index the cache by.
+256 or 512 devices and reads its records from the compiled program
+(``analyze_compiled``).  Here the process joins a ``fake`` process group
+of 256 (16x16) or 512 (2x16x16) ranks as rank 0, builds
+``make_production_mesh`` over it, takes the step and its structs from
+``step_for_shape``, places the arguments as a rank holds them
+(``placed_args``) and runs the step once under
+``roofline.analysis.analyze_traced``: every op's DTensor sharding rule at
+the production mesh is exercised (each collective a fake one, on tensors
+that hold no data), nothing is allocated, and what the rank would run is
+counted.  A loop that stands for one of the reference's scans walks its
+first, a middle and its last step on ``meta``, and the analysis counts
+the middle one for the rest (``sharding.ctx.steps``).
 
-Each combination's record keeps the reference's keys where they have a
-counterpart:
+Each combination's record keeps the reference's keys:
 
-  * ``flops``, ``hbm_bytes``, ``coll_bytes``, ``t_compute``, ``t_memory``,
-    ``t_collective``, ``bottleneck``: ``roofline.analytic.analyze`` on the
-    H100's data-sheet peaks (``roofline.hardware.H100``), per device: model
-    estimates, not measurements; ``model_flops`` and ``useful_ratio`` as
-    the reference computes them;
+  * ``flops``, ``hbm_bytes``, ``coll_bytes``, ``coll_breakdown`` (bytes
+    and ``counts`` by kind), ``t_compute``, ``t_memory``,
+    ``t_collective``, ``bottleneck``, ``model_flops``, ``useful_ratio``
+    and ``peak_memory_bytes``: the rank's analysis on the H100's
+    data-sheet peaks (``roofline.hardware.H100``); ``notes`` the kernel
+    entry points counted;
+  * ``memory_analysis``: ``argument_size`` (the arguments' local shards:
+    params, momentum, batch, cache; checked against ``argument_bytes``),
+    ``output_size``, ``alias_size`` (arguments written in place) and
+    ``temp_size``, with peak = argument + output + temp - alias;
+  * ``analytic``: ``roofline.analytic.analyze``'s model of the
+    reference's program on the H100, as a cross-check;
   * ``t_build_s`` and ``t_run_s`` (building the step, running it) in place
-    of ``t_lower_s`` and ``t_compile_s``;
-  * ``memory_analysis.argument_size``: one rank's bytes of the step's
-    arguments (params, momentum, batch, cache) from their local shard
-    shapes on the mesh.  ``output_size``, ``temp_size`` and
-    ``peak_memory_bytes`` are null: a PyTorch program has no compiled
-    memory analysis (ROADMAP.md, departure 17).
+    of ``t_lower_s`` and ``t_compile_s``.
 
 A failed combination's record names the op that stopped it (``op``: the
 aten op DTensor could not place, or the innermost frame of the port) and
@@ -61,6 +63,7 @@ from repro_torch.configs.shapes import SHAPES, get_shape
 from repro_torch.launch import steps as steps_mod
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.serve import cut_layers
+from repro_torch.roofline.analysis import analyze_traced
 from repro_torch.roofline.analytic import analyze
 from repro_torch.roofline.hardware import H100
 from repro_torch.sharding import specs as sh
@@ -164,6 +167,29 @@ def argument_bytes(shape, structs, mesh, rules) -> int:
     return total
 
 
+def placed_args(shape, structs, mesh, rules) -> list:
+    """The step's arguments as a rank holds them, placed on ``mesh`` as
+    ``argument_bytes`` counts them (the reference's ``in_shardings``):
+    params by ``param_shardings`` and momentum beside them, the batch on
+    its axes, a cache by ``cache_specs``; decode's position a host int32
+    scalar (a ``meta`` tensor holds no value to index the cache by), 0:
+    the new entry's slot then lies in this rank's shard of a cache split
+    on its sequence, so the analysis sees the write (the step's other ops
+    are the same at every position)."""
+    params = sh.place_params(structs[0], mesh, rules)
+    if shape.kind == "train":
+        return [params, sh.place_like(structs[1], params),
+                {k: sh.place_batch(v, mesh, rules)
+                 for k, v in structs[2].items()}]
+    if shape.kind == "prefill":
+        return [params] + [sh.place_batch(x, mesh, rules)
+                           for x in structs[1:]]
+    return [params, sh.place_cache(structs[1], mesh, rules),
+            sh.place_batch(structs[2], mesh, rules),
+            torch.tensor(0, dtype=torch.int32)] \
+        + list(structs[4:])
+
+
 def _step_rules(shape, mesh, multi_pod: bool):
     if shape.kind == "train":
         return steps_mod.train_step_rules(multi_pod)
@@ -217,18 +243,17 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, *,
     if step_kwargs is None and shape.kind == "train":
         step_kwargs = (TRAIN_KWARGS_MULTIPOD if multi_pod
                        else TRAIN_KWARGS).get(arch, {})
-    rep = analyze(cfg, shape, n_devices=n_dev)
-    terms = rep.terms(H100)
     model_flops = model_flops_estimate(cfg, shape)
-    record.update({
-        "flops": rep.flops, "hbm_bytes": rep.hbm_bytes,
-        "coll_bytes": rep.coll_bytes, "t_compute": terms["compute"],
+    ana = analyze(cfg, shape, n_devices=n_dev)
+    terms = ana.terms(H100)
+    record["chip"] = H100.name
+    record["analytic"] = {
+        "flops": ana.flops, "hbm_bytes": ana.hbm_bytes,
+        "coll_bytes": ana.coll_bytes, "t_compute": terms["compute"],
         "t_memory": terms["memory"], "t_collective": terms["collective"],
-        "bottleneck": rep.bottleneck(H100), "chip": H100.name,
-        "model_flops": model_flops,
-        "useful_ratio": model_flops / (rep.flops * n_dev) if rep.flops
-        else 0.0,
-        "peak_memory_bytes": None})
+        "bottleneck": ana.bottleneck(H100),
+        "useful_ratio": model_flops / (ana.flops * n_dev) if ana.flops
+        else 0.0}
     _join_fake_group(n_dev)
     try:
         t0 = time.perf_counter()
@@ -236,28 +261,29 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, *,
         step, structs = steps_mod.step_for_shape(
             cfg, shape, mesh=mesh, multi_pod=multi_pod,
             **(step_kwargs or {}))
-        record["memory_analysis"] = {
-            "argument_size": argument_bytes(
-                shape, structs, mesh, _step_rules(shape, mesh, multi_pod)),
-            "output_size": None, "temp_size": None}
-        args = list(structs)
-        if shape.kind == "decode":
-            args[3] = shape.seq_len - 1
+        rules = _step_rules(shape, mesh, multi_pod)
+        arg_bytes = argument_bytes(shape, structs, mesh, rules)
+        args = placed_args(shape, structs, mesh, rules)
         t_build = time.perf_counter() - t0
-        step(*args)
+        rep, mem = analyze_traced(step, args, arch=arch, shape=shape_name,
+                                  mesh=mesh_name, n_devices=n_dev,
+                                  model_flops=model_flops, chip=H100)
         t_run = time.perf_counter() - t0 - t_build
+        if mem["argument_size"] != arg_bytes:
+            raise RuntimeError(
+                f"the analysis counts {mem['argument_size']} argument bytes "
+                f"where the arguments' local shards hold {arg_bytes}")
+        record.update(json.loads(rep.to_json()))
+        record["memory_analysis"] = mem
         record["t_build_s"] = round(t_build, 2)
         record["t_run_s"] = round(t_run, 2)
         if verbose:
-            args_gib = record["memory_analysis"]["argument_size"] / 2**30
-            print(f"[OK ] {arch:22s} {shape_name:12s} {mesh_name:9s} "
-                  f"comp={record['t_compute']*1e3:9.3f}ms "
-                  f"mem={record['t_memory']*1e3:9.3f}ms "
-                  f"coll={record['t_collective']*1e3:9.3f}ms "
-                  f"-> {record['bottleneck']:10s} "
-                  f"useful={record['useful_ratio']:6.1%} "
-                  f"args={args_gib:.2f}GiB  (build {t_build:.1f}s "
+            print(f"[OK ] {rep.row()}  (build {t_build:.1f}s "
                   f"run {t_run:.1f}s)", flush=True)
+            print(f"      memory: args={mem['argument_size']/2**30:.2f}GiB "
+                  f"temp={mem['temp_size']/2**30:.2f}GiB "
+                  f"out={mem['output_size']/2**30:.2f}GiB "
+                  f"alias={mem['alias_size']/2**30:.2f}GiB", flush=True)
     except Exception as e:  # a failure here is a bug in the port's sharding
         record["status"] = "fail"
         record["op"] = _failed_op(e)

@@ -2,7 +2,8 @@
 
 Port of ``repro.models.attention`` for serving.  Three execution paths:
   * ``naive_attention`` materialises the (S, T) scores: the plain path,
-    which a CPU tensor takes (and a ``meta`` one, which computes nothing);
+    which a CPU tensor takes (a ``meta`` one, which computes nothing, and
+    a CPU one under ``roofline.analysis`` take the kernel's route);
   * on a CUDA tensor every full-sequence core is ``ops.flash_attention``,
     the Hopper kernel, whatever the sequence length (the reference's naive
     and blocked paths compute the same function): causal self-attention,
@@ -52,6 +53,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.common import (apply_rope, dense_init, map_grad,
                                        shard_bshd, softcap)
+from repro_torch.roofline import analysis
 from repro_torch.sharding.ctx import (PartitionSpec as P, current_mesh,
                                       current_rules, is_dtensor, split_dim,
                                       to_placements, unshard,
@@ -275,15 +277,18 @@ def _attend_sharded(q, k, v, mesh, *, causal: bool, window: Optional[int],
 def _attend(q, k, v, q_pos, k_pos, *, causal: bool, window: Optional[int],
             cap: Optional[float]) -> torch.Tensor:
     """The full-sequence core: the plain path on the CPU, the kernel on
-    CUDA, each on the local shards on a mesh.  The kernel places query i
-    at key i + (T - S); the positions here are ``arange``, so a mask
-    agrees with it when S == T or when there is none (non-causal, no
-    window: cross-attention)."""
+    CUDA, each on the local shards on a mesh.  ``meta`` takes the kernel's
+    route (its entry points return empty outputs there), and so does the
+    CPU under ``roofline.analysis`` (the plain versions inside the entry
+    points), so the analysis counts the card's program.  The kernel
+    places query i at key i + (T - S); the positions here are ``arange``,
+    so a mask agrees with it when S == T or when there is none
+    (non-causal, no window: cross-attention)."""
     mesh = current_mesh()
     if mesh is not None and is_dtensor(q):
         return _attend_sharded(q, k, v, mesh, causal=causal, window=window,
                                cap=cap)
-    if q.device.type in ("cpu", "meta"):
+    if q.device.type == "cpu" and not analysis.active():
         return naive_attention(q, k, v, q_pos=q_pos, k_pos=k_pos,
                                causal=causal, window=window, cap=cap)
     if q.shape[1] != k.shape[1] and (causal or window is not None):

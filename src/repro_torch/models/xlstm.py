@@ -27,8 +27,9 @@ the gates' pre-activations reduce their sums over a split width at once
 (``_gate_pre``), so DTensor never scatters them over heads that do not
 divide the axis.
 On ``meta`` tensors (the dry run's), which compute nothing, the chunk and
-step loops walk one iteration (``sharding.ctx.steps_for``), as the
-reference's scans trace their body once.
+step loops walk their first, one middle and their last iteration
+(``sharding.ctx.steps``), as the reference's scans trace their body once;
+the dry run's analysis counts the middle one for the rest.
 
 ``mlstm_sequence`` and ``slstm_sequence`` return the block's output and
 the state decode carries on (the reference's ``lm._mlstm_prefill`` and
@@ -48,8 +49,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import (causal_conv, dense_init, map_grad,
                                        softplus)
 from repro_torch.sharding.ctx import (is_dtensor, logical_constraint,
-                                      rows_local, split_dim, steps_for,
-                                      unshard, unshard_for_local)
+                                      rows_local, split_dim, step_inputs,
+                                      steps, unshard, unshard_for_local)
 
 DEFAULT_MLSTM_CHUNK = 128
 CONV_WIDTH = 4
@@ -193,7 +194,7 @@ def mlstm_chunkwise(q, k, v, i_pre, f_pre, *,
     tri = torch.tril(torch.ones((l, l), dtype=torch.bool, device=dev))
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     hs = []
-    for j in range(steps_for(nc, dev)):
+    for j in steps(nc, dev):
         cut = slice(j * l, (j + 1) * l)
         qc, kc, vc = q[:, :, cut], k[:, :, cut], v[:, :, cut]
         ic, lfc = i_pre[:, :, cut], logf[:, :, cut]
@@ -226,7 +227,7 @@ def mlstm_chunkwise(q, k, v, i_pre, f_pre, *,
         n_st = (decay[..., None] * n_st
                 + torch.matmul(w_end[..., None, :], kc)[..., 0, :])
         m_st = b_cum[..., -1] + m_end
-    hs += hs[-1:] * (nc - len(hs))
+    hs += [hs[-1].detach() for _ in range(nc - len(hs))]
     h = hs[0] if nc == 1 else torch.cat(hs, dim=2)
     return h, (c_st, n_st, m_st)
 
@@ -337,7 +338,9 @@ def _slstm_steps(rw: torch.Tensor, n_heads: int, state: SLSTMState,
     hd = d // n_heads
     zero = torch.zeros((), dtype=torch.float32, device=c.device)
     hs = []
-    for x_t in xs[:steps_for(len(xs), c.device)]:
+    parts = step_inputs(xs)
+    for i in steps(len(xs), c.device):
+        x_t = parts[i]
         # the gates' recurrent products in one batched product:
         # (H, B, hd) @ (H, hd, 4*hd) -> (B, 4, H, hd)
         r = torch.bmm(h.view(b, n_heads, hd).transpose(0, 1), rw)
@@ -356,7 +359,7 @@ def _slstm_steps(rw: torch.Tensor, n_heads: int, state: SLSTMState,
         n = f_g * n + i_g
         h = o.reshape(b, d) * (c / torch.clamp_min(n, 1e-6))
         hs.append(h)
-    hs += hs[-1:] * (len(xs) - len(hs))
+    hs += [hs[-1].detach() for _ in range(len(xs) - len(hs))]
     return SLSTMState(c=c, n=n, m=m, h=h), torch.stack(hs, dim=1)
 
 
@@ -392,9 +395,9 @@ def slstm_sequence(params, x: torch.Tensor, cfg: ModelConfig,
         state = init_slstm_state(cfg, b, device=x.device)
     xs = _slstm_gate_inputs(params, x)
     rw = _slstm_recurrent(params, cfg.n_heads)
-    steps = _slstm_steps_rows if is_dtensor(xs) else _slstm_steps
+    walk = _slstm_steps_rows if is_dtensor(xs) else _slstm_steps
     with record_function(SLSTM_RANGE):
-        state, hs = steps(rw, cfg.n_heads, state, xs)
+        state, hs = walk(rw, cfg.n_heads, state, xs)
     out = hs.to(x.dtype) * F.silu(x @ params["w_z_gate"])
     return out @ params["w_down"], state
 

@@ -180,13 +180,30 @@ def unshard_for_local(x, dims: Sequence[int] = ()):
         d for d in range(x.dim()) if x.shape[d] % n[d]))
 
 
-def steps_for(n: int, device) -> int:
-    """How many of a loop's ``n`` like steps to run on ``device``: all of
-    them, or one on ``meta``, which computes nothing (the dry run's
-    structs).  One step there runs every op of every step, as a scan's
-    body is traced once; the loop's result op stays the same, on that
-    step's output repeated."""
-    return 1 if device.type == "meta" else n
+def steps(n: int, device):
+    """The steps a loop of ``n`` like steps runs on ``device``: all of
+    them, or on ``meta``, which computes nothing (the dry run's structs),
+    the first, one middle and the last (0, 1, n - 1), every op of each as
+    a scan's body is traced once.  Under ``roofline.analysis`` the middle
+    step counts for the n - 2 it stands for, so the analysis on ``meta``
+    is that of the whole loop.  A loop whose result stacks its steps'
+    outputs fills the missing ones with the last, detached (its gradient
+    goes nowhere, as the steps it stands for are counted already)."""
+    if device.type != "meta":
+        return range(n)
+    from repro_torch.roofline import analysis
+    return analysis.loop(n)
+
+
+def step_inputs(xs):
+    """``xs.unbind(0)``: the inputs of a loop over ``steps(len(xs), ...)``.
+    On ``meta`` with a gradient, the steps the loop skips have none, and
+    the backward's stack takes the middle step's in their place (what
+    ``roofline.analysis`` counts it for); the values are ``meta``'s, none."""
+    if xs.device.type != "meta" or not xs.requires_grad or len(xs) <= 3:
+        return xs.unbind(0)
+    from repro_torch.roofline import analysis
+    return analysis.cut_unbind(xs)
 
 
 def _splits_badly(x, dim: int, lead: int) -> bool:

@@ -12,8 +12,14 @@ its own and runs the steps on ``meta`` structs over the 16x16 mesh:
   * gemma2-2b's ``train_4k`` at full depth: one rank's arguments (bf16
     params, f32 momentum, the batch) are the reference's
     ``memory_analysis().argument_size_in_bytes``, and so are its
-    ``decode_32k`` arguments (params, cache, token, position);
-  * the records' roofline fields are the analytic model's on the H100;
+    ``decode_32k`` arguments (params, cache, token, position); every
+    field of its memory analysis is measured (``roofline.analysis``) and
+    they split the peak as the reference's do;
+  * the records' roofline fields are the analysis of the step the rank
+    runs, and the analytic model's terms on the H100 sit under
+    ``analytic``;
+  * a weight placed whole where its rule shards it raises the rank's
+    FLOPs and peak, which the analytic model cannot see;
   * a combination that fails exits 1 and names the op that stopped it.
 """
 
@@ -83,6 +89,32 @@ dryrun.main(["--arch", "gemma2-2b", "--shape", "prefill_32k"])
 """
 
 
+# gemma2-2b's prefill with the MLP's weights (d_ff split over ``model`` by
+# their rules) replicated before the products, as a rule that left them
+# whole would place them
+_WHOLE_WEIGHT = r"""
+import json
+import torch
+torch.set_num_threads(1)
+from torch.distributed.tensor import Replicate
+from repro_torch.launch import dryrun
+from repro_torch.models import ffn
+
+mlp = ffn.mlp
+
+
+def whole(params, x, act_name="silu"):
+    return mlp({k: w.redistribute(w.device_mesh,
+                                  [Replicate()] * w.device_mesh.ndim)
+                for k, w in params.items()}, x, act_name)
+
+
+ffn.mlp = whole
+print(json.dumps(dryrun.run_one("gemma2-2b", "prefill_32k", False,
+                                verbose=False, save=False, layers=2)))
+"""
+
+
 def _env():
     return dict(os.environ, PYTHONPATH=str(REPO / "src"))
 
@@ -125,30 +157,65 @@ def test_full_depth_argument_size_equals_the_references(records, shape):
     assert rec["n_layers"] == 26
     mem = rec["memory_analysis"]
     assert mem["argument_size"] == REF_ARGUMENT_SIZE[shape]
-    # a PyTorch program has no compiled memory analysis (departure 17)
-    assert mem["output_size"] is None and mem["temp_size"] is None
-    assert rec["peak_memory_bytes"] is None
+    # measured by the analysis of the step (``roofline.analysis``): params
+    # and momentum (train) and the cache's new entry (decode) are written
+    # in place, and the fields split the peak as the reference's identity
+    assert min(mem["output_size"], mem["temp_size"], mem["alias_size"],
+               rec["peak_memory_bytes"]) > 0
+    assert rec["peak_memory_bytes"] == mem["argument_size"] \
+        + mem["output_size"] + mem["temp_size"] - mem["alias_size"]
 
 
-def test_roofline_fields_are_the_analytic_models_on_the_h100(records):
+def test_roofline_fields_are_the_analysis_and_the_analytic_models_beside(
+        records):
     for (arch, shape, layers), rec in records.items():
+        assert rec["status"] == "ok", rec.get("error")
+        counts = rec["coll_breakdown"]["counts"]
+        assert rec["flops"] > 0 and rec["hbm_bytes"] > 0
+        assert rec["coll_bytes"] == sum(
+            v for k, v in rec["coll_breakdown"].items() if k != "counts")
+        assert rec["coll_bytes"] > 0 and sum(counts.values()) > 0
+        terms = {"compute": rec["flops"] / H100.peak_flops_bf16,
+                 "memory": rec["hbm_bytes"] / H100.hbm_bandwidth,
+                 "collective": rec["coll_bytes"] / (
+                     H100.ici_links_per_chip * H100.ici_link_bandwidth)}
+        assert (rec["t_compute"], rec["t_memory"], rec["t_collective"]) == \
+            (terms["compute"], terms["memory"], terms["collective"])
+        assert rec["bottleneck"] == max(terms, key=terms.get)
         if layers is not None:
             continue
         rep = j_analytic.analyze(j_get_config(arch), j_get_shape(shape),
                                  n_devices=256)
-        terms = rep.terms(H100)
-        assert rec["flops"] == rep.flops
-        assert rec["hbm_bytes"] == rep.hbm_bytes
-        assert rec["coll_bytes"] == rep.coll_bytes
-        assert (rec["t_compute"], rec["t_memory"], rec["t_collective"]) == \
-            (terms["compute"], terms["memory"], terms["collective"])
-        assert rec["bottleneck"] == rep.bottleneck(H100)
+        a_terms = rep.terms(H100)
         cfg, s = j_get_config(arch), j_get_shape(shape)
         n = cfg.active_param_count()
         model_flops = {"train": 6.0 * n * s.global_batch * s.seq_len,
                        "decode": 2.0 * n * s.global_batch}[s.kind]
         assert rec["model_flops"] == model_flops
-        assert rec["useful_ratio"] == model_flops / (rep.flops * 256)
+        assert rec["useful_ratio"] == model_flops / (rec["flops"] * 256)
+        assert rec["analytic"] == {
+            "flops": rep.flops, "hbm_bytes": rep.hbm_bytes,
+            "coll_bytes": rep.coll_bytes, "t_compute": a_terms["compute"],
+            "t_memory": a_terms["memory"],
+            "t_collective": a_terms["collective"],
+            "bottleneck": rep.bottleneck(H100),
+            "useful_ratio": model_flops / (rep.flops * 256)}
+
+
+def test_a_weight_placed_whole_raises_the_ranks_flops_and_peak(records):
+    """A planted fault on the ``_PLANTED`` pattern: the prefill's MLP
+    weights whole on every rank, so each rank computes the whole d_ff,
+    which the analysis counts and the analytic model cannot."""
+    proc = subprocess.run([sys.executable, "-c", _WHOLE_WEIGHT],
+                          env=_env(), capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    planted = json.loads(proc.stdout.splitlines()[-1])
+    rec = records[("gemma2-2b", "prefill_32k", 2)]
+    assert rec["status"] == planted["status"] == "ok"
+    assert planted["flops"] > rec["flops"]
+    assert planted["peak_memory_bytes"] > rec["peak_memory_bytes"]
+    assert planted["analytic"] == rec["analytic"]
 
 
 def test_a_failing_combination_exits_1_and_names_its_op(tmp_path):

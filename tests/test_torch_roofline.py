@@ -76,7 +76,8 @@ def test_the_h100_is_the_card_of_every_bound():
     assert hardware.TPU_V5E == hardware.Chip(**vars(J_TPU_V5E))
     assert roofline.__all__ == ["TPU_V5E", "H100", "KernelTraffic",
                                 "fed_reduce_traffic",
-                                "fed_reduce_separate_traffic"]
+                                "fed_reduce_separate_traffic",
+                                "RooflineReport", "analyze_traced"]
     # chip_smoke.py takes its rates from this module and nowhere else, and
     # its bounds keep their bits
     path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
@@ -91,11 +92,13 @@ def test_the_h100_is_the_card_of_every_bound():
     assert smoke.bound(4e9, 1e9) == (4e9 / 3.35e12 * 1e3, "bytes")
     assert smoke.bound(1e6, 1e12, smoke.TF32_FLOPS_PER_S) == \
         (1e12 / 495e12 * 1e3, "operations")
-    # every fed_reduce case's bytes: the roofline's count plus the (M,)
-    # weights, segments and int8 mask, equal to the count by hand
+    # every fed_reduce case's bytes (the formula chip_smoke.py takes from
+    # the roofline): the roofline's count plus the (M,) weights, segments
+    # and int8 mask, equal to the count by hand
     for m, n, t, quant, base in GRID:
         hand = 4 * (m * n + 2 * m + t * n * (2 if base else 1))
         if quant:
             hand += 4 * t * n + m           # quant_ref, quant mask
-        assert smoke.fed_reduce_bytes(m, n, t, quant, base) == hand, \
+        assert smoke.fed_reduce_launch_traffic(
+            m, n, t, quant=quant, base=base).bytes_hbm == hand, \
             (m, n, t, quant, base)
