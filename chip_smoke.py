@@ -261,16 +261,22 @@ without.
      and depth: a 4,096-token prompt at B=2 into a 32,768-position cache
      (exact bf16 launch counts), 32 serve steps at B=8 with bf16 weights,
      the last within 5e-2 of a re-prefill over prompt + tokens, and the
-     same 32 steps from int8 weights within 5e-2 of the bf16 ones; prefill
-     tokens/s from the median of three calls after one to warm up, decode
-     tokens/s from the median step, and peak memory.
+     same 32 steps from int8 weights within 5e-2 of the bf16 ones; the
+     bf16 prefill's and serve steps' logits and the cache they leave
+     bitwise the per-layer path's (``lm.prefill``, ``lm.decode_step``),
+     as the stacked steps now write the cache in place; prefill tokens/s
+     from the median of three calls after one to warm up, decode tokens/s
+     from the median step, peak memory over the B=8 prefill and the serve
+     steps, and apart: the prefill's peak, and the serve steps' peak and
+     the memory allocated before and after them.
   15. The LM steps on ``("data", "model")`` device meshes (DTensor): 15a
      joins a 1-rank NCCL group in this process and makes a (1, 1) mesh;
      phase 14a's bf16 gemma2-2b step at full width and depth (B=2 x
      S=4,096, f32 momentum, the same init and batches) runs two rounds on
      one device and then two through ``make_fl_train_step(mesh=...)``:
-     losses and params bitwise (else within 14b's limits, and the line
-     says it), 52 + 26 bf16 attention launches a step on both, one more
+     losses and params bitwise, the mesh steps' CE through the mesh path
+     (``lm._mesh_ce_sums``, counted), 52 + 26 bf16 attention launches a
+     step on both, one more
      mesh step under ``torch.profiler`` seeing the forward and backward
      kernels, step seconds and peak beside the one-device run's and 14a's;
      then 14c's bf16 prefill (B=2, 4,096 tokens into 32,768 positions)
@@ -309,9 +315,10 @@ without.
      a time): a ``fake`` 256-rank group, the steps run once on ``meta``
      structs over the 16x16 mesh under ``roofline.analysis``, nothing on
      the card.  It prints the seconds, the count of the 30 combinations
-     that ran through and each one's analysed peak a rank (GiB) and FLOPs
-     over the analytic model's; a combination that did not run through,
-     or whose record has no positive peak, fails the run.
+     that ran through and each one's analysed peak a rank (GiB), its
+     all-gather bytes and FLOPs over the analytic model's; a combination
+     that did not run through, or whose record has no positive peak or a
+     peak of 80e9 B a rank or more, fails the run.
      17b: ``analyze_traced`` on the card's own steps: phase 14a's bf16
      gemma2-2b ``fl_train_step`` (B=2 x S=4,096, 26 layers) and 14c's
      bf16 prefills of gemma2-2b and recurrentgemma-9b (4,096 tokens at
@@ -319,8 +326,9 @@ without.
      kernels) and on ``meta`` copies of its arguments: FLOPs, bytes and
      collectives must be equal; the predicted peak is printed beside
      ``torch.cuda.max_memory_allocated`` for the step with the same
-     arguments live.  First it holds the analysis's scratch of the
-     attention backward to the kernels' planners at gemma2-2b's shape.
+     arguments live and must lie within 2% of it.  First it holds the
+     analysis's scratch of the attention backward to the kernels'
+     planners at gemma2-2b's shape.
 
 Every bound takes the card's rates from ``repro_torch.roofline.hardware``
 (NVIDIA H100 SXM5 80GB data sheet, 700 W), and each kernel's bytes and
@@ -3442,9 +3450,16 @@ def bf16_serve(torch, np, card):
     B=32, S=32,768), then 32 serve steps at B=8 (cut from ``decode_32k``'s
     B=128) after a B=8 prefill, with bf16 weights and then int8 weights
     (``quantize_params``, dequantised in every step) fed the bf16 run's
-    tokens.  Checks: finite logits; the last decode step within 5e-2 of a
+    tokens.  Checks: finite logits; the bf16 prefill's and serve steps'
+    logits and the cache they leave bitwise those of the per-layer path
+    (``per_layer_serve``), which the stacked steps restacked before they
+    wrote the cache in place; the last decode step within 5e-2 of a
     re-prefill over prompt + tokens (of its max-abs); every int8 step
-    within 5e-2 of the bf16 step's max-abs.  Timing: the prefill is called
+    within 5e-2 of the bf16 step's max-abs.  Memory: the peak over the
+    B=8 prefill and the serve steps (``decode_peak_mem_gib``, the span it
+    always had), the prefill's peak, and the serve steps' own peak and the
+    memory allocated before and after them.  Timing: the
+    prefill is called
     once to warm up and then three times, and the median call is kept; each
     serve step is timed alone and the median step kept (the first is the
     step's first call).  Returns the launch counts of the B=2 prefill calls
@@ -3517,13 +3532,21 @@ def bf16_serve(torch, np, card):
             "prefill_32k_cut", seq_len=max_len, global_batch=b_dec,
             kind="prefill"))
 
-        def decode(step, p, scales, feed=None):
+        def decode(step, p, scales, feed=None, keep=False):
             """The serve steps after a prefill; each step timed alone (the
-            first one is the step's first call) and the median kept."""
+            first one is the step's first call) and the median kept; the
+            peak bytes allocated in the prefill and in the steps, and over
+            both from the caller's reset (the larger of the two), and the
+            bytes allocated before and after the steps; the prefill's
+            logits and the cache when ``keep``."""
             logits, cache = pre8(params, prompt)
+            first = logits if keep else None
             tok = logits.argmax(-1)
             outs, toks, times = [], [], []
             torch.cuda.synchronize()
+            mem = dict(prefill_peak=torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+            mem.update(before=torch.cuda.memory_allocated())
             for i in range(steps):
                 if feed is not None:
                     tok = feed[i]
@@ -3534,14 +3557,41 @@ def bf16_serve(torch, np, card):
                 times.append(time.perf_counter() - t0)
                 outs.append(logits)
                 tok = logits.argmax(-1)
+            mem.update(after=torch.cuda.memory_allocated(),
+                       peak=torch.cuda.max_memory_allocated())
+            mem.update(span_peak=max(mem["prefill_peak"], mem["peak"]))
+            kept = (first, cache) if keep else None
             del cache
-            return outs, toks, sorted(times)[len(times) // 2]
+            return outs, toks, sorted(times)[len(times) // 2], mem, kept
 
         torch.cuda.reset_peak_memory_stats()
-        outs, toks, dec_s = decode(serve, params, None)
-        dec_peak = torch.cuda.max_memory_allocated()
+        outs, toks, dec_s, dec_mem, (first, cache) = decode(
+            serve, params, None, keep=True)
+        dec_peak = dec_mem["span_peak"]
+        print(f"phase 14c {arch}: B={b_dec} prefill peak "
+              f"{dec_mem['prefill_peak'] / 2**30:.2f} GiB; serve steps' "
+              f"memory allocated {dec_mem['before'] / 2**30:.2f} GiB before, "
+              f"{dec_mem['after'] / 2**30:.2f} GiB after, peak "
+              f"{dec_mem['peak'] / 2**30:.2f} GiB; prefill and steps peak "
+              f"{dec_peak / 2**30:.2f} GiB", flush=True)
         check(all(bool(torch.isfinite(o).all()) for o in outs),
               f"{arch}: decode logits not finite")
+        # the stacked steps write their cache in place: their logits and
+        # cache bitwise the per-layer path's (lm.prefill, lm.decode_step on
+        # lm.init_cache's layers), which the stacked steps restacked
+        # before; then the stacked cache's layers against its layers
+        w_logits, w_outs, w_layers = per_layer_serve(
+            torch, cfg, params, prompt, toks, max_len)
+        layer_views = stacked._per_layer_cache(cache, cfg)["layers"]
+        bitwise = dict(
+            prefill_logits=torch.equal(first, w_logits),
+            decode_logits=all(torch.equal(a, w)
+                              for a, w in zip(outs, w_outs)),
+            cache=all(torch.equal(a, w) for a, w in zip(
+                leaves(layer_views), leaves(w_layers))))
+        check(all(bitwise.values()), f"{arch}: the stacked prefill and "
+              f"serve steps against the per-layer path: {bitwise}")
+        del first, cache, layer_views, w_logits, w_outs, w_layers
         # the last step against a re-prefill over prompt + fed tokens
         torch.cuda.empty_cache()
         again, _ = make_prefill_step(cfg, InputShape(
@@ -3560,8 +3610,8 @@ def bf16_serve(torch, np, card):
         n_q = sum(x is not None for x in leaves(qs))
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        q_outs, _, q_s = decode(serve_q, qp, qs, feed=toks)
-        q_peak = torch.cuda.max_memory_allocated()
+        q_outs, _, q_s, q_mem, _ = decode(serve_q, qp, qs, feed=toks)
+        q_peak = q_mem["span_peak"]
         q_err = max(rel_err(a, w) for a, w in zip(q_outs, outs))
         check(q_err <= 5e-2, f"{arch}: int8 serve vs bf16 serve {q_err}")
         emit(dict(phase="serve_bf16", arch=arch, layers=cfg.n_layers,
@@ -3577,14 +3627,38 @@ def bf16_serve(torch, np, card):
                   decode_ms_per_step=dec_s * 1e3,
                   decode_tok_per_s=b_dec / dec_s,
                   decode_peak_mem_gib=dec_peak / 2**30,
+                  decode_prefill_peak_mem_gib=dec_mem["prefill_peak"] / 2**30,
+                  decode_mem_before_gib=dec_mem["before"] / 2**30,
+                  decode_mem_after_gib=dec_mem["after"] / 2**30,
+                  decode_steps_peak_mem_gib=dec_mem["peak"] / 2**30,
+                  bitwise_vs_per_layer=bitwise,
                   decode_vs_reprefill_rel_err=re_err,
                   int8_leaves=n_q, int8_decode_ms_per_step=q_s * 1e3,
                   int8_decode_tok_per_s=b_dec / q_s,
                   int8_peak_mem_gib=q_peak / 2**30,
+                  int8_steps_peak_mem_gib=q_mem["peak"] / 2**30,
                   int8_vs_bf16_rel_err=q_err, tolerance=5e-2, card=card))
         del params, qp, qs, outs, q_outs, re_logits
         torch.cuda.empty_cache()
     return totals
+
+
+def per_layer_serve(torch, cfg, params, prompt, feed, max_len):
+    """Phase 14c's prefill and serve steps on the per-layer path:
+    ``lm.prefill`` into ``lm.init_cache``'s layers, then ``lm.decode_step``
+    fed ``feed``; returns (prefill logits, step logits, the layers)."""
+    from repro_torch.models import lm, stacked
+    p = stacked.unstack_params(params, cfg)
+    cache = lm.init_cache(cfg, prompt.shape[0], max_len,
+                          dtype=torch.bfloat16, device="cuda")
+    with torch.no_grad():
+        first, cache = lm.prefill(p, cfg, prompt, cache)
+        outs = []
+        for i, tok in enumerate(feed):
+            logits, cache = lm.decode_step(p, cfg, tok,
+                                           prompt.shape[1] + i, cache)
+            outs.append(logits)
+    return first, outs, cache["layers"]
 
 
 INT8_SPEC = ROOT / "build" / "int8_one_kernel.json"
@@ -3823,7 +3897,9 @@ def mesh_phase_1rank(torch, card, beside):
     kernels under ``local_map``): losses and params bitwise, else within
     14b's limits; step seconds and peak beside 14a's (``beside``); the
     bf16 attention launches by the wrappers' counts and, for one more step,
-    by ``torch.profiler``.  Then phase 14c's bf16 prefill (B=2, a 4,096
+    by ``torch.profiler``; the mesh steps' CE is the mesh path
+    (``lm._mesh_ce_sums``, once a step) and bitwise one device's.  Then
+    phase 14c's bf16 prefill (B=2, a 4,096
     prompt into 32,768 positions) and MESH_DECODE serve steps on one
     device and through the mesh (the mesh fed the one-device tokens):
     logits bitwise, else within 5e-2; the median serve step's seconds and
@@ -3840,12 +3916,20 @@ def mesh_phase_1rank(torch, card, beside):
     from repro_torch.launch.distributed_fl import round_batch
     from repro_torch.launch.steps import (make_fl_train_step,
                                           make_prefill_step, make_serve_step)
-    from repro_torch.models import stacked
+    from repro_torch.models import lm, stacked
     from repro_torch.sharding.ctx import is_dtensor
     from repro_torch.tree import leaves, tree_map
 
     bf = torch.bfloat16
     arch, b, s_len = "gemma2-2b", 2, 4096
+    mesh_ce = lm._mesh_ce_sums
+    ce_calls = [0]
+
+    def counted_mesh_ce(*a, **kw):
+        ce_calls[0] += 1
+        return mesh_ce(*a, **kw)
+
+    lm._mesh_ce_sums = counted_mesh_ce
     cfg = get_config(arch)
     n_attn = sum(sp.mixer == "attn" for sp in cfg.layers)
     shape = InputShape("train_4k_cut", seq_len=s_len, global_batch=b,
@@ -3906,6 +3990,11 @@ def mesh_phase_1rank(torch, card, beside):
             runs[where] = rec
             del params, momentum, step, local
         one, msh = runs["one_device"], runs["mesh"]
+        # the mesh CE ran in each mesh step (and the profiled one), never
+        # on one device
+        check(ce_calls[0] == MESH_ROUNDS + 1,
+              f"15a: the mesh CE ran {ce_calls[0]} times, wanted "
+              f"{MESH_ROUNDS + 1}")
         want = {"flash_attention_bf16": 2 * n_attn * MESH_ROUNDS,
                 "flash_attention_bwd_bf16": n_attn * MESH_ROUNDS}
         check(msh["launches"] == want and one["launches"] == want,
@@ -3914,12 +4003,10 @@ def mesh_phase_1rank(torch, card, beside):
         check(msh["profiled"][ATTN16_FWD] > 0 and
               msh["profiled"][ATTN16_BWD] > 0,
               f"15a: profiled attention kernels {msh['profiled']}")
-        # 14b's limits where the bits differ
-        check(msh["loss_bitwise"] or all(
-            abs(a - c) <= 1e-2 * abs(c) for a, c in zip(msh["loss"],
-                                                        one["loss"])),
+        # a (1, 1) mesh computes what one device does, the CE included
+        check(msh["loss_bitwise"],
               f"15a: mesh losses {msh['loss']} vs {one['loss']}")
-        check(msh["params_bitwise"] or msh["params_max_rel_err"] <= 3e-2,
+        check(msh["params_bitwise"],
               f"15a: mesh params off by {msh['params_max_rel_err']}")
         ref14a = (beside or {}).get(arch, {})
         emit(dict(phase="mesh_1rank_train", arch=arch, mesh="1x1 nccl",
@@ -3936,7 +4023,7 @@ def mesh_phase_1rank(torch, card, beside):
                   peak_mem_gib_one_device=one["peak_mem_gib"],
                   phase14a_step_s=ref14a.get("step_s"),
                   phase14a_peak_mem_gib=ref14a.get("peak_mem_gib"),
-                  launches=msh["launches"],
+                  launches=msh["launches"], mesh_ce_calls=ce_calls[0],
                   profiled_device_kernels=msh["profiled"], card=card))
         del runs, one
 
@@ -4021,6 +4108,7 @@ def mesh_phase_1rank(torch, card, beside):
                   card=card))
         del params, prompt, out, one, msh
     finally:
+        lm._mesh_ce_sums = mesh_ce
         mesh_mod.leave()
         torch.cuda.empty_cache()
     return totals
@@ -4355,14 +4443,17 @@ def tables_reduce_cases(torch, card, floor, inputs):
 DRYRUN_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
 DRYRUN_JOBS = 8
 DRYRUN_TIMEOUT_S = 600
+# a card's memory: every step must fit it a rank on 16x16
+CARD_BYTES = 80e9
 
 
 def dryrun_phase():
     """Phase 17: every architecture's steps at ``DRYRUN_SHAPES`` on the
     16x16 production mesh (``launch/dryrun``), in a child process of its
     own session, so a timeout stops its children too; then each
-    combination's record: its peak and its FLOPs against the analytic
-    model's."""
+    combination's record: its peak, its all-gather bytes and its FLOPs
+    against the analytic model's.  Checks: every step's peak within a
+    card's 80 GB a rank."""
     import os
     import signal
     from repro_torch.configs import ARCH_NAMES
@@ -4406,11 +4497,15 @@ def dryrun_phase():
                          flops_over_analytic=rec["flops"]
                          / rec["analytic"]["flops"],
                          bottleneck=rec["bottleneck"],
+                         coll_breakdown=rec["coll_breakdown"],
                          memory_analysis=rec["memory_analysis"],
                          run_s=rec["t_run_s"]))
         print(f"phase 17 {arch:22s} {shape:12s} peak "
-              f"{peak / 2**30:9.2f} GiB  flops / analytic "
-              f"{rows[-1]['flops_over_analytic']:7.3f}", flush=True)
+              f"{peak / 2**30:9.2f} GiB  all-gather "
+              f"{rec['coll_breakdown'].get('all-gather', 0):.4e} B  flops / "
+              f"analytic {rows[-1]['flops_over_analytic']:7.3f}", flush=True)
+        check(peak < CARD_BYTES, f"phase 17 {arch} {shape}: peak "
+              f"{peak:.4e} B a rank, over a card's {CARD_BYTES:.0e}")
     emit(dict(phase="dryrun", seconds=seconds, combinations=n,
               ran_through=len(ok), failed=failed, mesh="16x16",
               shapes=list(DRYRUN_SHAPES), jobs=DRYRUN_JOBS, records=rows))
@@ -4418,6 +4513,8 @@ def dryrun_phase():
 
 # phase 17b: the analysis of the card's own steps against meta's
 # (cell, arch, batch, sequence or prompt, cache positions)
+# the predicted peak's limit, a share of max_memory_allocated
+PEAK_TOLERANCE = 0.02
 ANALYSIS_CELLS = (("train", "gemma2-2b", 2, 4096, None),
                   ("prefill", "gemma2-2b", 2, 4096, 32768),
                   ("prefill", "recurrentgemma-9b", 2, 4096, 32768))
@@ -4428,8 +4525,9 @@ def analysis_phase(torch, card):
     gemma2-2b training step and 14c's bf16 prefills, once on the card (the
     bf16 kernels launched, the peak measured beside it) and once on
     ``meta`` copies of the same arguments: FLOPs, bytes and collectives
-    equal, and the predicted peak beside ``max_memory_allocated`` for the
-    step with the same arguments live."""
+    equal, and the predicted peak within ``PEAK_TOLERANCE`` of
+    ``max_memory_allocated`` for the step with the same arguments
+    live."""
     from repro_torch.configs import get_config
     from repro_torch.configs.shapes import InputShape
     from repro_torch.kernels import flash_attention as fl_mod
@@ -4527,6 +4625,9 @@ def analysis_phase(torch, card):
               f"{predicted / 2**30:.2f} GiB, max_memory_allocated "
               f"{measured / 2**30:.2f} GiB ({predicted / measured:.3f})",
               flush=True)
+        check(abs(predicted / measured - 1) <= PEAK_TOLERANCE,
+              f"phase 17b {arch} {cell}: predicted peak {predicted} B, "
+              f"max_memory_allocated {measured} B")
         check(all(same.values()), f"phase 17b {arch} {cell}: the card's "
               f"analysis and meta's differ ({same}): card "
               f"{(rep_card.flops, rep_card.hbm_bytes, rep_card.coll_bytes)},"

@@ -54,6 +54,7 @@ import contextlib
 from typing import Any, Dict, Optional
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.shapes import InputShape
@@ -293,10 +294,11 @@ def make_prefill_step(cfg: ModelConfig, shape: InputShape, *,
     stacked cache of ``shape.seq_len`` positions in ``dtype`` (a sliding
     window of ``decode_window`` on full-attention layers, when given) on
     the tokens' device, filled by the prompt ``tokens`` (B, S'), S' <=
-    ``shape.seq_len``; the logits are the last position's.  On ``mesh``
-    params and inputs are placed as the reference's prefill places them
-    (the batch on its axes), and the cache is placed by ``cache_specs``
-    under those rules."""
+    ``shape.seq_len``, in place; the logits are the last position's.  On
+    ``mesh`` params and inputs are placed as the reference's prefill
+    places them (the batch on its axes), and the cache is made already
+    placed by ``cache_specs`` under those rules: each rank allocates and
+    fills only its own shard (``sharding.specs.empty_cache``)."""
     b, s = shape.global_batch, shape.seq_len
     rules = None if mesh is None else prefill_step_rules(multi_pod)
 
@@ -307,9 +309,16 @@ def make_prefill_step(cfg: ModelConfig, shape: InputShape, *,
             if frontend is not None:
                 frontend = sh.place_batch(frontend, mesh, rules)
         with _on_mesh(mesh, rules), ffn_mod.moe_impl("dense"):
-            cache = stacked_mod.init_cache_stacked(
-                cfg, tokens.shape[0], s, decode_window=decode_window,
-                dtype=dtype, device=tokens.device)
+            kw = dict(decode_window=decode_window, dtype=dtype)
+            if mesh is None:
+                cache = stacked_mod.init_cache_stacked(
+                    cfg, tokens.shape[0], s, device=tokens.device, **kw)
+            else:   # each rank allocates only its shard
+                with FakeTensorMode():      # shapes only, not traced
+                    struct = stacked_mod.init_cache_stacked(
+                        cfg, tokens.shape[0], s, device="meta", **kw)
+                cache = sh.empty_cache(struct, mesh, rules,
+                                       tokens.to_local().device)
             logits, cache = stacked_mod.prefill(params, cfg, tokens, cache,
                                                 frontend=frontend)
             if mesh is not None:

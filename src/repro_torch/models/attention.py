@@ -51,8 +51,8 @@ import torch
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF
-from repro_torch.models.common import (apply_rope, dense_init, map_grad,
-                                       shard_bshd, softcap)
+from repro_torch.models.common import (CACHE_FILL, apply_rope, dense_init,
+                                       map_grad, shard_bshd, softcap)
 from repro_torch.roofline import analysis
 from repro_torch.sharding.ctx import (PartitionSpec as P, current_mesh,
                                       current_rules, is_dtensor, split_dim,
@@ -356,44 +356,72 @@ def init_kv_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
     return KVCache(
         k=torch.zeros(shape, dtype=dtype, device=device),
         v=torch.zeros(shape, dtype=dtype, device=device),
-        slot_pos=torch.full((c,), -1, dtype=torch.int32, device=device),
+        slot_pos=torch.full((c,), CACHE_FILL["slot_pos"], dtype=torch.int32,
+                            device=device),
     )
 
 
 def prefill_into_cache(params, cfg: ModelConfig, spec: LayerSpec,
                        x: torch.Tensor, cache: KVCache):
     """Run full-sequence attention AND fill the cache with the (windowed)
-    tail.  Returns (y (B,S,E), new cache)."""
+    tail: the first s slots when the cache has room for the prompt (the
+    rest emptied), else the last ``c`` tokens ring-style (slot = pos % c).
+    The prompt's keys, values and positions are written into ``cache``'s
+    tensors in place (on a mesh into each rank's local shards, as
+    ``_write_slots`` lays them).  Returns (y (B,S,E), the cache)."""
     positions = torch.arange(x.shape[1], device=x.device)
     q, k, v = _project_qkv(params, x, cfg, positions)
-    s = q.shape[1]
     out = _attend(q, k, v, positions, positions, causal=True,
                   window=spec.window, cap=cfg.attn_softcap)
-    c = cache.k.shape[1]
-    if c > s:  # cache has spare room: fill the first s slots
-        pad = c - s
-        padk = torch.zeros((k.shape[0], pad) + tuple(k.shape[2:]),
-                           dtype=cache.k.dtype, device=k.device)
-        new_cache = KVCache(
-            k=torch.cat([k.to(cache.k.dtype), padk], dim=1),
-            v=torch.cat([v.to(cache.v.dtype), padk], dim=1),
-            slot_pos=torch.cat([
-                positions.to(torch.int32),
-                torch.full((pad,), -1, dtype=torch.int32, device=k.device)]),
-        )
+    s = q.shape[1]
+    _write_slots(cache.k, k, s, 1)
+    _write_slots(cache.v, v, s, 1)
+    _write_slots(cache.slot_pos, None, s, 0)
+    return _out_proj(out, params), cache
+
+
+def _slot_positions(lo: int, hi: int, c: int, s: int, device):
+    """The position each slot in [lo, hi) of a ``c``-slot cache holds after
+    a prompt of ``s`` tokens: slot j holds j when the prompt fits (c > s;
+    -1 past it), else the last c positions ring-style (slot = pos % c)."""
+    j = torch.arange(lo, hi, device=device)
+    if c > s:
+        return torch.where(j < s, j, torch.full_like(j, -1))
+    return s - c + (j - (s - c)) % c
+
+
+def _write_slots(buf, new, s: int, dim: int) -> None:
+    """Fill ``buf``'s slots (dim ``dim``) after a prompt of ``s`` tokens,
+    in place: with ``new``'s entries along that dim at the slots'
+    positions (``_slot_positions``; an empty slot zeroed), or with the
+    positions themselves when ``new`` is None (``slot_pos``).  On a mesh
+    each rank fills its own shard of ``buf`` from its local part of
+    ``new`` (whole along ``dim``, its other dims split as ``buf``'s)."""
+    c = buf.shape[dim]
+    local, lo = buf, 0
+    if is_dtensor(buf):
+        from torch.distributed.tensor import Replicate, Shard
+        from torch.distributed.tensor._utils import (
+            compute_local_shape_and_global_offset)
+        _, off = compute_local_shape_and_global_offset(
+            tuple(buf.shape), buf.device_mesh, buf.placements)
+        local, lo = buf.to_local(), off[dim]
+        if new is not None:
+            new = new.redistribute(buf.device_mesh, [
+                Replicate() if isinstance(p, Shard) and p.dim == dim else p
+                for p in buf.placements]).to_local()
+    pos = _slot_positions(lo, lo + local.shape[dim], c, s, local.device)
+    if new is None:
+        local.copy_(pos)
+    elif c > s:
+        n = max(0, min(s - lo, local.shape[dim]))
+        local.narrow(dim, 0, n).copy_(new.narrow(dim, min(lo, s), n))
+        local.narrow(dim, n, local.shape[dim] - n).zero_()
     else:
-        # keep the last ``c`` tokens, laid out ring-style (slot = pos % c)
-        tail_k, tail_v, tail_pos = k[:, -c:], v[:, -c:], positions[-c:]
-        order = torch.argsort(tail_pos % c)
-        new_cache = KVCache(
-            k=tail_k[:, order].to(cache.k.dtype),
-            v=tail_v[:, order].to(cache.v.dtype),
-            slot_pos=tail_pos[order].to(torch.int32),
-        )
-    return _out_proj(out, params), new_cache
+        local.copy_(new.index_select(dim, pos))
 
 
-def _write_slot(buf, dim: int, slot: int, new) -> None:
+def write_slot(buf, dim: int, slot: int, new) -> None:
     """Write ``new`` (a DTensor of size 1 on ``dim``, or a number) into the
     DTensor ``buf`` at index ``slot`` of ``dim``, in place: only the rank
     whose local shard holds the slot writes, into that shard."""
@@ -428,9 +456,9 @@ def decode_attention(params, cfg: ModelConfig, spec: LayerSpec,
     slot = pos % c
     k, v, slot_pos = cache
     if is_dtensor(k):
-        _write_slot(k, 1, slot, k_new.to(k.dtype))
-        _write_slot(v, 1, slot, v_new.to(v.dtype))
-        _write_slot(slot_pos, 0, slot, pos)
+        write_slot(k, 1, slot, k_new.to(k.dtype))
+        write_slot(v, 1, slot, v_new.to(v.dtype))
+        write_slot(slot_pos, 0, slot, pos)
     else:
         k[:, slot] = k_new[:, 0].to(k.dtype)
         v[:, slot] = v_new[:, 0].to(v.dtype)

@@ -22,6 +22,11 @@ from repro_torch.sharding.ctx import logical_constraint
 # init helpers
 # ---------------------------------------------------------------------------
 
+# what each decode-cache leaf starts as, by its field: an empty slot's
+# position, the xLSTM stabilizer's running max; every other leaf 0
+CACHE_FILL = {"slot_pos": -1, "m": float("-inf")}
+
+
 class MetaGenerator:
     """Stands in for a ``torch.Generator`` in the init functions to build a
     param tree on the ``meta`` device: shapes and dtypes, nothing allocated

@@ -31,16 +31,18 @@ prefix as well.  The full-sequence forward runs the MoE as ``moe_ffn``
 On a device mesh (``repro_torch.sharding``) the reference's constraints
 place the residual stream (``shard_bse``), the logits and the decoded
 token's state.  Where DTensor has no usable rule the collective is stated
-(``_gathered_seq``, ``_residual``, ``_embed_tokens``, ``_chunk_stats``):
+(``_gathered_seq``, ``_residual``, ``_embed_tokens``, ``_mesh_ce_sums``):
 a block's normed input is gathered over the sequence, a sublayer's output
 is placed as the residual stream before the add, each rank looks up its
-own tokens in the whole embedding table, and a CE chunk's logits are
-gathered over the vocabulary for the target's gather and the argmax.
+own tokens in the whole embedding table, and the CE runs on each rank's
+own tokens with the vocabulary kept split, its three reductions over the
+vocabulary made from each shard's pieces (``_SplitVocabNLL``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Any, Dict, Optional
 
 import torch
@@ -58,7 +60,7 @@ from repro_torch.models.common import (dense_init, embed_init, rmsnorm,
 from repro_torch.sharding.ctx import (activation_rules, current_mesh,
                                       current_rules, is_dtensor,
                                       logical_constraint, rows_local,
-                                      unshard)
+                                      unshard, unshard_for_local)
 from repro_torch.tree import leaves
 
 _MIXER_INIT = {
@@ -356,14 +358,167 @@ def loss_fn(params, cfg: ModelConfig, batch, *, remat: bool = False):
 def _chunk_stats(xc, head, lc, wc, mc, final_cap):
     """One chunk's (sum of w * nll, correct, sum of w, counted)."""
     logits = softcap((xc @ head).to(torch.float32), final_cap)
-    logits = logical_constraint(logits, (None, "vocab"))
     logz = torch.logsumexp(logits, dim=-1)
-    logits = unshard(logits, (-1,))    # the gather and argmax over vocab
     safe = torch.clamp_min(lc, 0).long()
     tgt = torch.gather(logits, 1, safe[:, None])[:, 0]
     nll = logz - tgt
     correct = mc & (logits.argmax(-1) == safe)
     return (nll * wc).sum(), correct.sum(), wc.sum(), mc.sum()
+
+
+def _all_reduce(t: torch.Tensor, op: str, group) -> torch.Tensor:
+    import torch.distributed._functional_collectives as funcol
+    out = funcol.all_reduce(t, op, group)
+    return out.wait() if isinstance(out, funcol.AsyncCollectiveTensor) \
+        else out
+
+
+class _SplitVocabNLL(torch.autograd.Function):
+    """Per row, ``logsumexp(logits) - logits[label]`` and the argmax, of
+    logits whose vocabulary is split over ``group``: this rank holds
+    columns [v0, v0 + n).  The three reductions over the vocabulary are
+    made from each shard's pieces, with collectives of (rows,) vectors:
+    the max and each shard's sum of exp, the target logit from the shard
+    that holds it, the argmax as (max, lowest global index), so a tie
+    goes to the lowest id, as ``argmax`` gives.  The backward is this
+    shard's own: softmax minus the label's one-hot, no collective."""
+
+    @staticmethod
+    def forward(ctx, logits, safe, v0: int, group):
+        n = logits.shape[1]
+        m_loc = logits.amax(1)
+        i_loc = logits.argmax(1)
+        m = _all_reduce(m_loc, "max", group)
+        shift = torch.where(torch.isinf(m), torch.zeros_like(m), m)
+        local = (safe >= v0) & (safe < v0 + n)
+        idx = torch.clamp(safe - v0, 0, n - 1)
+        tgt = torch.where(local, torch.gather(logits, 1, idx[:, None])[:, 0],
+                          torch.zeros_like(m))
+        sums = _all_reduce(torch.stack(
+            [torch.exp(logits - shift[:, None]).sum(1), tgt]), "sum", group)
+        logz = torch.log(sums[0]) + shift
+        pred = _all_reduce(torch.where(
+            m_loc == m, i_loc + v0,
+            torch.full_like(i_loc, torch.iinfo(torch.int64).max)),
+            "min", group)
+        ctx.save_for_backward(logits, logz, idx, local)
+        ctx.mark_non_differentiable(pred)
+        return logz - sums[1], pred
+
+    @staticmethod
+    def backward(ctx, g, _):
+        logits, logz, idx, local = ctx.saved_tensors
+        grad = torch.exp(logits - logz[:, None]) * g[:, None]
+        grad.scatter_add_(1, idx[:, None],
+                          torch.where(local, -g, torch.zeros_like(g))[:, None])
+        return grad, None, None, None
+
+
+def _split_chunk_stats(xc, head, lc, wc, mc, final_cap, v0, group):
+    """``_chunk_stats`` of a chunk whose head holds this rank's columns
+    [v0, v0 + n) of the vocabulary: its logits stay split."""
+    logits = softcap((xc @ head).to(torch.float32), final_cap)
+    safe = torch.clamp_min(lc, 0).long()
+    nll, pred = _SplitVocabNLL.apply(logits, safe, v0, group)
+    correct = mc & (pred == safe)
+    return (nll * wc).sum(), correct.sum(), wc.sum(), mc.sum()
+
+
+def _ce_sums(xf, head, lf, wf, mf, final_cap, chunk_tokens, stats=None):
+    """Flattened tokens' (sum of w * nll, correct, sum of w, counted):
+    chunks of ``chunk_tokens`` (the last padded with zero-weight tokens,
+    as the reference pads), each recomputed in the backward.  ``stats``
+    is a chunk's function of (xc, head, lc, wc, mc, final_cap)."""
+    t, d = xf.shape
+    dev = xf.device
+    nll_s = torch.zeros((), dtype=torch.float32, device=dev)
+    w_s = torch.zeros((), dtype=torch.float32, device=dev)
+    cor_s = torch.zeros((), dtype=torch.int64, device=dev)
+    m_s = torch.zeros((), dtype=torch.int64, device=dev)
+    if t == 0:
+        return nll_s, cor_s, w_s, m_s
+    chunk = min(chunk_tokens, t)
+    pad = (-t) % chunk
+    if pad:
+        xf = torch.cat([xf, xf.new_zeros((pad, d))])
+        lf = torch.cat([lf, lf.new_zeros((pad,))])
+        wf = torch.cat([wf, wf.new_zeros((pad,))])
+        mf = torch.cat([mf, mf.new_zeros((pad,))])
+    for c0 in range(0, t + pad, chunk):
+        sl = slice(c0, c0 + chunk)
+        nll, cor, w, m = checkpoint(stats or _chunk_stats, xf[sl], head,
+                                    lf[sl], wf[sl], mf[sl], final_cap,
+                                    use_reentrant=False)
+        nll_s, cor_s, w_s, m_s = nll_s + nll, cor_s + cor, w_s + w, m_s + m
+    return nll_s, cor_s, w_s, m_s
+
+
+def _mesh_ce_sums(x, head, labels, tok_w, final_cap, chunk_tokens):
+    """``_ce_sums`` on a mesh, each rank on its own tokens (``local_map``):
+    the chunks are cut from the rank's local rows (its batch shard), so no
+    op slices a split dim.  Where the head's vocabulary is split over
+    ``model`` the chunk's logits stay split (``_SplitVocabNLL``); where it
+    is whole and ``model`` has more than one rank, the ``model`` ranks
+    split the local rows, so no two compute the same logits, and the
+    chunk (``chunk_tokens`` over the ``model`` ranks).  Returns
+    the sums as (nll, w) f32 and (correct, counted) int64, each reduced
+    once over the mesh."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    mi = names.index("model") if "model" in names else None
+    n_model = 1 if mi is None else mesh.size(mi)
+    x = unshard_for_local(x, (1, 2))
+    rows = [p if isinstance(p, Shard) and i != mi else Replicate()
+            for i, p in enumerate(x.placements)]
+    split = n_model > 1 and head.placements[mi] == Shard(1)
+    head_pl = [head.placements[mi] if i == mi and split else Replicate()
+               for i in range(mesh.ndim)]
+
+    def part(i):    # a sum's or a gradient's placement on mesh dim i
+        if i == mi:
+            return Replicate() if n_model == 1 else Partial()
+        return Partial() if isinstance(rows[i], Shard) else Replicate()
+
+    x_grad = [part(i) if i == mi else rows[i] for i in range(mesh.ndim)]
+    head_grad = [head_pl[i] if i == mi and split else part(i)
+                 for i in range(mesh.ndim)]
+    sums_pl = [Replicate() if i == mi and split else part(i)
+               for i in range(mesh.ndim)]
+
+    def local(xl, hl, ll, wl):
+        b, s, d = xl.shape
+        t = b * s
+        xf, lf, wf = xl.reshape(t, d), ll.reshape(t), wl.reshape(t)
+        stats, chunk = None, chunk_tokens
+        if split:
+            v0 = mesh.get_local_rank(mi) * hl.shape[1]
+            group = mesh.get_group(mi)
+            stats = functools.partial(_split_chunk_stats, v0=v0,
+                                      group=group)
+        elif n_model > 1:
+            # the rows split, and the chunk with them: a chunk's logits
+            # a rank as large as where the vocabulary is split
+            per = -(-t // n_model)
+            lo = min(mesh.get_local_rank(mi) * per, t)
+            hi = min(lo + per, t)
+            xf, lf, wf = xf[lo:hi], lf[lo:hi], wf[lo:hi]
+            chunk = -(-chunk_tokens // n_model)
+        nll, cor, w, m = _ce_sums(xf, hl, lf, wf, lf >= 0, final_cap,
+                                  chunk, stats)
+        return torch.stack([nll, w]), torch.stack([cor, m])
+
+    f_sums, i_sums = local_map(
+        local, out_placements=(sums_pl, sums_pl),
+        in_placements=(rows, head_pl, rows, rows),
+        in_grad_placements=(x_grad, head_grad, rows, rows),
+        device_mesh=mesh)(*(v.redistribute(mesh, pl) for v, pl in (
+            (x, rows), (head, head_pl), (labels, rows), (tok_w, rows))))
+    rep = [Replicate()] * mesh.ndim
+    f_sums, i_sums = f_sums.redistribute(mesh, rep), \
+        i_sums.redistribute(mesh, rep)
+    return f_sums[0], i_sums[0], f_sums[1], i_sums[1]
 
 
 def chunked_ce(params, cfg: ModelConfig, x: torch.Tensor,
@@ -373,33 +528,20 @@ def chunked_ce(params, cfg: ModelConfig, x: torch.Tensor,
     once: the B*S tokens are flattened and cut into chunks of
     ``chunk_tokens`` (the last padded with zero-weight tokens, as the
     reference pads), and each chunk's logits are recomputed in the
-    backward (``torch.utils.checkpoint``).  Returns (ce, acc)."""
+    backward (``torch.utils.checkpoint``).  On a mesh each rank cuts its
+    chunks from its own tokens and the vocabulary stays split
+    (``_mesh_ce_sums``).  Returns (ce, acc)."""
     b, s, d = x.shape
     x = _gathered_seq(rmsnorm(x, params["final_norm"], cfg.norm_eps))
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    t = b * s
-    xf = x.reshape(t, d)
-    lf = labels.reshape(t)
-    wf = tok_w.reshape(t)
-    mf = (labels >= 0).reshape(t)
-    chunk = min(chunk_tokens, t)
-    pad = (-t) % chunk
-    if pad:
-        xf = torch.cat([xf, xf.new_zeros((pad, d))])
-        lf = torch.cat([lf, lf.new_zeros((pad,))])
-        wf = torch.cat([wf, wf.new_zeros((pad,))])
-        mf = torch.cat([mf, mf.new_zeros((pad,))])
-    dev = x.device
-    nll_s = torch.zeros((), dtype=torch.float32, device=dev)
-    w_s = torch.zeros((), dtype=torch.float32, device=dev)
-    cor_s = torch.zeros((), dtype=torch.int64, device=dev)
-    m_s = torch.zeros((), dtype=torch.int64, device=dev)
-    for c0 in range(0, t + pad, chunk):
-        sl = slice(c0, c0 + chunk)
-        nll, cor, w, m = checkpoint(_chunk_stats, xf[sl], head, lf[sl],
-                                    wf[sl], mf[sl], cfg.final_softcap,
-                                    use_reentrant=False)
-        nll_s, cor_s, w_s, m_s = nll_s + nll, cor_s + cor, w_s + w, m_s + m
+    if is_dtensor(x):
+        nll_s, cor_s, w_s, m_s = _mesh_ce_sums(
+            x, head, labels, tok_w, cfg.final_softcap, chunk_tokens)
+    else:
+        t = b * s
+        nll_s, cor_s, w_s, m_s = _ce_sums(
+            x.reshape(t, d), head, labels.reshape(t), tok_w.reshape(t),
+            (labels >= 0).reshape(t), cfg.final_softcap, chunk_tokens)
     ce = nll_s / torch.clamp_min(w_s, 1e-9)
     acc = cor_s.to(torch.float32) / torch.clamp_min(m_s, 1).to(torch.float32)
     return ce, acc

@@ -26,8 +26,9 @@ import torch
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models import lm as lm_mod
+from repro_torch.models.attention import write_slot
 from repro_torch.models.common import rmsnorm, shard_bse
-from repro_torch.sharding.ctx import unshard
+from repro_torch.sharding.ctx import is_dtensor, unshard
 from repro_torch.tree import leaves, tree_stack, unflatten_like
 
 
@@ -201,24 +202,90 @@ def _per_layer_cache(cache_st, cfg: ModelConfig) -> Dict[str, Any]:
     return out
 
 
+def _slices_are_views(x) -> bool:
+    """True when ``_unstack``'s slices of the stacked leaf ``x`` are views
+    of it (a leaf split along its layer axis is gathered first)."""
+    from torch.distributed.tensor import Shard
+    return not is_dtensor(x) or not any(
+        isinstance(p, Shard) and p.dim == 0 for p in x.placements)
+
+
+def _into_stack(cache_st, cache, views, cfg: ModelConfig) -> Dict[str, Any]:
+    """The stacked cache ``cache_st`` holding the per-layer ``cache`` that
+    a step made from its slices ``views`` (``_per_layer_cache``): a leaf
+    the step wrote through a view of the stack is in it already; any other
+    is copied into its slice of the stack (the encoder's output into its
+    own tensor), or, where its dtype changed (an RG-LRU state's f32 h
+    after the cache's bf16 zeros), its stacked leaf is stacked anew from
+    the layers, as the reference's scan stacks them."""
+    p, n_full, _ = find_cycle(cfg)
+    out = {}
+    for k, v in cache.items():      # the encoder's output
+        if k == "layers":
+            continue
+        mine = cache_st.get(k)
+        if mine is not None and mine is not v and mine.dtype == v.dtype:
+            mine.copy_(v)
+            v = mine
+        out[k] = v
+    out["rest"] = list(cache["layers"][len(cache["layers"])
+                                       - len(cache_st["rest"]):])
+    stacked = []
+    for pos, tree in enumerate(cache_st["stacked"]):
+        st_leaves = leaves(tree)
+        made = [leaves(cache["layers"][c * p + pos]) for c in range(n_full)]
+        seen = [leaves(views["layers"][c * p + pos]) for c in range(n_full)]
+        restacked = {}
+        for i, x in enumerate(st_leaves):
+            col = [ls[i] for ls in made]
+            if any(y.dtype != x.dtype for y in col):
+                restacked[i] = torch.stack(col)
+                continue
+            in_place = _slices_are_views(x)
+            new = [c for c, y in enumerate(col)
+                   if not (in_place and y is seen[c][i])]
+            if len(new) == len(col) and not is_dtensor(x):
+                torch.stack(col, out=x)     # every slice: one copy
+            else:
+                for c in new:
+                    _write_layer(x, c, col[c])
+        if restacked:
+            tree = unflatten_like(tree, [restacked.get(i, x)
+                                         for i, x in enumerate(st_leaves)])
+        stacked.append(tree)
+    out["stacked"] = tuple(stacked)
+    return out
+
+
+def _write_layer(x, c: int, y) -> None:
+    """Slice ``c`` of the stacked leaf ``x`` set to ``y``, in place (on a
+    mesh by the rank whose shard holds it)."""
+    if is_dtensor(x):
+        write_slot(x, 0, c, y.unsqueeze(0))
+    else:
+        x[c].copy_(y)
+
+
 @torch.no_grad()
 def prefill(params_st, cfg: ModelConfig, tokens: torch.Tensor, cache_st, *,
             frontend=None):
     """The prompt pass over stacked params and a stacked cache (the
     cycles' slices run in layer order, as the reference's scan).  Returns
-    (last-position logits (B, V), the new stacked cache)."""
+    (last-position logits (B, V), the stacked cache): the cache given,
+    its layers written through views of it (``_into_stack``)."""
+    views = _per_layer_cache(cache_st, cfg)
     logits, cache = lm_mod.prefill(unstack_params(params_st, cfg), cfg,
-                                   tokens, _per_layer_cache(cache_st, cfg),
-                                   frontend=frontend)
-    return logits, stack_cache(cache, cfg)
+                                   tokens, views, frontend=frontend)
+    return logits, _into_stack(cache_st, cache, views, cfg)
 
 
 @torch.no_grad()
 def decode_step(params_st, cfg: ModelConfig, token: torch.Tensor, pos: int,
                 cache_st):
     """One token over stacked params and a stacked cache (mirrors
-    ``lm.decode_step``).  Returns (logits (B, V), the new stacked cache)."""
+    ``lm.decode_step``).  Returns (logits (B, V), the stacked cache given,
+    the new entry written in place)."""
+    views = _per_layer_cache(cache_st, cfg)
     logits, cache = lm_mod.decode_step(unstack_params(params_st, cfg), cfg,
-                                       token, pos,
-                                       _per_layer_cache(cache_st, cfg))
-    return logits, stack_cache(cache, cfg)
+                                       token, pos, views)
+    return logits, _into_stack(cache_st, cache, views, cfg)

@@ -46,8 +46,8 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import (causal_conv, dense_init, map_grad,
-                                       softplus)
+from repro_torch.models.common import (CACHE_FILL, causal_conv, dense_init,
+                                       map_grad, softplus)
 from repro_torch.sharding.ctx import (is_dtensor, logical_constraint,
                                       rows_local, split_dim, step_inputs,
                                       steps, unshard, unshard_for_local)
@@ -109,7 +109,7 @@ def init_mlstm_state(cfg: ModelConfig, batch: int, dtype=torch.float32,
     return MLSTMState(
         C=torch.zeros((batch, h, hd, hd), **f32),
         n=torch.zeros((batch, h, hd), **f32),
-        m=torch.full((batch, h), float("-inf"), **f32),
+        m=torch.full((batch, h), CACHE_FILL["m"], **f32),
         conv_tail=torch.zeros((batch, CONV_WIDTH - 1, w), dtype=dtype,
                               device=device),
     )
@@ -309,7 +309,7 @@ def init_slstm_state(cfg: ModelConfig, batch: int, dtype=torch.float32,
     return SLSTMState(
         c=torch.zeros((batch, d), **f32),
         n=torch.zeros((batch, d), **f32),
-        m=torch.full((batch, cfg.n_heads), float("-inf"), **f32),
+        m=torch.full((batch, cfg.n_heads), CACHE_FILL["m"], **f32),
         h=torch.zeros((batch, d), **f32),
     )
 

@@ -270,6 +270,30 @@ def place_cache(cache, mesh, rules: Dict[str, Any]):
         cache, cache_specs(cache, rules))
 
 
+def empty_cache(struct, mesh, rules: Dict[str, Any], device):
+    """A decode cache made already placed by ``cache_specs`` (as
+    ``place_cache`` would place it): each rank allocates only its local
+    shard, on ``device``, so no rank ever holds a whole one.  ``struct``
+    gives the shapes (fake tensors, or on ``meta``); each leaf is filled
+    with its field's ``models.common.CACHE_FILL`` value, else 0."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    from repro_torch.models.common import CACHE_FILL
+
+    def make(path, leaf, spec):
+        pl = to_placements(fit_spec(spec, leaf.shape, mesh), mesh)
+        shape, _ = compute_local_shape_and_global_offset(
+            tuple(leaf.shape), mesh, pl)
+        fill = CACHE_FILL.get(_last(path, "attr") or _last(path, "key"), 0)
+        local = torch.full(shape, fill, dtype=leaf.dtype, device=device)
+        return DTensor.from_local(local, mesh, pl, run_check=False,
+                                  shape=leaf.shape, stride=leaf.stride())
+
+    return tree_map_with_path(make, struct, cache_specs(struct, rules))
+
+
 def place_batch(x, mesh, rules: Dict[str, Any]):
     """An input's leading (batch) dim on the rules' ``batch`` axes, through
     ``fit_spec``; the rest whole."""

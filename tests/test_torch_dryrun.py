@@ -18,6 +18,14 @@ its own and runs the steps on ``meta`` structs over the 16x16 mesh:
   * the records' roofline fields are the analysis of the step the rank
     runs, and the analytic model's terms on the H100 sit under
     ``analytic``;
+  * gemma2-2b's full-depth ``train_4k`` fits a card's 80 GB a rank and
+    gathers at least 2.0e12 B less than when each CE chunk gathered the
+    whole stream; two layers of its ``prefill_32k`` peak below one whole
+    global layer's k and v (the cache made sharded, written in place);
+    its full-depth ``decode_32k`` outputs no second cache; where the
+    vocabulary stays whole (seamless-m4t-medium, two layers) the CE's
+    rows and chunk split over ``model`` keep a rank's peak below two
+    chunks' logits of its rows;
   * a weight placed whole where its rule shards it raises the rank's
     FLOPs and peak, which the analytic model cannot see;
   * a combination that fails exits 1 and names the op that stopped it.
@@ -49,6 +57,7 @@ REPO = Path(__file__).resolve().parents[1]
 REF_ARGUMENT_SIZE = {"train_4k": 191_917_632, "decode_32k": 1_045_384_740}
 
 # (arch, shape, layers): one cycle of each pattern, gemma2-2b at full depth
+# (the last two)
 CASES = [
     ("gemma2-2b", "train_4k", 2), ("gemma2-2b", "prefill_32k", 2),
     ("qwen2-7b", "train_4k", 1), ("qwen2-7b", "prefill_32k", 1),
@@ -57,6 +66,7 @@ CASES = [
     ("granite-moe-1b-a400m", "prefill_32k", 1),
     ("recurrentgemma-9b", "train_4k", 3),
     ("recurrentgemma-9b", "prefill_32k", 3),
+    ("seamless-m4t-medium", "train_4k", 2),
     ("gemma2-2b", "train_4k", None), ("gemma2-2b", "decode_32k", None),
 ]
 
@@ -164,6 +174,66 @@ def test_full_depth_argument_size_equals_the_references(records, shape):
                rec["peak_memory_bytes"]) > 0
     assert rec["peak_memory_bytes"] == mem["argument_size"] \
         + mem["output_size"] + mem["temp_size"] - mem["alias_size"]
+
+
+# a card's memory, and the gemma2-2b train_4k all-gather bytes a rank
+# before the CE's chunks came from each rank's own tokens (the card's
+# torch), which the repair must cut by at least ALL_GATHER_CUT
+CARD_BYTES = 80e9
+EARLIER_ALL_GATHER, ALL_GATHER_CUT = 4.80e12, 2.0e12
+# one whole global layer's keys and values at prefill_32k: B=32 x 32,768
+# positions x 4 kv heads x 256 x bf16, k and v
+WHOLE_GLOBAL_LAYER_KV = 32 * 32768 * 4 * 256 * 2 * 2
+
+
+def test_full_depth_train_step_fits_a_card_a_rank(records):
+    """gemma2-2b ``train_4k`` at full depth on 16x16: the CE's chunks cut
+    from each rank's own tokens with the vocabulary kept split, so no
+    chunk gathers the whole stream or its logits."""
+    rec = records[("gemma2-2b", "train_4k", None)]
+    assert rec["status"] == "ok", rec.get("error")
+    assert rec["peak_memory_bytes"] < CARD_BYTES
+    assert rec["coll_breakdown"]["all-gather"] <= \
+        EARLIER_ALL_GATHER - ALL_GATHER_CUT
+
+
+def test_prefill_holds_less_than_one_whole_global_layer(records):
+    """The prefill's stacked cache is made sharded (each rank allocates
+    its own shard) and written in place: two layers of gemma2-2b's
+    ``prefill_32k`` peak below one whole global layer's k and v."""
+    rec = records[("gemma2-2b", "prefill_32k", 2)]
+    assert rec["status"] == "ok", rec.get("error")
+    assert WHOLE_GLOBAL_LAYER_KV == 4_294_967_296
+    assert rec["peak_memory_bytes"] < WHOLE_GLOBAL_LAYER_KV
+
+
+# seamless-m4t-medium's train_4k: the 16 ``model`` ranks split a batch
+# shard's 65,536 decoder tokens, 4,096 a rank, over a vocabulary of
+# 256,206 that 16 does not divide (kept whole); f32 logits of all 4,096
+SEAMLESS_ROWS_LOGITS = 4096 * 256_206 * 4
+
+
+def test_rows_split_ce_holds_a_ranks_share_of_the_chunk(records):
+    """Where the vocabulary stays whole the ``model`` ranks split the
+    CE's rows and its chunk with them (1,024 of 16,384 rows a chunk), so
+    a rank's peak (two layers) stays below two chunks' logits of its
+    4,096 rows; a chunk of all of them held five at once."""
+    rec = records[("seamless-m4t-medium", "train_4k", 2)]
+    assert rec["status"] == "ok", rec.get("error")
+    assert rec["peak_memory_bytes"] < 2 * SEAMLESS_ROWS_LOGITS
+
+
+def test_serve_step_makes_no_second_cache(records):
+    """gemma2-2b ``decode_32k`` at full depth on 16x16: the serve step
+    writes its stacked cache in place and returns it, so the cache is
+    aliased (written in place) and the step's output, the logits, is
+    smaller than it; a step that restacked the cache would output a
+    second one."""
+    rec = records[("gemma2-2b", "decode_32k", None)]
+    assert rec["status"] == "ok", rec.get("error")
+    mem = rec["memory_analysis"]
+    assert mem["alias_size"] > 0.9e9
+    assert mem["output_size"] < mem["alias_size"]
 
 
 def test_roofline_fields_are_the_analysis_and_the_analytic_models_beside(
