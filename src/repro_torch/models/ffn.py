@@ -34,12 +34,14 @@ for the dispatch's cumsum, scatter and gather, so those run on each
 rank's local rows through ``local_map``: the router on its tokens (the
 router weights gathered whole), the hierarchical dispatch and combine on
 its rows, whose scatter never crosses a row (the reason the reference
-batches it), and the hierarchical expert products on each rank's rows of
-its own experts (``_expert_local``).  The full-sequence dispatch path's
-positions run over all tokens, so on a mesh it runs as the hierarchical
-impl's one row: every rank dispatches all the tokens (gathered) into the
-(E, C, d) buffers, whose experts stay split, and computes the products of
-its own experts.
+batches it), the hierarchical expert products on each rank's rows of its
+own experts (``_expert_local``), and the dense path's products on each
+rank's tokens of its own experts (``_expert_matmul``; DTensor's rules
+made each rank's product 16x its share on the 16x16 pod).  The
+full-sequence dispatch path's positions run over all tokens, so on a mesh
+it runs as the hierarchical impl's one row: every rank dispatches all the
+tokens (gathered) into the (E, C, d) buffers, whose experts stay split,
+and computes the products of its own experts.
 
 Top-k order: ``jax.lax.top_k`` puts the lower expert index first among
 equal probabilities; the port sorts with a stable descending sort, which
@@ -60,7 +62,8 @@ from repro_torch.configs.base import MoEConfig
 from repro_torch.models.common import activation, dense_init
 from repro_torch.sharding.ctx import (PartitionSpec as P, current_rules,
                                       is_dtensor, logical_constraint,
-                                      rows_local, to_placements, unshard)
+                                      rows_local, to_placements, unshard,
+                                      unshard_for_local)
 from repro_torch.sharding.specs import fit_spec
 
 CAPACITY_FACTOR = 1.25
@@ -306,13 +309,53 @@ def moe_ffn_dense(params, x: torch.Tensor, moe: MoEConfig,
     combine = logical_constraint(combine, ("moe_tokens", "expert"))
     act = activation(act_name)
     with record_function(EXPERT_RANGE):
-        h = act(torch.matmul(xf, params["we_gate"]))              # (E, T, f)
-        h = h * torch.matmul(xf, params["we_up"])
+        h = act(_expert_matmul(xf, params["we_gate"]))            # (E, T, f)
+        h = h * _expert_matmul(xf, params["we_up"])
         h = logical_constraint(h, ("expert", "moe_tokens", None))
-        y_e = torch.matmul(h, params["we_down"])                  # (E, T, d)
+        y_e = _expert_matmul(h, params["we_down"])                # (E, T, d)
     y_e = logical_constraint(y_e, ("expert", "moe_tokens", None))
     y = torch.einsum("etd,te->td", y_e, combine.to(y_e.dtype))
     return y.reshape(b, s, d), aux.to(x.dtype)
+
+
+def _expert_matmul(a, w):
+    """``torch.matmul(a, w)``, a dense-path expert product: a (T, d) tokens
+    or (E, T, f) per expert, w (E, d, f) or (E, f, d) -> (E, T, .).  On a
+    mesh each rank computes its own tokens' product of its own experts
+    (``local_map``): a's tokens as the rank holds them (whole on the
+    experts' mesh dim), w's experts split as placed and its other dims
+    gathered (FSDP's gather, held for this product only), so no product is
+    larger than the rank's (experts, tokens) share; it comes out with the
+    experts and the tokens split, as the reference constrains it.  w's
+    gradient is a sum over the rank's tokens, pending over the token
+    rows' mesh dims until w's redistribution reduces it onto w's
+    placement, in this layer's backward.  Plain tensors, and experts whose
+    d_ff dim is split (``resident_experts``), take DTensor's own rules."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    tok = a.dim() - 2               # a's token dim
+    if not is_dtensor(a) or any(isinstance(p, Shard) and p.dim == 2 - tok
+                                for p in w.placements):
+        return torch.matmul(a, w)
+    from torch.distributed.tensor.experimental import local_map
+    mesh = a.device_mesh
+    a = unshard_for_local(a, (a.dim() - 1,))
+    w_pl = [Shard(0) if p == Shard(0) else Replicate() for p in w.placements]
+    a_pl = [Shard(0) if e == Shard(0) and tok else
+            (p if p == Shard(tok) and e != Shard(0) else Replicate())
+            for p, e in zip(a.placements, w_pl)]
+    y_pl = [Shard(0) if e == Shard(0) else
+            (Shard(1) if p == Shard(tok) else Replicate())
+            for p, e in zip(a_pl, w_pl)]
+    w_grad = [e if e == Shard(0) else
+              (Partial() if p == Shard(tok) else Replicate())
+              for p, e in zip(a_pl, w_pl)]
+    a_grad = [Partial() if e == Shard(0) and not tok else p
+              for p, e in zip(a_pl, w_pl)]
+    return local_map(torch.matmul, out_placements=y_pl,
+                     in_placements=(a_pl, w_pl),
+                     in_grad_placements=(a_grad, w_grad),
+                     device_mesh=mesh)(a.redistribute(mesh, a_pl),
+                                       w.redistribute(mesh, w_pl))
 
 
 def moe_ffn_dispatch(params, x: torch.Tensor, moe: MoEConfig,

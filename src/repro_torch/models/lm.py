@@ -34,8 +34,9 @@ token's state.  Where DTensor has no usable rule the collective is stated
 (``_gathered_seq``, ``_residual``, ``_embed_tokens``, ``_mesh_ce_sums``):
 a block's normed input is gathered over the sequence, a sublayer's output
 is placed as the residual stream before the add, each rank looks up its
-own tokens in the whole embedding table, and the CE runs on each rank's
-own tokens with the vocabulary kept split, its three reductions over the
+own tokens in its own range of the vocabulary, the rows summed over
+``model`` (``_SplitVocabLookup``), and the CE runs on each rank's own
+tokens with the vocabulary kept split, its three reductions over the
 vocabulary made from each shard's pieces (``_SplitVocabNLL``).
 """
 
@@ -59,8 +60,8 @@ from repro_torch.models.common import (dense_init, embed_init, rmsnorm,
                                        shard_bse, softcap)
 from repro_torch.sharding.ctx import (activation_rules, current_mesh,
                                       current_rules, is_dtensor,
-                                      logical_constraint, rows_local,
-                                      unshard, unshard_for_local)
+                                      logical_constraint, unshard,
+                                      unshard_for_local)
 from repro_torch.tree import leaves
 
 _MIXER_INIT = {
@@ -223,16 +224,113 @@ def enc_layer(lp, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return _residual(x, ffn_mod.mlp(lp["ffn"], h2, cfg.act))
 
 
+class _SplitVocabLookup(torch.autograd.Function):
+    """``table[tokens]`` where this rank looks up rows [v0, v0 + hi - lo)
+    of the vocabulary, its local table's rows [lo, hi): each token outside
+    them gives a row of zeros, and the rows are summed over ``group``,
+    whose ranks hold the rest of the vocabulary.  Exactly one term of each
+    sum is nonzero, so the sum is the row itself, bit for bit.  The table's
+    d is first gathered over each ``gathers`` entry (group, ranks, rank,
+    tokens split there), the innermost mesh dim first; its gradient goes
+    back to the local shard: each rank scatter-adds its own tokens' row
+    gradients into its own rows only, then a reduce-scatter over each
+    gather's group (a plain slice where the tokens are the same on every
+    rank of it), so no collective carries more than the rank's rows of the
+    table with d whole."""
+
+    @staticmethod
+    def forward(ctx, table, tokens, lo: int, hi: int, v0: int, gathers,
+                group):
+        rows = table[lo:hi]
+        for g, _, _, _ in reversed(gathers):
+            rows = _collective("all_gather", rows, 1, g)
+        n = hi - lo
+        idx = tokens.long() - v0
+        local = (idx >= 0) & (idx < n)
+        idx = torch.clamp(idx, 0, max(n - 1, 0))
+        picked = rows[idx] if n else rows.new_zeros(idx.shape
+                                                     + rows.shape[1:])
+        out = torch.where(local[..., None], picked,
+                          torch.zeros((), dtype=rows.dtype,
+                                      device=rows.device))
+        if group is not None:
+            out = _all_reduce(out, "sum", group)
+        ctx.save_for_backward(idx, local)
+        ctx.lo, ctx.hi, ctx.d, ctx.gathers = lo, hi, rows.shape[1], gathers
+        ctx.table_shape = table.shape
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, local = ctx.saved_tensors
+        grad = torch.zeros((ctx.hi - ctx.lo, ctx.d), dtype=g.dtype,
+                           device=g.device)
+        if ctx.hi > ctx.lo:
+            grad.index_put_((idx,), torch.where(local[..., None], g,
+                                                torch.zeros_like(g)),
+                            accumulate=True)
+        for grp, n, r, split in ctx.gathers:
+            grad = _collective("reduce_scatter", grad, "sum", 1, grp) \
+                if split else grad.chunk(n, 1)[r]
+        if grad.shape[0] != ctx.table_shape[0]:
+            full = grad.new_zeros(ctx.table_shape)
+            full[ctx.lo:ctx.hi] = grad
+            grad = full
+        return grad, None, None, None, None, None, None
+
+
+def _mesh_lookup(emb, tokens):
+    """``emb[tokens]`` on a mesh, each rank on its own tokens (``local_map``)
+    with the table left split on the vocabulary over ``model``
+    (``_SplitVocabLookup``): over the other axes the rank's rows are
+    gathered on d only, as FSDP gathers every weight.  Where the
+    vocabulary is whole on ``model`` (``fit_spec`` drops an axis that does
+    not divide it), each ``model`` rank looks up its own range of the rows
+    all the same.  So no rank holds the whole table or a whole gradient of
+    it (ROADMAP departure 14).  The rows come back split as the tokens
+    are, whole on ``model``."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = tokens.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    mi = names.index("model") if "model" in names else None
+    n_model = 1 if mi is None else mesh.size(mi)
+    t = unshard_for_local(tokens, range(1, tokens.dim()))
+    rows = [p if isinstance(p, Shard) and i != mi else Replicate()
+            for i, p in enumerate(t.placements)]
+    e_pl = list(emb.placements)
+    vocab, local_rows = emb.shape[0], emb.to_local().shape[0]
+    split = n_model > 1 and e_pl[mi] == Shard(0)
+    if split:
+        lo, hi, v0 = 0, local_rows, mesh.get_local_rank(mi) * local_rows
+    else:
+        per = -(-vocab // n_model)
+        lo = v0 = min(mesh.get_local_rank(mi) * per, vocab) if mi is not None \
+            else 0
+        hi = min(lo + per, vocab)
+    gathers = [(mesh.get_group(i), mesh.size(i), mesh.get_local_rank(i),
+                isinstance(rows[i], Shard))
+               for i, p in enumerate(e_pl) if p == Shard(1)]
+    group = mesh.get_group(mi) if n_model > 1 else None
+    grad = [p if isinstance(p, Shard)
+            else Partial() if i == mi and n_model > 1
+            or isinstance(rows[i], Shard) else Replicate()
+            for i, p in enumerate(e_pl)]
+    return local_map(
+        lambda e, tl: _SplitVocabLookup.apply(e, tl, lo, hi, v0, gathers,
+                                              group),
+        out_placements=(rows,), in_placements=(e_pl, rows),
+        in_grad_placements=(grad, rows),
+        device_mesh=mesh)(emb, t.redistribute(mesh, rows))
+
+
 def _embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor):
     emb = params["embed"]
     # sqrt(d) rounded in f32, as the reference computes it
     scale = torch.sqrt(torch.tensor(float(cfg.d_model), dtype=torch.float32,
                                     device=emb.device)).to(emb.dtype)
     if is_dtensor(tokens):
-        # each rank looks up its own tokens in the whole table (DTensor's
-        # rule for the lookup's gradient is not usable on every version)
-        return rows_local(lambda t, e: e[t.long()], 1, tokens,
-                          whole=emb) * scale
+        return _mesh_lookup(emb, tokens) * scale
     return emb[tokens.long()] * scale
 
 
@@ -366,11 +464,25 @@ def _chunk_stats(xc, head, lc, wc, mc, final_cap):
     return (nll * wc).sum(), correct.sum(), wc.sum(), mc.sum()
 
 
-def _all_reduce(t: torch.Tensor, op: str, group) -> torch.Tensor:
+def _waited(out) -> torch.Tensor:
+    """A functional collective's result, waited for."""
     import torch.distributed._functional_collectives as funcol
-    out = funcol.all_reduce(t, op, group)
     return out.wait() if isinstance(out, funcol.AsyncCollectiveTensor) \
         else out
+
+
+def _collective(kind: str, *args) -> torch.Tensor:
+    """``funcol``'s ``{kind}_single`` (``{kind}_tensor`` on a torch that
+    has no such name), waited for."""
+    import torch.distributed._functional_collectives as funcol
+    fn = getattr(funcol, f"{kind}_single", None) or \
+        getattr(funcol, f"{kind}_tensor")
+    return _waited(fn(*args))
+
+
+def _all_reduce(t: torch.Tensor, op: str, group) -> torch.Tensor:
+    import torch.distributed._functional_collectives as funcol
+    return _waited(funcol.all_reduce(t, op, group))
 
 
 class _SplitVocabNLL(torch.autograd.Function):
@@ -588,9 +700,10 @@ def _prefill_block(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
         mix, st = attn_mod.prefill_into_cache(p["mixer"], cfg, spec, h, st)
     elif spec.mixer == MIX_RGLRU:
         mix, h_last, u = rec_mod.rglru_sequence(p["mixer"], h)
+        # a copy: a view of u would keep it whole while the cache lives
         st = rec_mod.RGLRUState(
-            h=h_last,
-            conv_tail=u[:, -(cfg.conv1d_width - 1):].to(st.conv_tail.dtype))
+            h=h_last, conv_tail=u[:, -(cfg.conv1d_width - 1):].to(
+                st.conv_tail.dtype, copy=True))
     elif spec.mixer == MIX_MLSTM:
         mix, st = xlstm_mod.mlstm_sequence(p["mixer"], h, cfg)
     else:
@@ -619,16 +732,21 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, cache, *,
 
 @torch.no_grad()
 def decode_step(params, cfg: ModelConfig, token: torch.Tensor, pos: int,
-                cache):
+                cache, *, in_place: bool = False):
     """token: (B,) ints; pos: the global position of this token (a vision
     prefix counted).  Returns (logits (B, V), new cache).  Attention caches
-    are updated in place (see ``attention.decode_attention``)."""
+    are updated in place (see ``attention.decode_attention``); with
+    ``in_place`` every layer's new state is written into the cache's own
+    tensors as soon as the layer is done, where its shape, dtype and
+    placement are theirs (``_write_state``), so no two layers' new states
+    wait side by side (the stacked step's views, as the reference's
+    donated cache)."""
     x = _embed_tokens(params, cfg, token)[:, None]              # (B,1,d)
     x = logical_constraint(x, ("batch", None, "embed"))
     enc_out = cache.get("enc_out")
     new_layers = []
-    for p, spec, st in zip(params["layers"], cfg.layers, cache["layers"]):
-        h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+    for p, spec, old in zip(params["layers"], cfg.layers, cache["layers"]):
+        h, st = rmsnorm(x, p["ln1"], cfg.norm_eps), old
         if spec.mixer == MIX_ATTN:
             mix, st = attn_mod.decode_attention(p["mixer"], cfg, spec, h,
                                                 int(pos), st)
@@ -644,6 +762,24 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, pos: int,
             x = _residual(x, attn_mod.cross_decode_attention(
                 p["cross"], cfg, spec, hc, int(pos), enc_out))
         x = _ffn(p, cfg, spec, x, serving=True)[0]
-        new_layers.append(st)
+        new_layers.append(_write_state(old, st) if in_place else st)
     logits = _unembed(params, cfg, x)
     return logits[:, 0], dict(cache, layers=new_layers)
+
+
+def _write_state(old, new):
+    """The layer state ``new`` with each leaf that fits the ``old`` one
+    (shape, dtype, DTensor placements) copied into it, in place; the old
+    tensor then stands for the new one."""
+    def fits(a, b):
+        return a.shape == b.shape and a.dtype == b.dtype and (
+            is_dtensor(a) == is_dtensor(b)) and (
+            not is_dtensor(a) or tuple(a.placements) == tuple(b.placements))
+
+    leaves_ = []
+    for a, b in zip(old, new):
+        if b is not a and fits(a, b):
+            a.copy_(b)
+            b = a
+        leaves_.append(b)
+    return type(new)(*leaves_)

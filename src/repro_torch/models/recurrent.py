@@ -106,7 +106,8 @@ def rglru_sequence(params, x: torch.Tensor
     """Full-sequence block that also returns what decode carries on:
     (y (B,S,d), the last hidden state h (B,W), the conv input u (B,S,W)).
     One scan: the reference's prefill scans a second time for h, on the
-    same inputs, so the port takes h from this one."""
+    same inputs, so the port takes h from this one, as a copy of its own
+    (a view would keep the whole (B,S,W) scan output alive)."""
     gate = gelu(x @ params["w_gate_branch"])
     u = x @ params["w_in"]
     u = logical_constraint(u, ("batch", None, "ff"))
@@ -114,7 +115,7 @@ def rglru_sequence(params, x: torch.Tensor
     a, b = _gates(params, uc)
     h = rglru_scan(a.to(torch.float32), b.to(torch.float32))
     y = (h.to(x.dtype) * gate) @ params["w_out"]
-    return y, h[:, -1], u
+    return y, h[:, -1].clone(), u
 
 
 def rglru_block(params, x: torch.Tensor) -> torch.Tensor:

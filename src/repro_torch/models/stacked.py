@@ -284,8 +284,9 @@ def decode_step(params_st, cfg: ModelConfig, token: torch.Tensor, pos: int,
                 cache_st):
     """One token over stacked params and a stacked cache (mirrors
     ``lm.decode_step``).  Returns (logits (B, V), the stacked cache given,
-    the new entry written in place)."""
+    the new entry and each layer's new state written in place, a layer at
+    a time)."""
     views = _per_layer_cache(cache_st, cfg)
     logits, cache = lm_mod.decode_step(unstack_params(params_st, cfg), cfg,
-                                       token, pos, views)
+                                       token, pos, views, in_place=True)
     return logits, _into_stack(cache_st, cache, views, cfg)

@@ -25,7 +25,14 @@ batch rows with every other dim whole (``rows_local``); the mLSTM chunk's
 2.11's DTensor has no rule for ``cummax`` nor for ``cumsum``'s backward);
 the gates' pre-activations reduce their sums over a split width at once
 (``_gate_pre``), so DTensor never scatters them over heads that do not
-divide the axis.
+divide the axis; the heads' (hd, hd) products take each rank's batch rows
+(``_head_proj``), and the chunk loop's first carry is made as q's rows are
+placed (``sharding.ctx.full_as``): DTensor would otherwise hold the
+weights broadcast over, and the zeros made at, the global batch on every
+rank (ROADMAP departure 14).
+Under autograd each mLSTM chunk is recomputed in the backward
+(``torch.utils.checkpoint``), so a block's backward holds one chunk's
+intermediates at a time, as the reference's scan over the chunks does.
 On ``meta`` tensors (the dry run's), which compute nothing, the chunk and
 step loops walk their first, one middle and their last iteration
 (``sharding.ctx.steps``), as the reference's scans trace their body once;
@@ -39,18 +46,21 @@ up-projection, where the reference computes it again.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import (CACHE_FILL, causal_conv, dense_init,
                                        map_grad, softplus)
-from repro_torch.sharding.ctx import (is_dtensor, logical_constraint,
-                                      rows_local, split_dim, step_inputs,
-                                      steps, unshard, unshard_for_local)
+from repro_torch.sharding.ctx import (full_as, is_dtensor,
+                                      logical_constraint, rows_local,
+                                      split_dim, step_inputs, steps, unshard,
+                                      unshard_for_local)
 
 DEFAULT_MLSTM_CHUNK = 128
 CONV_WIDTH = 4
@@ -124,22 +134,31 @@ def _gate_pre(params, xc: torch.Tensor, gate: str) -> torch.Tensor:
 
 
 def _mlstm_qkvif(params, x: torch.Tensor, h: int, hd: int):
-    """Shared projections.  x: (B,S,d) -> q, k, v (B,H,S,hd) f32; i, f
+    """Shared projections.  x: (B,S,d) -> q, k, v (B,H,S,hd) in x's dtype
+    (``mlstm_chunkwise`` takes them to f32 a chunk at a time); i, f
     pre-activations (B,H,S) f32; the output gate z (B,S,W); the
-    up-projection xu (B,S,W)."""
+    up-projection xu (B,S,W).  The heads' layout is made once for the
+    three products (each would copy it otherwise)."""
     xu = x @ params["w_up"]
     xu = logical_constraint(xu, ("batch", None, "ff"))
     xc = F.silu(causal_conv(xu, params["conv_w"], params["conv_b"]))
     b, s, w = xc.shape
-    xh = split_dim(xc, 2, h).reshape(b, s, h, hd).transpose(1, 2)  # (B,H,S,hd)
-    q = torch.matmul(xh, params["w_q"])
-    k = torch.matmul(xh, params["w_k"]) * (hd ** -0.5)
-    v = torch.matmul(xh, params["w_v"])
+    xh = split_dim(xc, 2, h).reshape(b, s, h, hd).transpose(
+        1, 2).contiguous()                                      # (B,H,S,hd)
+    q = _head_proj(xh, params["w_q"])
+    k = _head_proj(xh, params["w_k"]) * (hd ** -0.5)
+    v = _head_proj(xh, params["w_v"])
     i_pre, f_pre = _gate_pre(params, xc, "i"), _gate_pre(params, xc, "f")
     z = F.silu(x @ params["w_z"])
-    f32 = torch.float32
-    return (q.to(f32), k.to(f32), v.to(f32), i_pre.transpose(1, 2),
-            f_pre.transpose(1, 2), z, xu)
+    return (q, k, v, i_pre.transpose(1, 2), f_pre.transpose(1, 2), z, xu)
+
+
+def _head_proj(xh: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``torch.matmul(xh, w)``: each head's (hd, hd) product of xh (B, H,
+    ..., hd).  On a mesh on each rank's batch rows with w gathered
+    (``rows_local``): DTensor's matmul broadcasts w over the global batch
+    on every rank, a (B, H, hd, hd) copy that grows with the batch."""
+    return rows_local(torch.matmul, 1, xh, whole=w)
 
 
 def _mlstm_step(carry, inp):
@@ -172,14 +191,53 @@ def _scan(fn, u: torch.Tensor, dim: int) -> torch.Tensor:
                      device_mesh=u.device_mesh)(u)
 
 
+def _mlstm_chunk(qc, kc, vc, ic, lfc, c_st, n_st, m_st, tri, zero):
+    """One chunk of ``mlstm_chunkwise``: its h (B,H,L,hd) and the (C, n,
+    m) state at its end, from the state at its start."""
+    qc, kc, vc = (t.to(torch.float32) for t in (qc, kc, vc))
+    b_cum = _scan(torch.cumsum, lfc, 2)                        # (B,H,L)
+    u = ic - b_cum
+    m_run = torch.maximum(m_st[..., None], _scan(
+        lambda t, d: torch.cummax(t, d).values, u, 2))            # M_t
+    # intra-chunk decay-masked scores
+    w_decay = torch.exp(u[:, :, None, :] - m_run[..., None])
+    w_decay = torch.where(tri, w_decay, zero)                  # (B,H,Lq,Ls)
+    sc = torch.matmul(qc, kc.transpose(-1, -2)) * w_decay
+    num_intra = torch.matmul(sc, vc)
+    den_intra = sc.sum(dim=-1)
+    # inter-chunk contribution
+    scale_in = torch.exp(m_st[..., None] - m_run)              # (B,H,L)
+    num_inter = (torch.matmul(qc, c_st.transpose(-1, -2))
+                 * scale_in[..., None])
+    den_inter = torch.matmul(qc, n_st[..., None])[..., 0] * scale_in
+    m_t = b_cum + m_run
+    denom = torch.maximum(torch.abs(den_intra + den_inter),
+                          torch.exp(-m_t))
+    h = (num_intra + num_inter) / denom[..., None]
+    # state update to the end of the chunk
+    m_end = torch.maximum(m_st, u.max(dim=-1).values)
+    w_end = torch.exp(u - m_end[..., None])                    # (B,H,L)
+    decay = torch.exp(m_st - m_end)
+    c_st = (decay[..., None, None] * c_st
+            + torch.matmul((vc * w_end[..., None]).transpose(-1, -2), kc))
+    n_st = (decay[..., None] * n_st
+            + torch.matmul(w_end[..., None, :], kc)[..., 0, :])
+    m_st = b_cum[..., -1] + m_end
+    return h, c_st, n_st, m_st
+
+
 def mlstm_chunkwise(q, k, v, i_pre, f_pre, *,
                     chunk: int = DEFAULT_MLSTM_CHUNK):
     """Chunkwise-parallel stabilised mLSTM.
 
-    q, k, v: (B,H,S,hd) f32; i_pre, f_pre: (B,H,S) f32.  Inside a chunk:
+    q, k, v: (B,H,S,hd), taken to f32 a chunk at a time (so no f32 copy
+    of the whole is made); i_pre, f_pre: (B,H,S) f32.  Inside a chunk:
     quadratic (L x L) decay-masked attention; across chunks: the (C, n, m)
-    state, from zeros and m = -inf.  Returns (h (B,H,S,hd), (C, n, m)
-    final state)."""
+    state, from zeros and m = -inf.  Under autograd each chunk runs under
+    ``torch.utils.checkpoint`` with (C, n, m) as its carry, so the backward
+    holds one chunk's intermediates at a time (recomputed: the same ops,
+    the same bits), as the reference's ``lax.scan`` over the chunks does.
+    Returns (h (B,H,S,hd), (C, n, m) final state)."""
     bsz, nh, s, hd = q.shape
     l = min(chunk, s)
     assert s % l == 0, (s, l)
@@ -187,46 +245,26 @@ def mlstm_chunkwise(q, k, v, i_pre, f_pre, *,
     logf = _log_sigmoid(f_pre)
     dev = q.device
 
-    c_st = torch.zeros((bsz, nh, hd, hd), dtype=torch.float32, device=dev)
-    n_st = torch.zeros((bsz, nh, hd), dtype=torch.float32, device=dev)
-    m_st = torch.full((bsz, nh), float("-inf"), dtype=torch.float32,
-                      device=dev)
+    # placed as q's (B, H) on a mesh: global-shaped plain zeros would be
+    # whole on every rank
+    f32 = torch.float32
+    c_st = full_as(q, (bsz, nh, hd, hd), 0.0, f32, 2)
+    n_st = full_as(q, (bsz, nh, hd), 0.0, f32, 2)
+    m_st = full_as(q, (bsz, nh), float("-inf"), f32, 2)
     tri = torch.tril(torch.ones((l, l), dtype=torch.bool, device=dev))
     zero = torch.zeros((), dtype=torch.float32, device=dev)
+    remat = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v, i_pre, f_pre))
     hs = []
+    chunk_fn = functools.partial(checkpoint, _mlstm_chunk,
+                                 use_reentrant=False) if remat \
+        else _mlstm_chunk
     for j in steps(nc, dev):
         cut = slice(j * l, (j + 1) * l)
-        qc, kc, vc = q[:, :, cut], k[:, :, cut], v[:, :, cut]
-        ic, lfc = i_pre[:, :, cut], logf[:, :, cut]
-        b_cum = _scan(torch.cumsum, lfc, 2)                    # (B,H,L)
-        u = ic - b_cum
-        m_run = torch.maximum(m_st[..., None], _scan(
-            lambda t, d: torch.cummax(t, d).values, u, 2))        # M_t
-        # intra-chunk decay-masked scores
-        w_decay = torch.exp(u[:, :, None, :] - m_run[..., None])
-        w_decay = torch.where(tri, w_decay, zero)              # (B,H,Lq,Ls)
-        sc = torch.matmul(qc, kc.transpose(-1, -2)) * w_decay
-        num_intra = torch.matmul(sc, vc)
-        den_intra = sc.sum(dim=-1)
-        # inter-chunk contribution
-        scale_in = torch.exp(m_st[..., None] - m_run)          # (B,H,L)
-        num_inter = (torch.matmul(qc, c_st.transpose(-1, -2))
-                     * scale_in[..., None])
-        den_inter = torch.matmul(qc, n_st[..., None])[..., 0] * scale_in
-        m_t = b_cum + m_run
-        denom = torch.maximum(torch.abs(den_intra + den_inter),
-                              torch.exp(-m_t))
-        hs.append((num_intra + num_inter) / denom[..., None])
-        # state update to the end of the chunk
-        m_end = torch.maximum(m_st, u.max(dim=-1).values)
-        w_end = torch.exp(u - m_end[..., None])                # (B,H,L)
-        decay = torch.exp(m_st - m_end)
-        c_st = (decay[..., None, None] * c_st
-                + torch.matmul((vc * w_end[..., None]).transpose(-1, -2),
-                               kc))
-        n_st = (decay[..., None] * n_st
-                + torch.matmul(w_end[..., None, :], kc)[..., 0, :])
-        m_st = b_cum[..., -1] + m_end
+        h, c_st, n_st, m_st = chunk_fn(
+            q[:, :, cut], k[:, :, cut], v[:, :, cut], i_pre[:, :, cut],
+            logf[:, :, cut], c_st, n_st, m_st, tri, zero)
+        hs.append(h)
     hs += [hs[-1].detach() for _ in range(nc - len(hs))]
     h = hs[0] if nc == 1 else torch.cat(hs, dim=2)
     return h, (c_st, n_st, m_st)
@@ -239,11 +277,13 @@ def mlstm_sequence(params, x: torch.Tensor, cfg: ModelConfig
     q, k, v, i_pre, f_pre, z, xu = _mlstm_qkvif(params, x, nh, hd)
     b, s = x.shape[:2]
     hs, (C, n, m) = mlstm_chunkwise(q, k, v, i_pre, f_pre)
-    hs = hs.transpose(1, 2).reshape(b, s, w).to(x.dtype)
+    # cast before the heads merge's copy: that copy at x's width
+    hs = hs.to(x.dtype).transpose(1, 2).reshape(b, s, w)
     if is_dtensor(hs):      # the merge's backward splits W into heads
         hs = map_grad(hs, lambda g: split_dim(g, 2, nh))
     y = (hs * z) @ params["w_down"]
-    tail = xu[:, -(CONV_WIDTH - 1):].to(x.dtype)
+    # a copy: a view would keep the whole (B,S,W) xu alive with the state
+    tail = xu[:, -(CONV_WIDTH - 1):].to(x.dtype, copy=True)
     return y, MLSTMState(C=C, n=n, m=m, conv_tail=tail)
 
 
@@ -262,9 +302,9 @@ def mlstm_decode_step(params, x: torch.Tensor, state: MLSTMState,
     xc = F.silu(xc + params["conv_b"])                          # (B,W)
     xh = split_dim(xc, 1, nh).reshape(-1, nh, 1, hd)
     f32 = torch.float32
-    q = torch.matmul(xh, params["w_q"])[:, :, 0].to(f32)
-    k = (torch.matmul(xh, params["w_k"])[:, :, 0] * (hd ** -0.5)).to(f32)
-    v = torch.matmul(xh, params["w_v"])[:, :, 0].to(f32)
+    q = _head_proj(xh, params["w_q"])[:, :, 0].to(f32)
+    k = (_head_proj(xh, params["w_k"])[:, :, 0] * (hd ** -0.5)).to(f32)
+    v = _head_proj(xh, params["w_v"])[:, :, 0].to(f32)
     i_pre, f_pre = _gate_pre(params, xc, "i"), _gate_pre(params, xc, "f")
     (C, n, m), h_t = _mlstm_step((state.C, state.n, state.m),
                                  (q, k, v, i_pre, f_pre))
@@ -316,10 +356,12 @@ def init_slstm_state(cfg: ModelConfig, batch: int, dtype=torch.float32,
 
 def _slstm_gate_inputs(params, x: torch.Tensor) -> torch.Tensor:
     """x: (B,S,d) -> the gates' input projections (S, B, 4, d) in f32, in
-    the order z, i, f, o."""
-    pre = [(x @ params[f"w_{g}"] + params[f"b_{g}"]).to(torch.float32)
-           for g in _GATES]
-    return torch.stack(pre, dim=2).transpose(0, 1)
+    the order z, i, f, o.  On a mesh every dim but the batch is gathered
+    (as the step loop takes it) before the f32 cast: at half the bytes."""
+    pre = torch.stack([x @ params[f"w_{g}"] + params[f"b_{g}"]
+                       for g in _GATES], dim=2)
+    return unshard_for_local(pre, (1, 2, 3)).to(torch.float32).transpose(
+        0, 1)
 
 
 def _slstm_recurrent(params, n_heads: int) -> torch.Tensor:

@@ -213,6 +213,8 @@ class _Loop:
         self.n = n
         self.peak = live
         self.kept: List[Tuple[int, list]] = []
+        # the first autograd node the middle step made
+        self.first: Optional[int] = None
 
 
 class _Trace:
@@ -234,6 +236,14 @@ class _Trace:
         self.open: List[_Loop] = []
         # (first, last, scale): the autograd nodes a middle step made
         self.seq_ranges: List[Tuple[int, int, int]] = []
+        # storage key -> the entry of a storage a middle step made
+        self.kept_by: Dict[int, list] = {}
+        # (first node of the middle step, first and last of the last
+        # step): the cut loops' autograd nodes
+        self.last_steps: List[Tuple[int, int, int]] = []
+        # (bytes, first node of a middle step): frees held back until the
+        # backward passes below that step
+        self.deferred: List[Tuple[int, int]] = []
 
     # -- memory -----------------------------------------------------------
 
@@ -247,8 +257,38 @@ class _Trace:
 
     def _freed(self, key: int):
         entry = self.storages.pop(key, None)
-        if entry is not None:
-            self.live -= entry[0] * entry[1]
+        if entry is None:
+            return
+        node = torch._C._current_autograd_node()
+        if self.kept_by.pop(key, None) is entry and entry[1] > 1 \
+                and node is not None:
+            nr = node._sequence_nr()
+            for first, lo, hi in self.last_steps:
+                if lo < nr < hi:
+                    # a middle step's storage freed in the last step's
+                    # backward (the carry it held): the full loop frees
+                    # one a step as its backward walks back, so all but
+                    # one stay until the backward has passed the middle
+                    self.live -= entry[0]
+                    self.deferred.append((entry[0] * (entry[1] - 1),
+                                          first))
+                    return
+        self.live -= entry[0] * entry[1]
+
+    def _release(self):
+        """The held-back frees whose middle step the backward has passed
+        (or which outlive the backward)."""
+        if not self.deferred:
+            return
+        node = torch._C._current_autograd_node()
+        nr = None if node is None else node._sequence_nr()
+        keep = []
+        for amount, first in self.deferred:
+            if nr is None or nr < first:
+                self.live -= amount
+            else:
+                keep.append((amount, first))
+        self.deferred = keep
 
     def track(self, st, *, arg: bool = False) -> bool:
         """Count ``st`` live until it is freed; False if it already is."""
@@ -263,6 +303,7 @@ class _Trace:
         elif self.middle is not None:
             # the entry, not the key: a freed storage's address is reused
             self.middle.kept.append((key, entry))
+            self.kept_by[key] = entry
         self._bump(n)
         return True
 
@@ -287,6 +328,7 @@ class _Trace:
     # -- ops --------------------------------------------------------------
 
     def op(self, func, args, kwargs, out):
+        self._release()
         ins = _tensors((args, kwargs))
         outs = _tensors(out)
         if any(isinstance(t, FakeTensor) for t in ins + outs):
@@ -342,6 +384,7 @@ class _Trace:
     def kernel(self, traffic: KernelTraffic, scratch: int, out):
         """One kernel launch: its formula's FLOPs and bytes; its outputs
         live from here, its scratch only while it runs."""
+        self._release()
         k = self.scale()
         self.flops += k * traffic.flops
         self.bytes += k * traffic.bytes_hbm
@@ -393,6 +436,8 @@ class _Trace:
             last = self._seq_now()
             if first is not None and last is not None:
                 self.seq_ranges.append((first, last, n - 2))
+                if lp is not None:
+                    lp.first = first
 
     def loop_end(self, lp: Optional[_Loop]):
         """After the last step: what the middle step left live counts
@@ -473,7 +518,11 @@ def loop(n: int):
     try:
         with trace.loop_middle(n) as lp:
             yield 1
+        lo = trace._seq_now()
         yield n - 1
+        hi = trace._seq_now()
+        if lp is not None and None not in (lp.first, lo, hi):
+            trace.last_steps.append((lp.first, lo, hi))
     finally:
         # also where a checkpoint's recompute stops inside the loop
         trace.loop_end(lp)

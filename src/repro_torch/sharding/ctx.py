@@ -206,6 +206,28 @@ def step_inputs(xs):
     return analysis.cut_unbind(xs)
 
 
+def full_as(ref, shape, fill: float, dtype, lead: int):
+    """``torch.full(shape, fill)`` for a tensor whose first ``lead`` dims
+    are ``ref``'s: on a DTensor ``ref`` it is placed as those dims are
+    (every other mesh dim replicated) and each rank makes only its own
+    shard, where a plain tensor of the global shape would be whole on
+    every rank.  A plain tensor when ``ref`` is one."""
+    import torch
+    if not is_dtensor(ref):
+        return torch.full(shape, fill, dtype=dtype, device=ref.device)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    mesh = ref.device_mesh
+    pl = [p if isinstance(p, Shard) and p.dim < lead else Replicate()
+          for p in ref.placements]
+    local, _ = compute_local_shape_and_global_offset(tuple(shape), mesh, pl)
+    return DTensor.from_local(
+        torch.full(local, fill, dtype=dtype, device=ref.to_local().device),
+        mesh, pl, run_check=False, shape=torch.Size(shape),
+        stride=torch.empty(shape, device="meta").stride())
+
+
 def _splits_badly(x, dim: int, lead: int) -> bool:
     """True when a mesh dim shards the DTensor ``x``'s ``dim`` in a way that
     splitting that dim into (``lead``, rest) cannot keep: ``lead`` is not a
