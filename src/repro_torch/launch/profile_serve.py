@@ -10,17 +10,17 @@ Full width by default, f32 params drawn on the card from a seed (as
 up and gives the unprofiled times.  Then one prefill and ``--tokens``
 decode steps run under the profiler, each phase in its own window.  Prints
 one JSON line per phase: its wall time, the device's busy time and idle
-share, its device activities, and the device time split into matrix
-products (cuBLAS kernels), the port's two LM kernels, copies and the rest
-(elementwise and reductions), with the top kernels by device time and
-operators by host time.  Two named ranges are read beside the classes
-(parts of them, not classes of their own): the MoE's expert products
-(``ffn.EXPERT_RANGE``, cuBLAS products of the dense or dispatched experts)
-and the sLSTM step loop (``xlstm.SLSTM_RANGE``), each with its host
-milliseconds and the device time of its kernels, so the loop's host share
-shows.  Any of the ten LM configs: a config with a frontend gets its stub
-input drawn from the seed, as ``launch/serve.py``; an xLSTM prompt is at
-most 128 tokens or a multiple of 128.  Needs a GPU; raises without one.
+share, its device activities, and the device time split by
+``profile_trial.kernel_class`` (matrix products, the port's LM kernels,
+copies, the rest), with the top kernels by device time and operators by
+host time.  The program's named ranges (``obs.RANGES``: the steps, the
+norms, RoPE, attention's parts, the MLP, the MoE's router, expert
+products and combine, the sLSTM step loop, ...) are read beside the
+classes, each with its host milliseconds and the device time of its
+kernels, so a loop's host share shows.  Any of the ten LM configs: a
+config with a frontend gets its stub input drawn from the seed, as
+``launch/serve.py``; an xLSTM prompt is at most 128 tokens or a multiple
+of 128.  Needs a GPU; raises without one.
 """
 
 from __future__ import annotations
@@ -29,32 +29,20 @@ import argparse
 import json
 import time
 
-from repro_torch.launch.profile_trial import card_name, device_activity
-
-
-def kernel_class(name: str) -> str:
-    n = name.lower()
-    if "flash_attention_kernel" in n:
-        return "flash_attention"
-    if "rglru_scan_kernel" in n:
-        return "rglru_scan"
-    if "memcpy" in n or "memset" in n:
-        return "copies"
-    if any(k in n for k in ("gemm", "gemv", "cutlass", "xmma", "dot_kernel")):
-        return "matmul"
-    return "elementwise_and_other"
+from repro_torch.launch.profile_trial import (by_class, card_name,
+                                              device_activity, kernel_class)
 
 
 def named_ranges(torch, prof) -> dict:
     """Host ms and the device ms of the kernels launched inside each of
-    the models' named ``record_function`` ranges, summed over the window."""
-    from repro_torch.models.ffn import EXPERT_RANGE
-    from repro_torch.models.xlstm import SLSTM_RANGE
+    the program's named ranges (``obs.RANGES``) that the window holds,
+    summed over it (a range's device time includes its inner ranges')."""
+    from repro_torch import obs
 
     cuda = torch.autograd.DeviceType.CUDA
     out = {}
     for e in prof.key_averages():
-        if e.key in (EXPERT_RANGE, SLSTM_RANGE) and e.device_type != cuda:
+        if e.key in obs.RANGES and e.device_type != cuda:
             out[e.key] = dict(count=e.count, host_ms=e.cpu_time_total / 1e3,
                               device_ms=e.device_time_total / 1e3)
     return out
@@ -104,11 +92,6 @@ def main(argv=None):
             torch.cuda.synchronize()
             wall_s = time.perf_counter() - t0
         act = device_activity(torch, prof)
-        split = {}
-        for kname, n, ms in act["by_name"]:
-            k = kernel_class(kname)
-            cnt, tot = split.get(k, (0, 0.0))
-            split[k] = (cnt + n, tot + ms)
         print(json.dumps(dict(
             phase=name, arch=cfg.name, layers=cfg.n_layers, batch=b,
             prompt_len=s, prefix_len=p_len,
@@ -117,8 +100,7 @@ def main(argv=None):
             wall_s=wall_s, device_busy_s=act["busy_s"],
             device_idle_share=1.0 - act["busy_s"] / wall_s,
             activities=act["activities"],
-            device_ms_by_class={k: {"count": c, "ms": ms}
-                                for k, (c, ms) in sorted(split.items())},
+            device_ms_by_class=by_class(act["by_name"], kernel_class),
             named_ranges=named_ranges(torch, prof),
             top_device=act["top_device"], top_host=act["top_host"],
             card=card_name())), flush=True)

@@ -27,25 +27,7 @@ import json
 import time
 
 from repro_torch.launch.profile_trial import (by_class, card_name,
-                                              device_activity)
-
-
-def kernel_class(name: str) -> str:
-    n = name.lower()
-    if "attn_bwd_" in n or "attn16_bwd_" in n:
-        return "flash_attention_bwd"
-    if "flash_attention_kernel" in n or "flash_attention_bf16_kernel" in n:
-        return "flash_attention"
-    if "rglru_scan_bwd_kernel" in n:
-        return "rglru_scan_bwd"
-    if "rglru_scan_kernel" in n or "rglru_scan_bf16_kernel" in n:
-        return "rglru_scan"
-    if "memcpy" in n or "memset" in n:
-        return "copies"
-    if any(k in n for k in ("gemm", "gemv", "cutlass", "xmma", "dot_kernel",
-                            "nvjet")):
-        return "matmul"
-    return "elementwise_and_other"
+                                              device_activity, kernel_class)
 
 
 def main(argv=None):

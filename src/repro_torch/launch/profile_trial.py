@@ -112,21 +112,32 @@ def smoke_server(mode: str = "sync", *, model_cfg=MLP_EMNIST,
 
 
 def kernel_class(name: str) -> str:
-    """A trial's device activity by class: cuDNN's convolutions (forward,
-    data and weight gradients), cuBLAS's products (the MLP's layers, a
-    ResNet's head), ``fed_reduce``, copies, and the rest (GroupNorm's
-    reductions and elementwise passes, the optimizer, the loss)."""
+    """A device activity by class, for every profile of the port: its
+    hand-written kernels (``fed_reduce``, the flash attention forward and
+    backward, f32 and bf16, the RG-LRU scan and its backward), copies,
+    cuDNN's convolutions (forward, data and weight gradients), matrix
+    products (cuBLAS and cuBLASLt's ``nvjet`` kernels), and the rest
+    (elementwise passes, reductions, norms, the optimizer, the loss)."""
     n = name.lower()
     if "fed_reduce_kernel" in n:
         return "fed_reduce"
+    if "attn_bwd_" in n or "attn16_bwd_" in n:
+        return "flash_attention_bwd"
+    if "flash_attention_kernel" in n or "flash_attention_bf16_kernel" in n:
+        return "flash_attention"
+    if "rglru_scan_bwd_kernel" in n:
+        return "rglru_scan_bwd"
+    if "rglru_scan_kernel" in n or "rglru_scan_bf16_kernel" in n:
+        return "rglru_scan"
     if "memcpy" in n or "memset" in n:
         return "copies"
     if any(k in n for k in ("conv", "fprop", "dgrad", "wgrad", "cudnn",
                             "implicit", "winograd")):
         return "convolution"
-    if any(k in n for k in ("gemm", "gemv", "cutlass", "xmma", "dot_kernel")):
+    if any(k in n for k in ("gemm", "gemv", "cutlass", "xmma", "dot_kernel",
+                            "nvjet")):
         return "matmul"
-    return "groupnorm_elementwise_and_other"
+    return "elementwise_and_other"
 
 
 def main(argv=None):

@@ -56,6 +56,7 @@ from typing import Any, Dict, Optional
 import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.shapes import InputShape
 from repro_torch.kernels.ref import RECIP_127
@@ -302,6 +303,7 @@ def make_prefill_step(cfg: ModelConfig, shape: InputShape, *,
     b, s = shape.global_batch, shape.seq_len
     rules = None if mesh is None else prefill_step_rules(multi_pod)
 
+    @obs.ranged(obs.PREFILL_STEP)
     def prefill_step(params, tokens, frontend=None):
         if mesh is not None:
             params = sh.place_params(params, mesh, rules)
@@ -427,6 +429,7 @@ def make_serve_step(cfg: ModelConfig, shape: InputShape, *,
     if quantize_weights:
         p_struct, scale_struct = quantize_param_structs(p_struct)
 
+    @obs.ranged(obs.SERVE_STEP)
     def serve_step(params, cache, token, pos, scales=None):
         if mesh is not None:
             params = sh.place_params(params, mesh, rules)

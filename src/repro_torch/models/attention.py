@@ -48,6 +48,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF
@@ -127,6 +128,7 @@ def _head_proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         device_mesh=x.device_mesh, redistribute_inputs=True)(x, w)
 
 
+@obs.ranged(obs.QKV_PROJ)
 def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig,
                  positions: torch.Tensor, *, rope: bool = True,
                  kv_input: Optional[torch.Tensor] = None,
@@ -156,6 +158,7 @@ def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig,
     return q, k, v
 
 
+@obs.ranged(obs.OUT_PROJ)
 def _out_proj(out: torch.Tensor, params) -> torch.Tensor:
     """(B,S,H,D) x wo (H,D,E) -> (B,S,E).  On a mesh the heads go back onto
     their axes (a local slice where they were whole) and each rank takes
@@ -274,6 +277,7 @@ def _attend_sharded(q, k, v, mesh, *, causal: bool, window: Optional[int],
     return unshard(out, (3,)).reshape(b, s, kh * g, d)
 
 
+@obs.ranged(obs.ATTN_CORE)
 def _attend(q, k, v, q_pos, k_pos, *, causal: bool, window: Optional[int],
             cap: Optional[float]) -> torch.Tensor:
     """The full-sequence core: the plain path on the CPU, the kernel on
@@ -374,9 +378,10 @@ def prefill_into_cache(params, cfg: ModelConfig, spec: LayerSpec,
     out = _attend(q, k, v, positions, positions, causal=True,
                   window=spec.window, cap=cfg.attn_softcap)
     s = q.shape[1]
-    _write_slots(cache.k, k, s, 1)
-    _write_slots(cache.v, v, s, 1)
-    _write_slots(cache.slot_pos, None, s, 0)
+    with obs.range(obs.CACHE_WRITE):
+        _write_slots(cache.k, k, s, 1)
+        _write_slots(cache.v, v, s, 1)
+        _write_slots(cache.slot_pos, None, s, 0)
     return _out_proj(out, params), cache
 
 
@@ -455,24 +460,26 @@ def decode_attention(params, cfg: ModelConfig, spec: LayerSpec,
     c = cache.k.shape[1]
     slot = pos % c
     k, v, slot_pos = cache
-    if is_dtensor(k):
-        write_slot(k, 1, slot, k_new.to(k.dtype))
-        write_slot(v, 1, slot, v_new.to(v.dtype))
-        write_slot(slot_pos, 0, slot, pos)
-    else:
-        k[:, slot] = k_new[:, 0].to(k.dtype)
-        v[:, slot] = v_new[:, 0].to(v.dtype)
-        slot_pos[slot] = pos
-    scale = q.shape[-1] ** -0.5
-    sc = torch.einsum("bskgd,btkd->bkgst", q.to(torch.float32),
-                      k.to(torch.float32)) * scale     # (B,K,G,1,C)
-    sc = softcap(sc, cfg.attn_softcap)
-    valid = (slot_pos >= 0) & (slot_pos <= pos)
-    if spec.window is not None:
-        valid &= slot_pos > pos - spec.window
-    sc = torch.where(valid, sc, torch.full_like(sc, NEG_INF))
-    p = torch.softmax(sc, dim=-1)
-    out = torch.einsum("bkgst,btkd->bskgd", p.to(v.dtype), v)
+    with obs.range(obs.CACHE_WRITE):
+        if is_dtensor(k):
+            write_slot(k, 1, slot, k_new.to(k.dtype))
+            write_slot(v, 1, slot, v_new.to(v.dtype))
+            write_slot(slot_pos, 0, slot, pos)
+        else:
+            k[:, slot] = k_new[:, 0].to(k.dtype)
+            v[:, slot] = v_new[:, 0].to(v.dtype)
+            slot_pos[slot] = pos
+    with obs.range(obs.ATTN_CORE):
+        scale = q.shape[-1] ** -0.5
+        sc = torch.einsum("bskgd,btkd->bkgst", q.to(torch.float32),
+                          k.to(torch.float32)) * scale     # (B,K,G,1,C)
+        sc = softcap(sc, cfg.attn_softcap)
+        valid = (slot_pos >= 0) & (slot_pos <= pos)
+        if spec.window is not None:
+            valid &= slot_pos > pos - spec.window
+        sc = torch.where(valid, sc, torch.full_like(sc, NEG_INF))
+        p = torch.softmax(sc, dim=-1)
+        out = torch.einsum("bkgst,btkd->bskgd", p.to(v.dtype), v)
     b, s, kh, g, d = out.shape
     y = _out_proj(out.reshape(b, s, kh * g, d), params)
     return y, KVCache(k=k, v=v, slot_pos=slot_pos)

@@ -15,6 +15,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.sharding.ctx import logical_constraint
 
 
@@ -60,6 +61,7 @@ def embed_init(gen: torch.Generator, shape, dtype=torch.float32
 # norms / activations
 # ---------------------------------------------------------------------------
 
+@obs.ranged(obs.NORM)
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6
             ) -> torch.Tensor:
     dtype = x.dtype
@@ -115,6 +117,7 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
                                         device=device), exps)
 
 
+@obs.ranged(obs.ROPE)
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
                ) -> torch.Tensor:
     """x: (..., S, H, D); positions: broadcastable to (..., S).  Half-split

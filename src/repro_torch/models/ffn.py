@@ -56,8 +56,8 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
+from repro_torch import obs
 from repro_torch.configs.base import MoEConfig
 from repro_torch.models.common import activation, dense_init
 from repro_torch.sharding.ctx import (PartitionSpec as P, current_rules,
@@ -67,8 +67,6 @@ from repro_torch.sharding.ctx import (PartitionSpec as P, current_rules,
 from repro_torch.sharding.specs import fit_spec
 
 CAPACITY_FACTOR = 1.25
-# the profiler range around the expert products (``launch/profile_serve``)
-EXPERT_RANGE = "moe_expert_products"
 
 _MOE_IMPL = contextvars.ContextVar("moe_impl", default="dispatch")
 
@@ -110,6 +108,7 @@ def init_mlp_params(gen: torch.Generator, d_model: int, d_ff: int,
     }
 
 
+@obs.ranged(obs.MLP)
 def mlp(params, x: torch.Tensor, act_name: str = "silu") -> torch.Tensor:
     act = activation(act_name)
     h = act(x @ params["w_gate"])
@@ -145,6 +144,7 @@ def _route_local(xf, router, moe: MoEConfig):
     return gate_vals, expert_ids, probs, top1
 
 
+@obs.ranged(obs.MOE_ROUTER)
 def _route(params, xf: torch.Tensor, moe: MoEConfig):
     """xf: (T, d) -> gates (T, k) renormalised, expert ids (T, k), the
     Switch load-balance loss over the top-1 assignment.  On a mesh each
@@ -283,12 +283,13 @@ def _capacity_rows(params, x: torch.Tensor, moe: MoEConfig, act_name: str,
         h = logical_constraint(h, ("moe_tokens", "expert", None, None))
         return torch.einsum("recf,efd->recd", h, wd)
 
-    with record_function(EXPERT_RANGE):
+    with obs.range(obs.MOE_EXPERT_PRODUCTS):
         out_buf = _expert_local(products, bufs, params["we_gate"],
                                 params["we_up"], params["we_down"])
     out_buf = logical_constraint(out_buf,
                                  ("moe_tokens", "expert", None, None))
-    y = rows_local(_combine_rows, 1, out_buf, keeps, dests, gv_r)
+    with obs.range(obs.MOE_COMBINE):
+        y = rows_local(_combine_rows, 1, out_buf, keeps, dests, gv_r)
     return y.reshape(b, s, d), aux.to(x.dtype)
 
 
@@ -302,19 +303,21 @@ def moe_ffn_dense(params, x: torch.Tensor, moe: MoEConfig,
     t = b * s
     xf = unshard(x, (1, 2)).reshape(t, d)
     gate_vals, expert_ids, aux = _route(params, xf, moe)
-    combine = rows_local(
-        lambda i_, g_: (F.one_hot(i_, e).to(torch.float32)
-                        * g_[..., None]).sum(dim=1), 1,
-        expert_ids, gate_vals)                                    # (T, E)
-    combine = logical_constraint(combine, ("moe_tokens", "expert"))
+    with obs.range(obs.MOE_COMBINE):
+        combine = rows_local(
+            lambda i_, g_: (F.one_hot(i_, e).to(torch.float32)
+                            * g_[..., None]).sum(dim=1), 1,
+            expert_ids, gate_vals)                                # (T, E)
+        combine = logical_constraint(combine, ("moe_tokens", "expert"))
     act = activation(act_name)
-    with record_function(EXPERT_RANGE):
+    with obs.range(obs.MOE_EXPERT_PRODUCTS):
         h = act(_expert_matmul(xf, params["we_gate"]))            # (E, T, f)
         h = h * _expert_matmul(xf, params["we_up"])
         h = logical_constraint(h, ("expert", "moe_tokens", None))
         y_e = _expert_matmul(h, params["we_down"])                # (E, T, d)
     y_e = logical_constraint(y_e, ("expert", "moe_tokens", None))
-    y = torch.einsum("etd,te->td", y_e, combine.to(y_e.dtype))
+    with obs.range(obs.MOE_COMBINE):
+        y = torch.einsum("etd,te->td", y_e, combine.to(y_e.dtype))
     return y.reshape(b, s, d), aux.to(x.dtype)
 
 
@@ -395,16 +398,17 @@ def moe_ffn_dispatch(params, x: torch.Tensor, moe: MoEConfig,
     buf = buf.reshape(e, capacity, d)
 
     act = activation(act_name)
-    with record_function(EXPERT_RANGE):
+    with obs.range(obs.MOE_EXPERT_PRODUCTS):
         h = act(torch.bmm(buf, params["we_gate"]))                # (E, C, f)
         h = h * torch.bmm(buf, params["we_up"])
         out_buf = torch.bmm(h, params["we_down"])                 # (E, C, d)
 
     # gather back to (T*k, d); dropped tokens contribute zero
-    out_flat = out_buf.reshape(e * capacity, d)
-    gathered = torch.where(keep[:, None], out_flat[dest],
-                           torch.zeros((), dtype=out_flat.dtype,
-                                       device=out_flat.device))
-    combined = (gathered.reshape(t, k, d)
-                * gate_vals[..., None].to(out_flat.dtype)).sum(dim=1)
+    with obs.range(obs.MOE_COMBINE):
+        out_flat = out_buf.reshape(e * capacity, d)
+        gathered = torch.where(keep[:, None], out_flat[dest],
+                               torch.zeros((), dtype=out_flat.dtype,
+                                           device=out_flat.device))
+        combined = (gathered.reshape(t, k, d)
+                    * gate_vals[..., None].to(out_flat.dtype)).sum(dim=1)
     return combined.reshape(b, s, d), aux.to(x.dtype)

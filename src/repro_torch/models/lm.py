@@ -49,6 +49,7 @@ from typing import Any, Dict, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import obs
 from repro_torch.configs.base import (FFN_DENSE, FFN_NONE, MIX_ATTN,
                                       MIX_MLSTM, MIX_RGLRU, MIX_SLSTM,
                                       LayerSpec, ModelConfig)
@@ -324,6 +325,7 @@ def _mesh_lookup(emb, tokens):
         device_mesh=mesh)(emb, t.redistribute(mesh, rows))
 
 
+@obs.ranged(obs.EMBED)
 def _embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor):
     emb = params["embed"]
     # sqrt(d) rounded in f32, as the reference computes it
@@ -356,6 +358,7 @@ def _encoder_output(params, cfg: ModelConfig,
     return _encode(params, cfg, frontend)
 
 
+@obs.ranged(obs.UNEMBED)
 def _unembed(params, cfg: ModelConfig, x: torch.Tensor):
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]

@@ -24,6 +24,7 @@ from typing import Any, Dict, List, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models import lm as lm_mod
 from repro_torch.models.attention import write_slot
@@ -276,7 +277,8 @@ def prefill(params_st, cfg: ModelConfig, tokens: torch.Tensor, cache_st, *,
     views = _per_layer_cache(cache_st, cfg)
     logits, cache = lm_mod.prefill(unstack_params(params_st, cfg), cfg,
                                    tokens, views, frontend=frontend)
-    return logits, _into_stack(cache_st, cache, views, cfg)
+    with obs.range(obs.CACHE_WRITE):
+        return logits, _into_stack(cache_st, cache, views, cfg)
 
 
 @torch.no_grad()
@@ -289,4 +291,5 @@ def decode_step(params_st, cfg: ModelConfig, token: torch.Tensor, pos: int,
     views = _per_layer_cache(cache_st, cfg)
     logits, cache = lm_mod.decode_step(unstack_params(params_st, cfg), cfg,
                                        token, pos, views, in_place=True)
-    return logits, _into_stack(cache_st, cache, views, cfg)
+    with obs.range(obs.CACHE_WRITE):
+        return logits, _into_stack(cache_st, cache, views, cfg)

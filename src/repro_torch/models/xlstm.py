@@ -51,9 +51,9 @@ from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import (CACHE_FILL, causal_conv, dense_init,
                                        map_grad, softplus)
@@ -64,8 +64,6 @@ from repro_torch.sharding.ctx import (full_as, is_dtensor,
 
 DEFAULT_MLSTM_CHUNK = 128
 CONV_WIDTH = 4
-# the profiler range around the sLSTM step loop (``launch/profile_serve``)
-SLSTM_RANGE = "slstm_step_loop"
 _GATES = ("z", "i", "f", "o")
 
 
@@ -438,7 +436,7 @@ def slstm_sequence(params, x: torch.Tensor, cfg: ModelConfig,
     xs = _slstm_gate_inputs(params, x)
     rw = _slstm_recurrent(params, cfg.n_heads)
     walk = _slstm_steps_rows if is_dtensor(xs) else _slstm_steps
-    with record_function(SLSTM_RANGE):
+    with obs.range(obs.SLSTM_STEP_LOOP):
         state, hs = walk(rw, cfg.n_heads, state, xs)
     out = hs.to(x.dtype) * F.silu(x @ params["w_z_gate"])
     return out @ params["w_down"], state

@@ -1,5 +1,6 @@
 """Observability subsystem: dual-clock span tracing + metrics (copy of
-``repro.obs``; its one profiler hook opens NVTX ranges here).
+``repro.obs``; its profiler hooks open NVTX ranges and, while a
+``torch.profiler`` records, ``record_function`` ranges here).
 
 The paper's whole argument is that hyper-parameter decisions must be
 driven by *measured* system overhead — so the sweep engine needs to be
@@ -23,6 +24,14 @@ returns a shared no-op context manager when the tracer is off) and
 and counts, never an rng or a float that feeds training.  Both halves are
 pinned in tests/test_torch_obs.py.
 
+The LM steps' layers open named ranges (``range`` around a block,
+``ranged`` around a whole function, and the names below):
+live exactly while a ``torch.profiler`` records, so that each kernel on
+its timeline falls under the innermost range open at its launch, and the
+shared no-op span otherwise (one flag check a site).  Every ``obs.span``
+is such a range too while a profiler records.  Pinned in
+tests/test_torch_ranges.py.
+
 Typical wiring (what ``launch/sweep.py --trace`` does):
 
     from repro_torch import obs
@@ -35,9 +44,37 @@ Typical wiring (what ``launch/sweep.py --trace`` does):
 
 from __future__ import annotations
 
+import functools
+
+from torch._C._autograd import _profiler_enabled
+from torch.autograd import profiler as _profiler
+
 from repro_torch.obs import metrics
 from repro_torch.obs.metrics import registry
 from repro_torch.obs.trace import NULL_SPAN, Span, Tracer, traced, tracer
+
+# The program's profiler ranges, each opened by the function that does the
+# work (a kernel counts under the innermost one open at its launch):
+PREFILL_STEP = "prefill_step"    # launch/steps.py, the prefill step's body
+SERVE_STEP = "serve_step"        # launch/steps.py, the serve step's body
+EMBED = "embed"                  # lm._embed_tokens
+NORM = "norm"                    # common.rmsnorm
+QKV_PROJ = "qkv_proj"            # attention._project_qkv
+ROPE = "rope"                    # common.apply_rope (inside qkv_proj)
+ATTN_CORE = "attn_core"          # attention._attend; decode's f32 cast,
+                                 # scores, mask, softmax and PV
+CACHE_WRITE = "cache_write"      # attention._write_slots, decode's slot
+                                 # writes, stacked._into_stack
+OUT_PROJ = "out_proj"            # attention._out_proj
+MLP = "mlp"                      # ffn.mlp
+MOE_ROUTER = "moe_router"        # ffn._route
+MOE_EXPERT_PRODUCTS = "moe_expert_products"   # the experts' products
+MOE_COMBINE = "moe_combine"      # the gate-weighted combine of the experts
+UNEMBED = "unembed"              # lm._unembed
+SLSTM_STEP_LOOP = "slstm_step_loop"           # xlstm.slstm_sequence's loop
+RANGES = (PREFILL_STEP, SERVE_STEP, EMBED, NORM, QKV_PROJ, ROPE, ATTN_CORE,
+          CACHE_WRITE, OUT_PROJ, MLP, MOE_ROUTER, MOE_EXPERT_PRODUCTS,
+          MOE_COMBINE, UNEMBED, SLSTM_STEP_LOOP)
 
 
 def enabled() -> bool:
@@ -60,8 +97,33 @@ def disable():
 
 def span(name: str, **kw):
     """Context-managed span (see ``Tracer.span``); a shared no-op when
-    tracing is disabled."""
+    tracing is disabled and no profiler records."""
     return tracer.span(name, **kw)
+
+
+def range(name: str):      # noqa: A001 -- ``obs.range`` at the sites
+    """One of the program's named ranges (``RANGES``) on the profiler's
+    timeline alone, no span of the tracer's: a ``record_function`` while a
+    ``torch.profiler`` records, else the shared :data:`NULL_SPAN` at the
+    cost of one flag check."""
+    if not _profiler_enabled():
+        return NULL_SPAN
+    return _profiler.record_function(name)
+
+
+def ranged(name: str):
+    """Decorator: each call of the function as the range ``name`` (see
+    ``range``); with no profiler recording, the function is called
+    directly after one flag check."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            if not _profiler_enabled():
+                return fn(*args, **kwargs)
+            with _profiler.record_function(name):
+                return fn(*args, **kwargs)
+        return wrapper
+    return deco
 
 
 def record(name: str, **kw):

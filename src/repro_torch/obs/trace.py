@@ -1,5 +1,6 @@
 """Dual-clock span tracer (copy of ``repro.obs.trace``; the profiler
-annotation per span is an NVTX range instead of a JAX trace annotation).
+annotations per span are an NVTX range instead of a JAX trace annotation,
+and a ``torch.profiler`` range while a profiler records).
 
 A :class:`Span` carries two time bases at once:
 
@@ -14,9 +15,11 @@ pack of 16 lanes — both numbers end up on adjacent Perfetto tracks.
 
 Zero-cost-when-disabled contract: ``Tracer.span`` returns the shared
 :data:`NULL_SPAN` (a no-op context manager with ``__slots__ = ()``) when
-the tracer is off, and ``record``/``counter`` return immediately.  The
-tracer never touches rngs or training values, so enabling it cannot
-perturb results (bit-parity is pinned in tests/test_torch_obs.py).
+the tracer is off and no ``torch.profiler`` records (a bare profiler
+range with the same interface when one does), and ``record``/``counter``
+return immediately.  The tracer never touches rngs or training values,
+so enabling it cannot perturb results (bit-parity is pinned in
+tests/test_torch_obs.py).
 
 This module imports nothing from the rest of ``repro_torch`` so every layer —
 runtime, experiments, federated, launch — can instrument freely without
@@ -29,6 +32,9 @@ import functools
 import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
+
+from torch._C._autograd import _profiler_enabled
+from torch.autograd import profiler as _profiler
 
 
 @dataclass
@@ -81,16 +87,37 @@ class _NullSpan:
 NULL_SPAN = _NullSpan()
 
 
+class _ProfiledSpan:
+    """A ``record_function`` range with :data:`NULL_SPAN`'s interface (a
+    no-op ``set``): what ``Tracer.span`` hands out while the tracer is off
+    and a ``torch.profiler`` records."""
+
+    __slots__ = ("_range",)
+
+    def __init__(self, name: str):
+        self._range = _profiler.record_function(name)
+
+    def __enter__(self):
+        self._range.__enter__()
+        return self
+
+    def __exit__(self, exc_type, exc_value, tb):
+        return self._range.__exit__(exc_type, exc_value, tb)
+
+    def set(self, **attrs):
+        return self
+
+
 class _LiveSpan:
     """Context manager that stamps both clocks and appends to the tracer."""
 
-    __slots__ = ("_tracer", "_span", "_clock", "_annotation")
+    __slots__ = ("_tracer", "_span", "_clock", "_annotations")
 
-    def __init__(self, tracer: "Tracer", span: Span, clock, annotation):
+    def __init__(self, tracer: "Tracer", span: Span, clock, annotations):
         self._tracer = tracer
         self._span = span
         self._clock = clock
-        self._annotation = annotation
+        self._annotations = annotations
 
     def set(self, **attrs):
         self._span.attrs.update(attrs)
@@ -99,15 +126,15 @@ class _LiveSpan:
     def __enter__(self):
         if self._clock is not None:
             self._span.virtual_t0 = self._clock.now
-        if self._annotation is not None:
-            self._annotation.__enter__()
+        for ann in self._annotations:
+            ann.__enter__()
         self._span.wall_t0 = time.perf_counter()
         return self
 
     def __exit__(self, exc_type, exc_value, tb):
         self._span.wall_t1 = time.perf_counter()
-        if self._annotation is not None:
-            self._annotation.__exit__(exc_type, exc_value, tb)
+        for ann in reversed(self._annotations):
+            ann.__exit__(exc_type, exc_value, tb)
         if self._clock is not None:
             self._span.virtual_t1 = self._clock.now
         self._tracer.spans.append(self._span)
@@ -173,14 +200,19 @@ class Tracer:
              trial: Optional[str] = None, lane: Optional[int] = None,
              round_idx: Optional[int] = None, clock=None, **attrs):
         """Open a span; pass ``clock`` (an object with ``.now``) to also
-        stamp virtual time at enter/exit."""
+        stamp virtual time at enter/exit.  While a ``torch.profiler``
+        records, the span is also a range on its timeline, recorded or
+        not."""
         if not self.enabled:
-            return NULL_SPAN
+            return _ProfiledSpan(name) if _profiler_enabled() else NULL_SPAN
         sp = Span(name=name, phase=phase, trial=trial, lane=lane,
                   round_idx=round_idx, attrs=attrs)
-        ann = (self._annotation_cls(name)
-               if self._annotation_cls is not None else None)
-        return _LiveSpan(self, sp, clock, ann)
+        anns = ()
+        if self._annotation_cls is not None:
+            anns = (self._annotation_cls(name),)
+        if _profiler_enabled():
+            anns = anns + (_profiler.record_function(name),)
+        return _LiveSpan(self, sp, clock, anns)
 
     def record(self, name: str, *,
                wall: Optional[Tuple[float, float]] = None,
@@ -214,11 +246,12 @@ tracer = Tracer()
 def traced(name: str, phase: Optional[str] = None):
     """Method decorator: wrap calls in a span attributed to the owner's
     ``trace_label`` (the runtime sets this to the trial key).  When the
-    tracer is off the only cost is one attribute check."""
+    tracer is off and no profiler records, the only cost is an attribute
+    and a flag check."""
     def deco(fn):
         @functools.wraps(fn)
         def wrapper(self, *args, **kwargs):
-            if not tracer.enabled:
+            if not tracer.enabled and not _profiler_enabled():
                 return fn(self, *args, **kwargs)
             with tracer.span(name, phase=phase,
                              trial=getattr(self, "trace_label", None)):
